@@ -1,0 +1,171 @@
+"""Build the CUDA sources under ``kernels/csrc`` and load them with ctypes.
+
+Each ``csrc/*.cu`` file has a plain C interface and includes no PyTorch
+header, so ``nvcc`` compiles it in seconds.  The sources are compiled in
+parallel, one ``nvcc`` each, for ``sm_90a`` (Hopper), then linked into
+``build/repro_torch/libkernels.so`` under the repository root.  The library
+is rebuilt when it is missing or older than a source, and loaded once per
+process.  Anything that goes wrong raises: there is no fallback.
+
+The wrappers share the rest of the C interface from here: the phi codes,
+the input checks, and turning a returned ``cudaError_t`` into an error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+# src/repro_torch/kernels/_build.py -> repository root
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+LIB_NAME = "libkernels.so"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and under CUDA_HOME): the CUDA "
+        "kernels of repro_torch need the CUDA toolkit to build"
+    )
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of any failure."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for c in cmds
+    ]
+    failed = []
+    for cmd, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"$ {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+
+
+def build(force: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` into the shared library; return its path."""
+    sources = sorted(CSRC.glob("*.cu"))
+    headers = sorted(CSRC.glob("*.cuh"))
+    lib = BUILD_DIR / LIB_NAME
+    newest = max(p.stat().st_mtime for p in sources + headers)
+    if not force and lib.exists() and lib.stat().st_mtime >= newest:
+        return lib
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (s.stem + ".o") for s in sources]
+        _run_all([
+            [nvcc, *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "-c", str(s), "-o", str(o)]
+            for s, o in zip(sources, objs)
+        ])
+        staged = Path(tmp) / LIB_NAME
+        _run_all([[nvcc, *ARCH, "-shared", "-o", str(staged),
+                   *map(str, objs)]])
+        # Atomic publish: a concurrent loader sees the old file or the new.
+        os.replace(staged, lib)
+    return lib
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ss_divergence_launch.argtypes = [
+        p, i, ll, i,     # W, W is bf16, rows of W, F
+        p, ll,           # cand_idx (or NULL), number of outputs
+        p, p, p, i,      # CU, phi_cu, resid, r
+        p, p, i,         # cap (or NULL), feat_w (or NULL), phi kind
+        p, p,            # out, stream
+    ]
+    lib.ss_divergence_launch.restype = i
+    lib.feature_gains_launch.argtypes = [
+        p, i, ll, i,     # W, W is bf16, rows of W, F
+        p, ll,           # cand_idx (or NULL), number of outputs
+        p, p,            # c, phi_c (device scalar)
+        p, p, i,         # cap (or NULL), feat_w (or NULL), phi kind
+        p, p,            # out, stream
+    ]
+    lib.feature_gains_launch.restype = i
+
+
+def load_library() -> ctypes.CDLL:
+    """Build if needed, then load the kernels' shared library (once)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        _declare(lib)
+        _lib = lib
+    return _lib
+
+
+# -- shared by the wrappers --------------------------------------------------
+
+# Must match enum PhiKind in csrc/common.cuh.
+PHI_CODES = {"sqrt": 0, "log1p": 1, "setcover": 2, "satcov": 3, "linear": 4}
+
+
+def check_inputs(
+    name: str,
+    W: torch.Tensor,
+    cand_idx: torch.Tensor | None,
+    phi: str,
+    cap: torch.Tensor | None,
+    **f32: torch.Tensor | None,
+) -> None:
+    """Validate what both kernels take: a contiguous 2-D ``W`` in float32 or
+    bfloat16, contiguous float32 side inputs and int64 ``cand_idx`` on W's
+    device, a known phi, and a cap for satcov.  Raises on anything else."""
+    if not isinstance(W, torch.Tensor) or W.dim() != 2:
+        raise ValueError(f"{name}: W must be a 2-D tensor")
+    if W.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: W must be float32 or bfloat16, got {W.dtype}")
+    if W.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {W.device}")
+    if phi not in PHI_CODES:
+        raise ValueError(f"{name}: unknown phi {phi!r}")
+    if phi == "satcov" and cap is None:
+        raise ValueError(f"{name}: phi='satcov' needs cap")
+    if W.shape[1] >= 2**31:
+        raise ValueError(f"{name}: too many features ({W.shape[1]})")
+    named = dict(f32, cap=cap)
+    tensors = [("W", W), ("cand_idx", cand_idx), *named.items()]
+    for arg, t in tensors:
+        if t is None:
+            continue
+        if t.device != W.device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, W on {W.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    for arg, t in named.items():
+        if t is not None and t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
+    if cand_idx is not None and (cand_idx.dtype != torch.int64
+                                 or cand_idx.dim() != 1):
+        raise TypeError(f"{name}: cand_idx must be a 1-D int64 tensor")
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """Device pointer for ctypes (None becomes NULL)."""
+    return None if t is None else t.data_ptr()
+
+
+def raise_on_error(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError_t {rc})")

@@ -1,0 +1,106 @@
+"""The port's ground rules: it imports nothing of JAX or of the JAX package,
+its entry points default to the card, and nothing falls back from the CUDA
+path to the plain one."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import feature_coverage_from_numpy, greedy, ss_sparsify, summarize
+from repro_torch.core import (
+    CudaBackend,
+    ReferenceBackend,
+    SubmodularFunction,
+    resolve_backend,
+)
+from repro_torch.data import news_day
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    assert len(files) >= 13
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
+def test_port_imports_nothing_of_jax_or_the_jax_package(path):
+    assert not _imported_roots(path) & FORBIDDEN
+
+
+def _fn():
+    return feature_coverage_from_numpy(news_day(0, 200, 32), device="cpu")
+
+
+@pytest.mark.parametrize("call", ["gains", "gains_compact", "divergence",
+                                  "divergence_compact", "ss_sparsify",
+                                  "greedy", "summarize"])
+def test_cuda_backend_refuses_cpu_tensors(call):
+    fn = _fn()
+    be = CudaBackend()
+    probes, cand = torch.tensor([1, 2, 3]), torch.arange(10)
+    calls = {
+        "gains": lambda: be.gains(fn, fn.empty_state()),
+        "gains_compact": lambda: be.gains_compact(fn, fn.empty_state(), cand),
+        "divergence": lambda: be.divergence(fn, probes),
+        "divergence_compact": lambda: be.divergence_compact(fn, probes, cand),
+        "ss_sparsify": lambda: ss_sparsify(fn, backend="cuda"),
+        "greedy": lambda: greedy(fn, 3, backend="cuda"),
+        "summarize": lambda: summarize(fn, 3, backend=be),
+    }
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        calls[call]()
+
+
+def test_backend_follows_the_device_never_the_reverse():
+    assert isinstance(resolve_backend(None, torch.device("cpu")), ReferenceBackend)
+    assert isinstance(resolve_backend(None, torch.device("cuda")), CudaBackend)
+    assert isinstance(resolve_backend("reference", "cuda"), ReferenceBackend)
+    be = CudaBackend()
+    assert resolve_backend(be, "cpu") is be
+    with pytest.raises(KeyError):
+        resolve_backend("oracle", "cpu")
+    with pytest.raises(ValueError):
+        resolve_backend(None)
+
+
+def test_objective_without_kernel_hooks_raises_under_cuda():
+    class NoKernel(SubmodularFunction):
+        n = 4
+        device = torch.device("cuda")
+        empty_state = value = gains = add = add_many = None
+        pairwise_gains = residual_gains = None
+
+    fn = NoKernel()
+    with pytest.raises(NotImplementedError):
+        CudaBackend().gains(fn, torch.zeros(3))
+    with pytest.raises(NotImplementedError):
+        CudaBackend().divergence(fn, torch.tensor([0]), residual=torch.zeros(4))
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    W = np.ones((4, 3), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        feature_coverage_from_numpy(W)
+    assert feature_coverage_from_numpy(W, device="cpu").device.type == "cpu"
