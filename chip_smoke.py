@@ -5,11 +5,19 @@
 From the root of a checkout, on a machine with a CUDA card and the CUDA
 toolkit.  It builds the kernels from ``src/repro_torch/kernels/csrc``, checks
 each against its plain PyTorch version over a sweep of shapes, dtypes and
-options, runs the paper's main path (SS, then greedy on the pruned set V')
-over FeatureCoverage on a synthetic news corpus of 2^20 sentences x 1024
-features, and checks its result, its kernel launches and its agreement with
-the plain path.  Then it times each kernel at the main path's shapes beside
-its bound and its plain version.
+options, and runs the paper's main path (SS, then greedy on the pruned set V')
+on three objectives, one after the other, each at full size:
+
+- FeatureCoverage over a synthetic news corpus of 2^20 sentences x 1024
+  features;
+- path A, dense facility location over a synthetic video of 2^16 frames x
+  256 features (cosine similarity, a 16 GiB matrix on the card);
+- path B, matrix-free facility location over 2^18 clustered embeddings of
+  width 16 (its dense similarity would be 256 GiB).
+
+For each it checks the result, its kernel launches and its agreement with
+the plain path, times each kernel at the path's shapes beside its bound and
+its plain version, and profiles the path.
 
 The last two lines of its output are JSON: the kernels' records, then
 ``{"ok": true, "device": {...}}``.  Any failure raises before them, and the
@@ -30,12 +38,18 @@ import torch
 
 # Main-path configuration: the paper's news setting scaled to one card.
 N, F, K, R, C = 1 << 20, 1024, 32, 8, 8.0
-# H100 SXM published peaks: HBM bandwidth and float32 CUDA-core rate.
+# Path A (dense FL over video frames) and path B (matrix-free FL).
+N_A, F_A = 1 << 16, 256
+N_B, D_B = 1 << 18, 16
+# H100 SXM published peaks: HBM bandwidth, the float32 FFMA rate (an FMA
+# counted as two operations), and the rate of other float32 instructions
+# (add, max, min: one per lane per clock, 132 SMs x 128 lanes x 1.98 GHz).
+# The special-function units (sqrt.approx, lg2) issue 16 per clock per SM:
+# that rate comes from the card's SM count and maximum SM clock.
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# Operations per (candidate, feature[, probe]) element of phi = sqrt without
-# feature weights: the add c + W, the clamp at 0, the sqrt, the accumulate.
-OPS_PER_ELEMENT = 4
+FFMA_FLOPS_PER_S = 67e12
+FP32_INSTR_PER_S = 33.5e12
+SFU_PER_CLOCK_PER_SM = 16
 # Tolerances of kernel vs plain, relative to the size of the sums involved.
 # Both accumulate in float32, in different orders; the result is a difference
 # (sum - phi_cu - resid) that cancels, so the error scales with the sums'
@@ -43,6 +57,7 @@ OPS_PER_ELEMENT = 4
 # 3e-2 its bfloat16 one.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 PHIS = ("sqrt", "log1p", "setcover", "satcov", "linear")
+RATES: dict[str, float] = {}
 
 
 def fail(msg: str) -> None:
@@ -58,20 +73,50 @@ def sync_ms(fn, iters: int) -> float:
     """Milliseconds per call from CUDA events, after one warm-up call."""
     fn()
     torch.cuda.synchronize()
+    return timed(fn, iters)[1]
+
+
+def timed(fn, iters: int = 1):
+    """(last result, milliseconds per call) from CUDA events, no warm-up."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
-        fn()
+        out = fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return out, start.elapsed_time(end) / iters
 
 
-def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def card_rates() -> None:
+    """The special-function rate of this card: 16 per clock per SM at the
+    maximum SM clock that nvidia-smi reports."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    RATES["sms"] = sms
+    RATES["clock_hz"] = float(clk) * 1e6
+    RATES["sfu"] = SFU_PER_CLOCK_PER_SM * sms * RATES["clock_hz"]
+    print(f"{sms} SMs at {clk} MHz: special-function rate {RATES['sfu']:.4g}/s",
+          flush=True)
+
+
+def bound(bytes_moved: float, fp32: float = 0.0, ffma: float = 0.0,
+          sfu: float = 0.0) -> tuple[float, str, str]:
+    """The least time for the work: the largest of the bytes over the memory
+    rate and each instruction class over its own rate (FFMA at 67 TFLOP/s,
+    other float32 instructions at 33.5e12/s, special functions at 16 per
+    clock per SM).  Returns (ms, "bytes" or "operations", the binding one)."""
+    times = {
+        "bytes": bytes_moved / HBM_BYTES_PER_S,
+        "fp32": fp32 / FP32_INSTR_PER_S,
+        "ffma": 2.0 * ffma / FFMA_FLOPS_PER_S,
+        "sfu": sfu / RATES["sfu"],
+    }
+    pipe = max(times, key=times.get)
+    return times[pipe] * 1e3, ("bytes" if pipe == "bytes" else "operations"), pipe
 
 
 def plain_phi_sum(phi, X, cap, fw):
@@ -139,62 +184,79 @@ def sweep(errs: dict) -> None:
 def small_pipeline() -> None:
     """The whole pipeline on a small corpus, kernels vs the plain backend on
     the card, under the same draws: same V' and the same picks."""
-    from repro_torch import feature_coverage_from_numpy, news_day, summarize
-    from repro_torch.core.sparsify import gumbel, max_rounds
+    from repro_torch import feature_coverage_from_numpy, news_day
 
     n = 4096
     fn = feature_coverage_from_numpy(news_day(0, n, 512))
-    g = torch.Generator(device="cuda").manual_seed(1)
-    noise = torch.stack([gumbel(n, g, "cuda") for _ in range(max_rounds(n, R, C))])
-    res_k, ss_k = summarize(fn, 10, r=R, c=C, noise=noise)
-    res_p, ss_p = summarize(fn, 10, r=R, c=C, noise=noise, backend="reference")
-    check(torch.equal(ss_k.vprime, ss_p.vprime), "small SS: V' differs")
-    check(torch.equal(res_k.selected, res_p.selected), "small greedy: picks differ")
-    check(abs(float(res_k.value) - float(res_p.value)) <= 1e-5 * float(res_p.value),
-          "small summarize: values differ")
+    res_k, ss_k = _cuda_vs_reference(fn, 10, seed=1)
     print(f"small summarize (n={n}): cuda == reference, |V'| = "
           f"{int(ss_k.vprime.sum())}, f(S') = {float(res_k.value):.6f}", flush=True)
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the card only",
-              file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+def _cuda_vs_reference(fn, k: int, seed: int, what: str = "small"):
+    """summarize through the kernels and through the plain backend under the
+    same draws: the same V', the same picks and f(S') to 1e-5 relative."""
+    from repro_torch import summarize
+    from repro_torch.core.sparsify import gumbel, max_rounds
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.stack([gumbel(fn.n, g, "cuda")
+                         for _ in range(max_rounds(fn.n, R, C))])
+    res_k, ss_k = summarize(fn, k, r=R, c=C, noise=noise)
+    res_p, ss_p = summarize(fn, k, r=R, c=C, noise=noise, backend="reference")
+    check(torch.equal(ss_k.vprime, ss_p.vprime), f"{what} SS: V' differs")
+    check(torch.equal(res_k.selected, res_p.selected),
+          f"{what} greedy: picks differ")
+    check(abs(float(res_k.value) - float(res_p.value)) <= 1e-5 * float(res_p.value),
+          f"{what} summarize: values differ")
+    return res_k, ss_k
+
+
+def profile_summarize(label: str, fn) -> dict:
+    """One summarize under the profiler: device busy time by kernel (device
+    events only: a PyTorch operator also reports its kernels' time as its
+    own, and would count them twice) against the synchronised wall."""
+    from repro_torch import summarize
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ]) as prof:
+        t = time.perf_counter()
+        summarize(fn, K, torch.Generator(device="cuda").manual_seed(0), r=R, c=C)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_kernel = sorted(
+        ((e.self_device_time_total, e.key, e.count)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA),
+        reverse=True,
+    )
+    busy_ms = sum(us for us, _, _ in by_kernel) / 1e3
+    if busy_ms <= 0:
+        print(f"profiled {label} summarize: the profiler saw no device time "
+              "(not measured)")
+        return {}
+    print(f"profiled {label} summarize: wall {wall_ms:.4f} ms, device busy "
+          f"{busy_ms:.4f} ms, idle share {1 - busy_ms / wall_ms:.4f}")
+    for us, key, count in by_kernel[:8]:
+        print(f"  {us / 1e3:10.4f} ms  x{count:<4d} {key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+
+
+def fc_path(errs: dict) -> list[dict]:
+    """The FeatureCoverage main path at n = 2^20 x F = 1024: run, check,
+    hold the kernels to their plain versions, time, profile."""
     from repro_torch import (
         feature_coverage_from_numpy, greedy, news_day, ss_sparsify, summarize,
     )
     from repro_torch.core.greedy import compact_indices, selection_bucket
     from repro_torch.core.sparsify import bucket_schedule, gumbel, probe_count
     from repro_torch.kernels import (
-        build, feature_gains_kernel, feature_gains_ref, load_library,
-        ss_divergence_kernel, ss_divergence_ref,
+        feature_gains_kernel, feature_gains_ref, ss_divergence_kernel,
+        ss_divergence_ref,
     )
 
-    # 1. the card
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(smi)
-    name = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}",
-          flush=True)
-
-    # 2. the build, from the sources in this checkout
-    t = time.perf_counter()
-    build(force=True)
-    load_library()
-    print(f"build: {time.perf_counter() - t:.2f} s (nvcc, sm_90a, one process "
-          "per source)", flush=True)
-
-    # 3. kernel vs plain, and the small pipeline
-    errs = {"ss_divergence": 0.0, "feature_gains": 0.0}
-    sweep(errs)
-    small_pipeline()
-
-    # 4. the main path at full size
     t = time.perf_counter()
     W_np = news_day(0, N, F)
     t_host = time.perf_counter() - t
@@ -250,7 +312,7 @@ def main() -> int:
     for kern in ("ss_divergence", "feature_gains"):
         check(counts["summarize"][kern] > 0, f"the main path never launched {kern}")
 
-    # 5. the plain route on the card for the same work
+    # the plain route on the card for the same work
     m = probe_count(N, R)
     g1 = gumbel(N, torch.Generator(device="cuda").manual_seed(0), "cuda")
     probes = torch.topk(g1, m).indices          # round 1's draw, as SS took it
@@ -298,15 +360,19 @@ def main() -> int:
           "round-2-sized buffer; full-width and V' gains); greedy on V' selects "
           "the same set through the reference backend", flush=True)
 
-    # 6. times at the main path's shapes
+    # times at the main path's shapes
     records = []
     ms = sync_ms(lambda: ss_divergence_kernel(fn.W, CU, phi_cu, resid), 5)
     plain_ms = sync_ms(lambda: ss_divergence_ref(fn.W, CU, phi_cu, resid), 1)
-    b_ms, b_by = bound(N * F * 4 + m * F * 4 + 2 * m * 4 + N * 4,
-                       N * m * F * OPS_PER_ELEMENT + 3 * N * m)
-    print(f"ss_divergence, round 1 ({N} candidates x {m} probes x {F} features, "
-          f"{OPS_PER_ELEMENT} ops per element): {ms:.4f} ms per launch, plain "
-          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), library none; "
+    # sqrt, per (candidate, probe, feature): add and max (float32), sqrt.approx
+    # (special function), the weighted accumulate (FFMA); per (candidate,
+    # probe) the two subtractions and the min.
+    elems = N * m * F
+    b_ms, b_by, b_pipe = bound(N * F * 4 + m * F * 4 + 2 * m * 4 + N * 4,
+                               fp32=2 * elems + 3 * N * m, ffma=elems, sfu=elems)
+    print(f"ss_divergence, round 1 ({N} candidates x {m} probes x {F} features): "
+          f"{ms:.4f} ms per launch, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}: {b_pipe}), library none; "
           f"{counts['summarize']['ss_divergence']} launches in summarize")
     records.append({
         "name": "ss_divergence", "route": "cuda",
@@ -319,19 +385,23 @@ def main() -> int:
 
     ms_full = sync_ms(lambda: feature_gains_kernel(fn.W, state_half, phi_c), 20)
     plain_full = sync_ms(lambda: feature_gains_ref(fn.W, state_half, phi_c), 3)
-    bf_ms, bf_by = bound(N * F * 4 + F * 4 + 4 + N * 4, N * F * OPS_PER_ELEMENT + N)
+    elems = N * F
+    bf_ms, bf_by, bf_pipe = bound(N * F * 4 + F * 4 + 4 + N * 4,
+                                  fp32=2 * elems + N, ffma=elems, sfu=elems)
     print(f"feature_gains, full width (greedy on V, {N} x {F}): {ms_full:.4f} ms "
           f"per launch, plain {plain_full:.4f} ms, bound {bf_ms:.4f} ms "
-          f"({bf_by}); {counts['greedy_on_V']['feature_gains']} launches")
+          f"({bf_by}: {bf_pipe}); {counts['greedy_on_V']['feature_gains']} launches")
     ms = sync_ms(lambda: feature_gains_kernel(
         fn.W, state_red, phi_red, cand_idx=cand_vp), 200)
     plain_ms = sync_ms(lambda: feature_gains_ref(
         fn.W, state_red, phi_red, cand_idx=cand_vp), 20)
-    b_ms, b_by = bound(size * (F * 4 + 8 + 4) + F * 4 + 4,
-                       size * F * OPS_PER_ELEMENT + size)
+    elems = size * F
+    b_ms, b_by, b_pipe = bound(size * (F * 4 + 8 + 4) + F * 4 + 4,
+                               fp32=2 * elems + size, ffma=elems, sfu=elems)
     print(f"feature_gains in summarize (greedy on V': {size} slots x {F}): "
           f"{ms:.4f} ms per launch, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}), library none; {counts['summarize']['feature_gains']} launches")
+          f"({b_by}: {b_pipe}), library none; "
+          f"{counts['summarize']['feature_gains']} launches")
     records.append({
         "name": "feature_gains", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/feature_gains.cu",
@@ -343,11 +413,8 @@ def main() -> int:
                        "bound_by": bf_by,
                        "launches": counts["greedy_on_V"]["feature_gains"]},
     })
-    check(all(math.isfinite(r_[k]) for r_ in records
-              for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")),
-          "a measurement is not finite")
 
-    # 7. where the time goes: the same run again, warm, split by stage and
+    # where the time goes: the same run again, warm, split by stage and
     # then under the profiler for device time by kernel.
     gen = torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.synchronize()
@@ -362,29 +429,480 @@ def main() -> int:
     check(torch.equal(res2.selected, res.selected), "a rerun of the path differs")
     print(f"warm rerun: SS wall {wall_ss:.4f} s, greedy on V' wall {wall_gr:.4f} s "
           "(host clock, synchronised)")
-    with torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
-    ]) as prof:
-        t = time.perf_counter()
-        summarize(fn, K, torch.Generator(device="cuda").manual_seed(0), r=R, c=C)
-        torch.cuda.synchronize()
-        wall_prof = time.perf_counter() - t
-    # Device-side events only: a PyTorch operator also reports its kernels'
-    # time as its own, and would count them twice.
-    by_kernel = sorted(
-        ((e.self_device_time_total, e.key, e.count)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA),
-        reverse=True,
+    profile_summarize("FeatureCoverage", fn)
+    return records
+
+
+# -- facility location --------------------------------------------------------
+
+
+def _fl_close(out, ref, resid, tol, what):
+    """Kernel vs plain: finite, same shape, error within tol of the sums'
+    size (max |ref| + max |resid| over live probes, at least 1)."""
+    live = resid[resid > -1e29] if resid is not None else resid
+    size = float(ref.abs().max()) + (float(live.abs().max())
+                                     if live is not None and live.numel() else 0.0)
+    err = float((out - ref).abs().max())
+    check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+          f"{what}: bad output")
+    check(err <= tol * max(1.0, size), f"{what}: err {err} > {tol * max(1.0, size)}")
+    return err
+
+
+def fl_sweep(errs: dict) -> None:
+    """The two FL kernels and their gains instances vs their plain versions
+    on the card: ragged shapes x float32/bfloat16 sim x cand_idx none or
+    zero-padded x symmetric or asymmetric sim (dense), and x d x Xc = X or
+    Xc != X (matrix-free), each with a pad probe (resid = -INF)."""
+    from repro_torch.kernels import (
+        fl_divergence_kernel, fl_divergence_ref, fl_gains_kernel,
+        fl_stream_divergence_kernel, fl_stream_divergence_ref,
+        fl_stream_gains_kernel,
     )
-    busy_ms = sum(us for us, _, _ in by_kernel) / 1e3
-    if busy_ms > 0:
-        print(f"profiled summarize: wall {wall_prof * 1e3:.4f} ms, device busy "
-              f"{busy_ms:.4f} ms, idle share {1 - busy_ms / (wall_prof * 1e3):.4f}")
-        for us, key, count in by_kernel[:8]:
-            print(f"  {us / 1e3:10.4f} ms  x{count:<4d} {key[:90]}")
-    else:
-        print("profiled summarize: the profiler saw no device time (not measured)")
+    from repro_torch.kernels.ref import sim_rows
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dev = "cuda"
+    shapes = [(64, 3), (130, 5), (513, 33), (2000, 130)]
+
+    def probe_rows(sim, r, with_state):
+        n = sim.shape[1]
+        probes = torch.randperm(n, generator=g, device=dev)[:r]
+        state = (sim[:, probes[:2]].float().amax(1).clamp_min(0) if with_state
+                 else torch.zeros(sim.shape[0], device=dev))
+        MU = torch.maximum(state[None, :], sim[:, probes].T.float()).contiguous()
+        resid = torch.rand((r,), generator=g, device=dev) * 0.1
+        resid[-1] = -1e30  # a pad probe: never wins the min
+        return MU, resid, state.contiguous()
+
+    def cand_of(n):
+        cand = torch.randint(0, n, (n // 3 + 2,), generator=g, device=dev)
+        cand[-2:] = 0  # zero padding, as the SS and greedy buffers carry
+        return cand
+
+    dense = 0
+    for (n, r), dt, compact, asym in itertools.product(
+        shapes, (torch.float32, torch.bfloat16), (False, True), (False, True)
+    ):
+        if asym:   # rectangular and asymmetric: candidates are columns
+            sim = torch.rand((n + 37, n), generator=g, device=dev)
+        else:      # a cosine similarity, as from_features builds it
+            X = torch.rand((n, 8), generator=g, device=dev)
+            X = X / X.norm(dim=1, keepdim=True)
+            sim = sim_rows(X, X)
+        sim = sim.to(dt).contiguous()
+        MU, resid, state = probe_rows(sim, r, with_state=compact)
+        cand = cand_of(n) if compact else None
+        what = f"fl_divergence {n}x{r} {dt} cand={compact} asym={asym}"
+        errs["fl_divergence"] = max(errs["fl_divergence"], _fl_close(
+            fl_divergence_kernel(sim, MU, resid, cand),
+            fl_divergence_ref(sim, MU, resid, cand), resid, TOL[dt], what))
+        errs["fl_gains"] = max(errs["fl_gains"], _fl_close(
+            fl_gains_kernel(sim, state, cand),
+            fl_divergence_ref(sim, state[None], torch.zeros(1, device=dev), cand),
+            None, TOL[dt], "fl_gains: " + what))
+        dense += 1
+
+    stream = 0
+    for (n, r), d, separate, compact in itertools.product(
+        shapes, (5, 16, 130, 256), (False, True), (False, True)
+    ):
+        X = torch.randn((n, d), generator=g, device=dev)
+        X = X / X.norm(dim=1, keepdim=True)
+        Xc = X
+        if separate:
+            Xc = torch.randn((n + 11, d), generator=g, device=dev)
+            Xc = Xc / Xc.norm(dim=1, keepdim=True)
+        probes = torch.randperm(Xc.shape[0], generator=g, device=dev)[:r]
+        state = (sim_rows(X, Xc[probes[:2]]).amax(1) if compact
+                 else torch.zeros(n, device=dev))
+        MU = torch.maximum(state[None, :], sim_rows(X, Xc[probes]).T).contiguous()
+        resid = torch.rand((r,), generator=g, device=dev) * 0.1
+        resid[-1] = -1e30
+        cand = cand_of(Xc.shape[0]) if compact else None
+        Xc_arg = Xc if separate else None
+        what = f"fl_stream {n}x{r} d={d} Xc!=X={separate} cand={compact}"
+        errs["fl_stream_divergence"] = max(errs["fl_stream_divergence"], _fl_close(
+            fl_stream_divergence_kernel(X, MU, resid, cand, Xc_arg),
+            fl_stream_divergence_ref(X, MU, resid, cand, Xc_arg), resid,
+            TOL[torch.float32], what))
+        errs["fl_stream_gains"] = max(errs["fl_stream_gains"], _fl_close(
+            fl_stream_gains_kernel(X, state, cand, Xc_arg),
+            fl_stream_divergence_ref(X, state[None], torch.zeros(1, device=dev),
+                                     cand, Xc_arg),
+            None, TOL[torch.float32], "fl_stream_gains: " + what))
+        stream += 1
+    torch.cuda.synchronize()
+    print(f"FL kernel vs plain: {dense} dense cases (fl_divergence and "
+          f"fl_gains), {stream} matrix-free cases (fl_stream_divergence and "
+          f"fl_stream_gains) passed; max abs err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()
+                      if k.startswith("fl_")), flush=True)
+
+
+def fl_small_pipelines() -> None:
+    """Dense and matrix-free FL at n = 4096: through the kernels and the
+    plain backend under the same draws (same V', same picks), and dense vs
+    matrix-free over the same embeddings (f(S') to 1e-4 relative)."""
+    from repro_torch import (
+        StreamingFacilityLocation, clustered_embeddings,
+        facility_location_from_features, video,
+    )
+
+    n = 4096
+    fn = facility_location_from_features(video(0, n, 256), "cosine")
+    res_a, ss_a = _cuda_vs_reference(fn, 10, seed=3, what="small dense FL")
+    E = torch.from_numpy(clustered_embeddings(0, n, 16)).cuda()
+    sfl = StreamingFacilityLocation.from_features(E, "dot")
+    res_b, ss_b = _cuda_vs_reference(sfl, 10, seed=4, what="small matrix-free FL")
+    dense = facility_location_from_features(E.cpu().numpy(), "dot")
+    res_d, _ = _cuda_vs_reference(dense, 10, seed=4, what="small dense-dot FL")
+    f_b, f_d = float(res_b.value), float(res_d.value)
+    check(abs(f_b - f_d) <= 1e-4 * f_d,
+          f"dense and matrix-free FL disagree: f(S') {f_d} vs {f_b}")
+    print(f"small FL pipelines (n={n}): cuda == reference; dense |V'| = "
+          f"{int(ss_a.vprime.sum())}, f(S') = {float(res_a.value):.6f}; "
+          f"matrix-free |V'| = {int(ss_b.vprime.sum())}, f(S') = {f_b:.6f}, "
+          f"dense over the same embeddings {f_d:.6f}", flush=True)
+
+
+def _fl_drive(label: str, fn, kernels: dict) -> tuple:
+    """Greedy on V, then summarize, each with the kernels' counts set to 0
+    just before and read just after; checks the results, except the
+    relative quality, which the caller checks after its measurements."""
+    from repro_torch import greedy, summarize
+
+    counts = {}
+
+    def run(path, call):
+        for kern in kernels.values():
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        counts[path] = {name: kern.launches for name, kern in kernels.items()}
+        return out, time.perf_counter() - t
+
+    full, wall_full = run("greedy_on_V", lambda: greedy(fn, K))
+    (res, ss), wall_sum = run("summarize", lambda: summarize(
+        fn, K, torch.Generator(device="cuda").manual_seed(0), r=R, c=C))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    f_full, f_red = float(full.value), float(res.value)
+    nv = int(ss.vprime.sum())
+    rel = f_red / f_full
+    print(f"{label} greedy on V: f(S) = {f_full:.6f}, wall {wall_full:.4f} s")
+    print(f"{label} summarize: rounds = {ss.rounds}, |V'| = {nv}, eps_hat = "
+          f"{float(ss.eps_hat):.6f}, f(S') = {f_red:.6f}, relative = {rel:.6f}, "
+          f"wall {wall_sum:.4f} s")
+    print(f"{label} launches: {json.dumps(counts)}; peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+    for r_ in (full, res):
+        check(r_.selected.shape == (K,) and bool(torch.isfinite(r_.gains).all()),
+              f"{label}: greedy result has the wrong shape or non-finite gains")
+        check(int(r_.selected.unique().numel()) == K, f"{label}: greedy picked twice")
+    check(bool(ss.vprime[res.selected].all()), f"{label}: greedy on V' left V'")
+    check(0 < nv < fn.n and ss.rounds > 0, f"{label}: SS pruned nothing or all")
+    for name in kernels:
+        path = "greedy_on_V" if name.endswith("gains") else "summarize"
+        check(counts["summarize"][name] > 0 and counts[path][name] > 0,
+              f"{label}: {path} never launched {name}")
+    ref = greedy(fn, K, alive=ss.vprime, backend="reference")
+    check(torch.equal(ref.selected, res.selected),
+          f"{label}: greedy on V' through the plain backend picks another set")
+    return full, res, ss, counts, rel
+
+
+def _round1(fn, residual):
+    """Round 1's probes, as SS draws them, and the kernels' inputs."""
+    from repro_torch.core.sparsify import gumbel, probe_count
+
+    m = probe_count(fn.n, R)
+    g1 = gumbel(fn.n, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    probes = torch.topk(g1, m).indices
+    MU = fn._probe_mu(probes, None).float().contiguous()
+    return m, MU, residual[probes].float().contiguous()
+
+
+def fl_dense_path(errs: dict) -> list[dict]:
+    """Path A: dense FL over 2^16 video frames x 256 features (cosine), the
+    paper's video objective with a 16 GiB similarity on the card."""
+    from repro_torch import facility_location_from_features, video
+    from repro_torch.core.greedy import compact_indices, selection_bucket
+    from repro_torch.core.sparsify import bucket_schedule
+    from repro_torch.kernels import (
+        fl_divergence_kernel, fl_divergence_ref, fl_gains_kernel,
+    )
+
+    t = time.perf_counter()
+    X = video(0, N_A, F_A)
+    t_host = time.perf_counter() - t
+    t = time.perf_counter()
+    fn = facility_location_from_features(X, "cosine", n_threshold=None)
+    torch.cuda.synchronize()
+    print(f"path A: video(0, {N_A}, {F_A}): host set-up {t_host:.2f} s; cosine "
+          f"similarity ({N_A} x {N_A} float32) on the card in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+    kernels = {"fl_divergence": fl_divergence_kernel, "fl_gains": fl_gains_kernel}
+    full, res, ss, counts, rel = _fl_drive("path A", fn, kernels)
+
+    # main-path shapes against plain
+    residual = fn.residual_gains()
+    m, MU, resid = _round1(fn, residual)
+    div_k, ms = timed(lambda: fl_divergence_kernel(fn.sim, MU, resid), 3)
+    div_p, plain_ms = timed(lambda: fl_divergence_ref(fn.sim, MU, resid))
+    errs["fl_divergence"] = max(errs["fl_divergence"], _fl_close(
+        div_k, div_p, resid, TOL[torch.float32], "path A round 1 divergence"))
+    mid = bucket_schedule(N_A, C)[1]
+    cand_mid = torch.sort(torch.randperm(N_A, device="cuda")[:mid]).values
+    div_mid, ms_mid = timed(lambda: fl_divergence_kernel(fn.sim, MU, resid,
+                                                         cand_mid), 3)
+    errs["fl_divergence"] = max(errs["fl_divergence"], _fl_close(
+        div_mid, div_p[cand_mid], resid, TOL[torch.float32],
+        "path A round-2-sized divergence"))
+    state_half = fn.add_many(fn.empty_state(), _mask(N_A, full.selected[: K // 2]))
+    zero = torch.zeros(1, device="cuda")
+    g_k, ms_full = timed(lambda: fl_gains_kernel(fn.sim, state_half), 20)
+    g_p, plain_full = timed(lambda: fl_divergence_ref(fn.sim, state_half[None], zero))
+    errs["fl_gains"] = max(errs["fl_gains"], _fl_close(
+        g_k, g_p, None, TOL[torch.float32], "path A full-width gains"))
+    size = selection_bucket(N_A, int(ss.vprime.sum()))
+    check(size is not None, "path A: V' does not fit a compact bucket")
+    cand_vp = compact_indices(ss.vprime, size)
+    st = res.state.float().contiguous()
+    g_k, ms_vp = timed(lambda: fl_gains_kernel(fn.sim, st, cand_vp), 200)
+    g_p, plain_vp = timed(lambda: fl_divergence_ref(fn.sim, st[None], zero, cand_vp))
+    errs["fl_gains"] = max(errs["fl_gains"], _fl_close(
+        g_k, g_p, None, TOL[torch.float32], "path A V' gains"))
+    print("path A main-path shapes: kernels match their plain versions (round 1,"
+          f" a round-2-sized buffer of {mid}; full-width and V' gains); greedy "
+          "on V' selects the same set through the reference backend", flush=True)
+
+    # bounds: 3 float32 instructions (subtract, max, add) per (probe,
+    # candidate, row); each input read once, the output written once.
+    b_ms, b_by, b_pipe = bound(N_A * N_A * 4 + m * N_A * 4 + m * 4 + N_A * 4,
+                               fp32=3 * m * N_A * N_A)
+    print(f"fl_divergence, round 1 ({N_A} candidates x {m} probes x {N_A} rows):"
+          f" {ms:.4f} ms per launch, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}: {b_pipe}), library none; round-2-sized buffer ({mid} "
+          f"gathered columns) {ms_mid:.4f} ms; "
+          f"{counts['summarize']['fl_divergence']} launches in summarize")
+    bf_ms, bf_by, bf_pipe = bound(N_A * N_A * 4 + 2 * N_A * 4, fp32=3 * N_A * N_A)
+    bv_ms, bv_by, bv_pipe = bound(size * (N_A * 4 + 8 + 4) + N_A * 4,
+                                  fp32=3 * size * N_A)
+    print(f"fl_gains, full width (greedy on V, {N_A} x {N_A}): {ms_full:.4f} ms "
+          f"per launch, plain {plain_full:.4f} ms, bound {bf_ms:.4f} ms ({bf_by}); "
+          f"{counts['greedy_on_V']['fl_gains']} launches; over V' ({size} "
+          f"gathered columns): {ms_vp:.4f} ms, plain {plain_vp:.4f} ms, bound "
+          f"{bv_ms:.4f} ms ({bv_by}); {counts['summarize']['fl_gains']} launches "
+          "in summarize; library none", flush=True)
+    profile_summarize("path A", fn)
+    check(rel >= 0.95, f"path A: relative quality {rel} < 0.95")
+    return [
+        {"name": "fl_divergence", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fl_divergence.cu",
+         "replaces": "src/repro/kernels/fl_divergence.py:110",
+         "launches": counts["summarize"]["fl_divergence"],
+         "max_abs_err": errs["fl_divergence"], "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+         "round2_sized": {"cands": mid, "ms": ms_mid}},
+        {"name": "fl_gains", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fl_divergence.cu",
+         "replaces": "src/repro/kernels/fl_divergence.py:175",
+         "launches": counts["summarize"]["fl_gains"],
+         "max_abs_err": errs["fl_gains"], "ms": ms_vp, "plain_ms": plain_vp,
+         "bound_ms": bv_ms, "bound_by": bv_by, "library_ms": None,
+         "full_width": {"ms": ms_full, "plain_ms": plain_full, "bound_ms": bf_ms,
+                        "bound_by": bf_by,
+                        "launches": counts["greedy_on_V"]["fl_gains"]}},
+    ]
+
+
+def _mask(n, idx):
+    mask = torch.zeros(n, dtype=torch.bool, device="cuda")
+    mask[idx] = True
+    return mask
+
+
+def fl_stream_path(errs: dict) -> list[dict]:
+    """Path B: matrix-free FL over 2^18 clustered embeddings of width 16
+    (dot similarity; the dense matrix would be 256 GiB)."""
+    from repro_torch import (
+        StreamingFacilityLocation, clustered_embeddings, greedy, summarize,
+    )
+    from repro_torch.core.greedy import compact_indices, selection_bucket
+    from repro_torch.kernels import (
+        fl_stream_divergence_kernel, fl_stream_divergence_ref,
+        fl_stream_gains_kernel,
+    )
+
+    t = time.perf_counter()
+    E = clustered_embeddings(0, N_B, D_B)
+    t_host = time.perf_counter() - t
+    fn = StreamingFacilityLocation.from_features(torch.from_numpy(E).cuda(), "dot")
+    print(f"path B: clustered_embeddings(0, {N_B}, {D_B}): host set-up "
+          f"{t_host:.2f} s", flush=True)
+    kernels = {"fl_stream_divergence": fl_stream_divergence_kernel,
+               "fl_stream_gains": fl_stream_gains_kernel}
+    full, res, ss, counts, rel = _fl_drive("path B", fn, kernels)
+
+    # main-path shapes against plain.  A full-width plain round 1 would take
+    # minutes, so the plain comparison runs on 2048 gathered candidates at
+    # full served width; the kernel is timed on both.
+    residual = fn.residual_gains()
+    m, MU, resid = _round1(fn, residual)
+    X = fn.X
+    div_k, ms = timed(lambda: fl_stream_divergence_kernel(X, MU, resid), 1)
+    check(div_k.shape == (N_B,) and bool(torch.isfinite(div_k).all()),
+          "path B round 1 divergence: bad output")
+    cand = torch.sort(torch.randperm(N_B, device="cuda")[:2048]).values
+    d_k, ms_2048 = timed(lambda: fl_stream_divergence_kernel(X, MU, resid, cand), 3)
+    d_p, plain_ms = timed(lambda: fl_stream_divergence_ref(X, MU, resid, cand))
+    errs["fl_stream_divergence"] = max(errs["fl_stream_divergence"], _fl_close(
+        d_k, d_p, resid, TOL[torch.float32], "path B 2048-candidate divergence"))
+    errs["fl_stream_divergence"] = max(errs["fl_stream_divergence"], _fl_close(
+        div_k[cand], d_p, resid, TOL[torch.float32],
+        "path B round 1 divergence at 2048 candidates"))
+    state_half = fn.add_many(fn.empty_state(), _mask(N_B, full.selected[: K // 2]))
+    zero = torch.zeros(1, device="cuda")
+    g_k, ms_full = timed(lambda: fl_stream_gains_kernel(X, state_half), 3)
+    g_p, plain_g = timed(lambda: fl_stream_divergence_ref(X, state_half[None], zero,
+                                                          cand))
+    errs["fl_stream_gains"] = max(errs["fl_stream_gains"], _fl_close(
+        g_k[cand], g_p, None, TOL[torch.float32], "path B full-width gains"))
+    size = selection_bucket(N_B, int(ss.vprime.sum()))
+    check(size is not None, "path B: V' does not fit a compact bucket")
+    cand_vp = compact_indices(ss.vprime, size)
+    st = res.state.float().contiguous()
+    g_k, ms_vp = timed(lambda: fl_stream_gains_kernel(X, st, cand_vp), 20)
+    g_p, plain_vp = timed(lambda: fl_stream_divergence_ref(X, st[None], zero,
+                                                           cand_vp))
+    errs["fl_stream_gains"] = max(errs["fl_stream_gains"], _fl_close(
+        g_k, g_p, None, TOL[torch.float32], "path B V' gains"))
+    print("path B main-path shapes: kernels match their plain versions (round "
+          "1 and the kernel's own 2048-candidate buffer against plain at full "
+          "served width; full-width gains at 2048 candidates, V' gains); greedy "
+          "on V' selects the same set through the reference backend", flush=True)
+
+    # bounds: per (candidate, row) d FFMAs and one max for the similarity,
+    # then 3 float32 instructions per probe.
+    def stream_bound(k, r):
+        return bound(N_B * D_B * 4 + k * (D_B * 4 + 4) + r * N_B * 4 + r * 4,
+                     fp32=(3 * r + 1) * k * N_B, ffma=D_B * k * N_B)
+
+    b_ms, b_by, b_pipe = stream_bound(N_B, m)
+    b2_ms, _, _ = stream_bound(2048, m)
+    print(f"fl_stream_divergence, round 1 ({N_B} candidates x {m} probes x "
+          f"{N_B} rows, d = {D_B}): {ms:.4f} ms per launch, bound {b_ms:.4f} ms "
+          f"({b_by}: {b_pipe}); at 2048 candidates {ms_2048:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {b2_ms:.4f} ms; library none; "
+          f"{counts['summarize']['fl_stream_divergence']} launches in summarize")
+    bf_ms, bf_by, bf_pipe = stream_bound(N_B, 1)
+    bv_ms, bv_by, bv_pipe = stream_bound(size, 1)
+    print(f"fl_stream_gains, full width (greedy on V): {ms_full:.4f} ms per "
+          f"launch, bound {bf_ms:.4f} ms ({bf_by}: {bf_pipe}), plain at 2048 "
+          f"candidates {plain_g:.4f} ms; {counts['greedy_on_V']['fl_stream_gains']}"
+          f" launches; over V' ({size} slots): {ms_vp:.4f} ms, plain "
+          f"{plain_vp:.4f} ms, bound {bv_ms:.4f} ms ({bv_by}: {bv_pipe}); "
+          f"{counts['summarize']['fl_stream_gains']} launches in summarize; "
+          "library none", flush=True)
+    profile_summarize("path B", fn)
+
+    # SS's quality at r = c = 8 falls as this data set grows, in the JAX
+    # reference as in the port (they prune alike under the same draws,
+    # tests/test_torch_fl_summarize.py), and at 2^18 it sits below the 0.95
+    # of path A.  Measure it over seeds and sizes; hold each run to 0.93.
+    rels = {"n=2^18 seed 0": rel}
+    for seed in (1, 2):
+        res_s, _ = summarize(fn, K, torch.Generator(device="cuda").manual_seed(seed),
+                             r=R, c=C)
+        rels[f"n=2^18 seed {seed}"] = float(res_s.value) / float(full.value)
+    del fn
+    for log_n in (16, 17):
+        fn_n = StreamingFacilityLocation.from_features(
+            torch.from_numpy(clustered_embeddings(0, 1 << log_n, D_B)).cuda(), "dot")
+        res_n, _ = summarize(fn_n, K, torch.Generator(device="cuda").manual_seed(0),
+                             r=R, c=C)
+        rels[f"n=2^{log_n} seed 0"] = (float(res_n.value)
+                                       / float(greedy(fn_n, K).value))
+    print("path B relative quality: " + ", ".join(
+        f"{k} {v:.6f}" for k, v in rels.items()), flush=True)
+    check(min(rels.values()) >= 0.93,
+          f"path B: relative quality {min(rels.values())} < 0.93")
+    return [
+        {"name": "fl_stream_divergence", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fl_stream.cu",
+         "replaces": "src/repro/kernels/fl_stream.py:135",
+         "launches": counts["summarize"]["fl_stream_divergence"],
+         "max_abs_err": errs["fl_stream_divergence"], "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+         "library_ms": None,
+         "at_2048_candidates": {"ms": ms_2048, "plain_ms": plain_ms,
+                                "bound_ms": b2_ms}},
+        {"name": "fl_stream_gains", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fl_stream.cu",
+         "replaces": "src/repro/kernels/fl_stream.py:201",
+         "launches": counts["summarize"]["fl_stream_gains"],
+         "max_abs_err": errs["fl_stream_gains"], "ms": ms_vp, "plain_ms": plain_vp,
+         "bound_ms": bv_ms, "bound_by": bv_by, "library_ms": None,
+         "full_width": {"ms": ms_full, "bound_ms": bf_ms, "bound_by": bf_by,
+                        "plain_ms_at_2048_candidates": plain_g,
+                        "launches": counts["greedy_on_V"]["fl_stream_gains"]}},
+    ]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import build, load_library
+
+    # 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    name = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}",
+          flush=True)
+    card_rates()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmul is on: the FL similarities need IEEE float32")
+
+    # 2. the build, from the sources in this checkout
+    t = time.perf_counter()
+    build(force=True)
+    load_library()
+    print(f"build: {time.perf_counter() - t:.2f} s (nvcc, sm_90a, one process "
+          "per source)", flush=True)
+
+    # 3. kernel vs plain, and the small pipeline
+    errs = {"ss_divergence": 0.0, "feature_gains": 0.0}
+    sweep(errs)
+    small_pipeline()
+
+    # 4-7. the FeatureCoverage main path at full size
+    records = fc_path(errs)
+
+    # 8-9. facility location: kernel vs plain, the small pipelines
+    errs.update(fl_divergence=0.0, fl_gains=0.0, fl_stream_divergence=0.0,
+                fl_stream_gains=0.0)
+    torch.cuda.empty_cache()
+    fl_sweep(errs)
+    fl_small_pipelines()
+
+    # 10-11. path A and path B at full size, each on a freed card
+    for path in (fl_dense_path, fl_stream_path):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        records += path(errs)
+    check(len(records) == 6 and all(
+        math.isfinite(r_[k]) for r_ in records
+        for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")),
+        "a measurement is missing or not finite")
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

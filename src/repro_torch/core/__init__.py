@@ -6,7 +6,13 @@ from repro_torch.core.backend import (
     ReferenceBackend,
     resolve_backend,
 )
-from repro_torch.core.functions import NEG, FeatureCoverage, SubmodularFunction
+from repro_torch.core.functions import (
+    NEG,
+    FacilityLocation,
+    FeatureCoverage,
+    StreamingFacilityLocation,
+    SubmodularFunction,
+)
 from repro_torch.core.graph import (
     divergence,
     divergence_compact,
@@ -28,8 +34,9 @@ from repro_torch.core.sparsify import (
 )
 
 __all__ = [
-    "Backend", "CudaBackend", "FeatureCoverage", "GreedyResult", "NEG",
-    "ReferenceBackend", "SSResult", "SubmodularFunction", "bucket_schedule",
+    "Backend", "CudaBackend", "FacilityLocation", "FeatureCoverage",
+    "GreedyResult", "NEG", "ReferenceBackend", "SSResult",
+    "StreamingFacilityLocation", "SubmodularFunction", "bucket_schedule",
     "divergence", "divergence_compact", "edge_weights", "edge_weights_compact",
     "greedy", "max_rounds", "predicted_live_counts", "preprune_mask",
     "probe_count", "resolve_backend", "selection_bucket", "ss_cost_model",

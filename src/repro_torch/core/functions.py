@@ -1,14 +1,20 @@
 """Submodular objectives with batched marginal-gain APIs, in PyTorch.
 
-The counterpart of ``repro/core/functions.py`` for the slice of the port
-that the paper's main path needs: the :class:`SubmodularFunction` protocol
-and :class:`FeatureCoverage`,
+The counterpart of ``repro/core/functions.py`` for the objectives the port
+runs so far: the :class:`SubmodularFunction` protocol, :class:`FeatureCoverage`,
 
-    f(S) = sum_f w_f * phi(c_f(S)),   c_f(S) = sum_{v in S} W[v, f].
+    f(S) = sum_f w_f * phi(c_f(S)),   c_f(S) = sum_{v in S} W[v, f],
+
+and facility location, dense (:class:`FacilityLocation`, over an (n, n)
+similarity) and matrix-free (:class:`StreamingFacilityLocation`, over (n, d)
+embedding rows),
+
+    f(S) = sum_i max(0, max_{s in S} sim[i, s]).
 
 Objectives are frozen dataclasses that hold tensors.  A *state* summarizes
-the current solution set S (for FeatureCoverage, the coverage vector c), so
-the gains f(v|S) of all candidates come from one dense operation.
+the current solution set S (the coverage vector c, or the per-row best
+coverage m), so the gains f(v|S) of all candidates come from one dense
+operation.
 
 Two kernel hooks, ``cuda_divergence`` and ``cuda_gains``, carry the SS round
 and the greedy step to the CUDA kernels (:mod:`repro_torch.core.backend`,
@@ -24,7 +30,23 @@ import dataclasses
 import torch
 
 from repro_torch.kernels.feature_gains import feature_gains_kernel
-from repro_torch.kernels.ref import _ROW_CHUNK, _phi
+from repro_torch.kernels.fl_divergence import fl_divergence_kernel, fl_gains_kernel
+from repro_torch.kernels.fl_stream import (
+    fl_stream_col_max,
+    fl_stream_divergence_kernel,
+    fl_stream_gains_kernel,
+    fl_stream_residuals,
+)
+from repro_torch.kernels.ref import (
+    _ELEMS,
+    _ROW_CHUNK,
+    _phi,
+    fl_pair_ref,
+    fl_residuals,
+    fl_stream_pair_ref,
+    matmul_ieee,
+    sim_rows,
+)
 from repro_torch.kernels.ss_weights import ss_divergence_kernel
 
 Tensor = torch.Tensor
@@ -32,7 +54,8 @@ Tensor = torch.Tensor
 # Large-but-finite negative used to mask dead candidates in argmax / min.
 NEG = -1e30
 
-__all__ = ["NEG", "SubmodularFunction", "FeatureCoverage", "_phi"]
+__all__ = ["NEG", "SubmodularFunction", "FeatureCoverage", "FacilityLocation",
+           "StreamingFacilityLocation", "_phi"]
 
 
 class SubmodularFunction(abc.ABC):
@@ -238,6 +261,248 @@ class FeatureCoverage(SubmodularFunction):
             self.W, c, phi_c, _f32(cap), _f32(self.feat_w), cand_idx,
             phi=self.phi,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class FacilityLocation(SubmodularFunction):
+    """Facility location: f(S) = sum_i max(0, max_{s in S} sim[i, s]).
+
+    ``sim`` is the (n, n) similarity, float32 or bfloat16; sim[i, v] is how
+    well v serves row i.  It need not be symmetric: candidates are columns,
+    served rows are rows.  Negative entries are clipped by the implicit
+    "serve yourself at 0" baseline, which also makes f(∅) = 0.  The state is
+    the per-row best coverage m_i = max(0, max_{s in S} sim[i, s]).
+
+    The plain primitives walk ``sim`` in blocks of at most 256 MiB, so none
+    of them builds the (r, n, n) hinge block or a second (n, n) matrix.
+    """
+
+    sim: Tensor  # (n, n)
+
+    #: from_features refuses to build (n, n) above this many rows unless
+    #: told to: 16k rows is already a 1 GiB float32 similarity.
+    N_THRESHOLD = 16384
+
+    @classmethod
+    def from_features(
+        cls,
+        X: Tensor,
+        kernel: str = "dot",
+        *,
+        n_threshold: int | None = N_THRESHOLD,
+    ) -> "FacilityLocation":
+        """The similarity of the rows of ``X`` (n, d) under ``kernel`` (dot,
+        rbf or cosine), computed on X's device in IEEE float32."""
+        n = X.shape[0]
+        if n_threshold is not None and n > n_threshold:
+            raise ValueError(
+                f"FacilityLocation.from_features would materialize an "
+                f"(n, n) = ({n}, {n}) similarity matrix "
+                f"({4 * n * n / 2**30:.1f} GiB of f32). For kernel="
+                f"'dot'/'cosine' use the matrix-free equivalent instead:\n"
+                f"    StreamingFacilityLocation.from_features(X, "
+                f"kernel={kernel!r})\n"
+                f"which stores only the (n, d) embeddings and computes "
+                f"similarity tiles on the fly. Pass n_threshold=None to "
+                f"force the dense construction anyway."
+            )
+        X = X.float()
+        if kernel == "dot":
+            sim = matmul_ieee(X, X.T).clamp_min_(0.0)
+        elif kernel == "rbf":
+            sq = (X * X).sum(dim=1)
+            d2 = sq[:, None] - matmul_ieee(2.0 * X, X.T) + sq[None, :]
+            sim = torch.exp(-d2 / torch.clamp_min(d2.mean(), 1e-9))
+        elif kernel == "cosine":
+            Xn = _normalize(X)
+            sim = matmul_ieee(Xn, Xn.T).clamp_min_(0.0)
+        else:
+            raise ValueError(kernel)
+        return cls(sim=sim)
+
+    @property
+    def n(self) -> int:
+        return self.sim.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.sim.device
+
+    def empty_state(self) -> Tensor:
+        return torch.zeros((self.sim.shape[0],), dtype=self.sim.dtype,
+                           device=self.sim.device)
+
+    def value(self, state: Tensor) -> Tensor:
+        return state.sum()
+
+    def _row_blocks(self):
+        bi = max(1, _ELEMS // max(1, self.sim.shape[1]))
+        return (self.sim[lo:lo + bi] for lo in range(0, self.sim.shape[0], bi))
+
+    def _probe_mu(self, probes: Tensor, state: Tensor | None) -> Tensor:
+        """Probe coverage rows mu_u = max(state, sim[:, u]).  (r, n)."""
+        base = self.empty_state() if state is None else state
+        return torch.maximum(base[None, :], self.sim[:, probes].T)
+
+    def gains(self, state: Tensor) -> Tensor:
+        """f(v|S) = sum_i max(sim[i, v] - m_i, 0) for all v.  (n,)."""
+        return fl_pair_ref(self.sim, state[None, :])[0]
+
+    def gains_compact(self, state: Tensor, cand_idx: Tensor) -> Tensor:
+        """The gains of the gathered candidate columns only; the served-row
+        sum still spans all n rows (that is f's definition)."""
+        return fl_pair_ref(self.sim, state[None, :], cand_idx)[0]
+
+    def add(self, state: Tensor, v: Tensor) -> Tensor:
+        return torch.maximum(state, self.sim[:, v])
+
+    def add_many(self, state: Tensor, mask: Tensor) -> Tensor:
+        mask = mask.to(device=self.sim.device, dtype=torch.bool)
+        if not bool(mask.any()):
+            return state
+        best = torch.cat([blk[:, mask].amax(dim=1) for blk in self._row_blocks()])
+        return torch.maximum(state, best.to(state.dtype))
+
+    def pairwise_gains(self, probes: Tensor, state: Tensor | None = None) -> Tensor:
+        """f(v | S + u) = sum_i max(sim[i, v] - mu[u, i], 0).  (r, n)."""
+        return fl_pair_ref(self.sim, self._probe_mu(probes, state))
+
+    def pairwise_gains_compact(
+        self, probes: Tensor, cand_idx: Tensor, state: Tensor | None = None
+    ) -> Tensor:
+        """The (r, k) block over the gathered candidate columns."""
+        return fl_pair_ref(self.sim, self._probe_mu(probes, state), cand_idx)
+
+    def residual_gains(self) -> Tensor:
+        """f(V) - f(V \\ v) for all v, with the top-2 tie rule."""
+        return fl_residuals(self._row_blocks(), self.sim.shape[1], self.sim.device)
+
+    # -- kernel hooks ------------------------------------------------------
+    def cuda_divergence(
+        self,
+        probes: Tensor,
+        residual: Tensor,
+        state: Tensor | None = None,
+        cand_idx: Tensor | None = None,
+    ) -> Tensor:
+        MU = self._probe_mu(probes, state).float().contiguous()
+        return fl_divergence_kernel(
+            self.sim, MU, residual[probes].float().contiguous(), cand_idx
+        )
+
+    def cuda_gains(self, state: Tensor, cand_idx: Tensor | None = None) -> Tensor:
+        return fl_gains_kernel(self.sim, state, cand_idx)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamingFacilityLocation(SubmodularFunction):
+    """Matrix-free facility location over embedding rows.
+
+    The objective of :class:`FacilityLocation` with the dot kernel,
+    sim[i, v] = max(x_i . x_v, 0), but only the (n, d) rows are stored:
+    every pass computes similarity blocks (plain path) or tiles (the CUDA
+    kernel) on the fly, so the (n, n) matrix never exists.  Cosine is dot
+    after one row normalization at construction.
+
+    ``X`` holds the *candidate* rows.  ``Xs`` (None for the global objective,
+    where served == candidates) holds the *served* rows, so that compacted
+    and sharded views can restrict the candidates and still serve the whole
+    ground set.  The state is the served-row coverage m, as in the dense
+    objective.
+    """
+
+    X: Tensor                  # (n, d) candidate embedding rows, float32
+    Xs: Tensor | None = None   # (ni, d) served rows; None = X
+
+    @classmethod
+    def from_features(
+        cls, X: Tensor, kernel: str = "dot"
+    ) -> "StreamingFacilityLocation":
+        X = X.float()
+        if kernel == "cosine":
+            X = _normalize(X)
+        elif kernel != "dot":
+            raise ValueError(
+                f"StreamingFacilityLocation supports kernel='dot'/'cosine' "
+                f"(similarities factor through the embedding rows); "
+                f"got {kernel!r}"
+            )
+        return cls(X=X.contiguous())
+
+    def _served(self) -> Tensor:
+        return self.X if self.Xs is None else self.Xs
+
+    @property
+    def n(self) -> int:
+        return self.X.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.X.device
+
+    def empty_state(self) -> Tensor:
+        return torch.zeros((self._served().shape[0],), dtype=torch.float32,
+                           device=self.X.device)
+
+    def value(self, state: Tensor) -> Tensor:
+        return state.sum()
+
+    def _probe_mu(self, probes: Tensor, state: Tensor | None) -> Tensor:
+        """Probe coverage rows mu_u = max(state, relu(Xs · x_u)).  (r, ni):
+        an (r, d) gather and a thin product, nothing O(n^2)."""
+        base = self.empty_state() if state is None else state
+        return torch.maximum(base[None, :], sim_rows(self._served(), self.X[probes]).T)
+
+    def gains(self, state: Tensor) -> Tensor:
+        return fl_stream_pair_ref(self._served(), state.float()[None, :],
+                                  Xc=self.X)[0]
+
+    def gains_compact(self, state: Tensor, cand_idx: Tensor) -> Tensor:
+        return fl_stream_pair_ref(self._served(), state.float()[None, :],
+                                  cand_idx, Xc=self.X)[0]
+
+    def add(self, state: Tensor, v: Tensor) -> Tensor:
+        return torch.maximum(state, sim_rows(self._served(), self.X[v][None])[:, 0])
+
+    def add_many(self, state: Tensor, mask: Tensor) -> Tensor:
+        return torch.maximum(state, fl_stream_col_max(self._served(), self.X, mask))
+
+    def pairwise_gains(self, probes: Tensor, state: Tensor | None = None) -> Tensor:
+        return fl_stream_pair_ref(self._served(), self._probe_mu(probes, state),
+                                  Xc=self.X)
+
+    def pairwise_gains_compact(
+        self, probes: Tensor, cand_idx: Tensor, state: Tensor | None = None
+    ) -> Tensor:
+        """``cand_idx`` gathers candidate rows (k, d); the served-row sum
+        still spans all rows."""
+        return fl_stream_pair_ref(self._served(), self._probe_mu(probes, state),
+                                  cand_idx, Xc=self.X)
+
+    def residual_gains(self) -> Tensor:
+        return fl_stream_residuals(self._served(), self.X)
+
+    # -- kernel hooks ------------------------------------------------------
+    def cuda_divergence(
+        self,
+        probes: Tensor,
+        residual: Tensor,
+        state: Tensor | None = None,
+        cand_idx: Tensor | None = None,
+    ) -> Tensor:
+        MU = self._probe_mu(probes, state).contiguous()
+        return fl_stream_divergence_kernel(
+            self._served(), MU, residual[probes].float().contiguous(), cand_idx,
+            self.X,
+        )
+
+    def cuda_gains(self, state: Tensor, cand_idx: Tensor | None = None) -> Tensor:
+        return fl_stream_gains_kernel(self._served(), state, cand_idx, self.X)
+
+
+def _normalize(X: Tensor) -> Tensor:
+    """Rows of X scaled to unit norm (rows of norm below 1e-9 by 1e-9)."""
+    return X / torch.clamp_min(torch.linalg.vector_norm(X, dim=1, keepdim=True), 1e-9)
 
 
 def _by_rows(W: Tensor, row_fn) -> Tensor:

@@ -1,5 +1,5 @@
 """Synthetic corpora (numpy, host side)."""
 
-from repro_torch.data.synthetic import news_day
+from repro_torch.data.synthetic import clustered_embeddings, news_day, video
 
-__all__ = ["news_day"]
+__all__ = ["clustered_embeddings", "news_day", "video"]

@@ -2,13 +2,31 @@
 
 from repro_torch.kernels._build import build, load_library
 from repro_torch.kernels.feature_gains import feature_gains_kernel
-from repro_torch.kernels.ref import feature_gains_ref, ss_divergence_ref
+from repro_torch.kernels.fl_divergence import fl_divergence_kernel, fl_gains_kernel
+from repro_torch.kernels.fl_stream import (
+    fl_stream_divergence_kernel,
+    fl_stream_gains_kernel,
+)
+from repro_torch.kernels.ref import (
+    feature_gains_ref,
+    fl_divergence_ref,
+    fl_stream_divergence_ref,
+    fl_stream_pair_ref,
+    ss_divergence_ref,
+)
 from repro_torch.kernels.ss_weights import ss_divergence_kernel
 
 __all__ = [
     "build",
     "feature_gains_kernel",
     "feature_gains_ref",
+    "fl_divergence_kernel",
+    "fl_divergence_ref",
+    "fl_gains_kernel",
+    "fl_stream_divergence_kernel",
+    "fl_stream_divergence_ref",
+    "fl_stream_gains_kernel",
+    "fl_stream_pair_ref",
     "load_library",
     "ss_divergence_kernel",
     "ss_divergence_ref",

@@ -103,6 +103,23 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p,            # out, stream
     ]
     lib.feature_gains_launch.restype = i
+    lib.fl_divergence_launch.argtypes = [
+        p, i, ll, ll,    # sim, sim is bf16, served rows ni, candidate columns n
+        p, ll,           # cand_idx (or NULL), number of outputs
+        p, p, i,         # MU, resid (or NULL: zeros), r
+        i, p,            # row splits, their scratch (or NULL)
+        p, p,            # out, stream
+    ]
+    lib.fl_divergence_launch.restype = i
+    lib.fl_stream_launch.argtypes = [
+        p, ll, i,        # Xs, served rows ni, d
+        p, ll,           # Xc, candidate rows n
+        p, ll,           # cand_idx (or NULL), number of outputs
+        p, p, i,         # MU, resid (or NULL: zeros), r
+        i, p,            # row splits, their scratch (or NULL)
+        p, p,            # out, stream
+    ]
+    lib.fl_stream_launch.restype = i
 
 
 def load_library() -> ctypes.CDLL:
@@ -144,21 +161,58 @@ def check_inputs(
         raise ValueError(f"{name}: phi='satcov' needs cap")
     if W.shape[1] >= 2**31:
         raise ValueError(f"{name}: too many features ({W.shape[1]})")
-    named = dict(f32, cap=cap)
-    tensors = [("W", W), ("cand_idx", cand_idx), *named.items()]
+    check_side(name, W, cand_idx, **f32, cap=cap)
+
+
+def check_side(
+    name: str,
+    ref: torch.Tensor,
+    cand_idx: torch.Tensor | None,
+    **f32: torch.Tensor | None,
+) -> None:
+    """The main input ``ref`` and the side inputs of a kernel: all on ref's
+    device and contiguous, the named ones float32, ``cand_idx`` a 1-D
+    int64 tensor.  None stands for an absent optional input."""
+    tensors = [("input", ref), ("cand_idx", cand_idx), *f32.items()]
     for arg, t in tensors:
         if t is None:
             continue
-        if t.device != W.device:
-            raise ValueError(f"{name}: {arg} is on {t.device}, W on {W.device}")
+        if t.device != ref.device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, not {ref.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-    for arg, t in named.items():
+    for arg, t in f32.items():
         if t is not None and t.dtype != torch.float32:
             raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
     if cand_idx is not None and (cand_idx.dtype != torch.int64
                                  or cand_idx.dim() != 1):
         raise TypeError(f"{name}: cand_idx must be a 1-D int64 tensor")
+
+
+def check_probes(name: str, MU: torch.Tensor, resid: torch.Tensor | None,
+                 ni: int) -> int:
+    """MU (r >= 1, ni) and resid (r,) of the facility-location kernels;
+    returns r."""
+    if MU.dim() != 2 or MU.shape[0] < 1 or MU.shape[1] != ni:
+        raise ValueError(f"{name}: MU must be (r >= 1, {ni}), got {tuple(MU.shape)}")
+    r = MU.shape[0]
+    if r >= 2**31:
+        raise ValueError(f"{name}: too many probes ({r})")
+    if resid is not None and tuple(resid.shape) != (r,):
+        raise ValueError(f"{name}: resid must be ({r},), got {tuple(resid.shape)}")
+    return r
+
+
+def row_splits(n_out: int, ni: int) -> tuple[int, int]:
+    """How the facility-location kernels split their ni served rows: a grid
+    of ceil(n_out / 128) candidate blocks that fills the card is not split;
+    a smaller one (later SS rounds, greedy over V') is split into enough
+    row blocks for about 512 blocks, each over at least 512 rows
+    (``csrc/fl_common.cuh``).  Returns the number of splits."""
+    blocks = -(-n_out // 128)
+    if blocks >= 256:
+        return 1
+    return max(1, min(-(-512 // blocks), ni // 512))
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

@@ -1,6 +1,7 @@
-// Shared pieces of the FeatureCoverage kernels: the concave transforms phi,
-// the float32 upcast of a W element, and the host-side dispatch from the
-// runtime (W dtype, phi kind) pair to a kernel template instance.
+// Shared pieces of the kernels: the concave transforms phi of
+// FeatureCoverage, the float32 upcast of an input element, vector loads, the
+// host-side dispatch from the runtime (W dtype, phi kind) pair to a
+// FeatureCoverage kernel template instance, and the candidate lookup.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -98,9 +99,10 @@ inline bool dispatch(int w_bf16, int kind, Fn&& fn) {
                 : dispatch_kind<float>(kind, fn);
 }
 
-// Row of W behind output slot `slot`: the slot itself, or cand_idx[slot].
-// -1 past the end of the output; -2 for an index outside W (the kernels
-// write NaN there instead of reading out of bounds).
+// Candidate behind output slot `slot` (a row of W or Xc, a column of sim):
+// the slot itself, or cand_idx[slot].  -1 past the end of the output; -2
+// for an index outside the n_rows candidates (the kernels write NaN there
+// instead of reading out of bounds).
 __device__ __forceinline__ long long row_of(const long long* cand_idx,
                                             long long slot, long long n_out,
                                             long long n_rows) {

@@ -1,14 +1,16 @@
-"""Plain PyTorch versions of the two FeatureCoverage kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 They define the arithmetic the CUDA kernels must match: every input is
-upcast to float32 and the feature reduction accumulates in float32.  The
-wrappers in :mod:`repro_torch.kernels.ss_weights` and
-:mod:`repro_torch.kernels.feature_gains` run them for tensors on the CPU; on
-the card they serve only as the comparison in ``chip_smoke.py``.
+upcast to float32 and every reduction accumulates in float32.  The kernel
+wrappers (:mod:`repro_torch.kernels.ss_weights`, ``feature_gains``,
+``fl_divergence``, ``fl_stream``) run them for tensors on the CPU; on the
+card they serve only as the comparison in ``chip_smoke.py``.
 
-Both walk the candidate rows in chunks (and the probes one at a time), so the
-(r, n, F) block of the textbook formula never exists: at n = 2^20, F = 1024 a
-single (n, F) float32 temporary is already 4 GiB.
+All of them walk the candidates in chunks and the probes one at a time, so
+the textbook formulas' blocks never exist: the (r, n, F) block of
+FeatureCoverage (a single (n, F) float32 temporary is already 4 GiB at
+n = 2^20, F = 1024), and the (r, n, n) hinge block of facility location, or
+in the matrix-free case even the (n, n) similarity.
 """
 
 from __future__ import annotations
@@ -18,12 +20,15 @@ import torch
 Tensor = torch.Tensor
 
 INF = 1e30
+NEG = -INF
 
 PHI_KINDS = ("sqrt", "log1p", "setcover", "satcov", "linear")
 
 # Candidate rows per chunk: bounds each (rows, F) float32 temporary to
 # 256 MiB at F = 1024.
 _ROW_CHUNK = 1 << 16
+# Elements per float32 temporary of the facility-location paths (256 MiB).
+_ELEMS = 1 << 26
 
 
 def _phi(kind: str, c: Tensor, cap: Tensor | None) -> Tensor:
@@ -105,3 +110,140 @@ def feature_gains_ref(
             val = val * fw
         out[lo:hi] = val.sum(dim=-1) - phi_c.float()
     return out
+
+
+# -- facility location -------------------------------------------------------
+
+
+def matmul_ieee(a: Tensor, b: Tensor) -> Tensor:
+    """``a @ b`` in IEEE float32.  TF32 would change which candidates
+    survive SS, so a CUDA product with TF32 enabled raises instead."""
+    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is on: the facility-location "
+            "similarities must be computed in IEEE float32"
+        )
+    return a.float() @ b.float()
+
+
+def sim_rows(X: Tensor, Xc: Tensor) -> Tensor:
+    """The similarity block relu(X @ Xcᵀ): rows of X served by rows of Xc."""
+    return torch.clamp_min_(matmul_ieee(X, Xc.T), 0.0)
+
+
+def top2(rows: Tensor) -> tuple[Tensor, Tensor]:
+    """The two largest values of each row (best, second), as ``lax.top_k``
+    gives them: equal maxima give best == second, and a single column gives
+    second = NEG."""
+    if rows.shape[1] >= 2:
+        t = torch.topk(rows, 2, dim=1).values
+        return t[:, 0], t[:, 1]
+    return rows[:, 0], torch.full_like(rows[:, 0], NEG)
+
+
+def fl_residuals(row_blocks, n: int, device) -> Tensor:
+    """f(v | V \\ v) of facility location from blocks of served rows of the
+    similarity, each (rows, n).  Only rows where v is the unique argmax
+    lose, dropping to their second best; a row whose best is reached by
+    more than one column loses nothing."""
+    out = torch.zeros((n,), dtype=torch.float32, device=device)
+    for blk in row_blocks:
+        blk = blk.float()
+        best, second = top2(blk)
+        is_best = blk >= best[:, None]
+        tie = is_best.sum(dim=1) > 1
+        loss = torch.where(tie, 0.0, best.clamp_min(0.0) - second.clamp_min(0.0))
+        out += torch.where(is_best, loss[:, None], 0.0).sum(dim=0)
+    return out
+
+
+def _fl_walk(cols_of, n_out: int, MU: Tensor, resid: Tensor | None) -> Tensor:
+    """The hinge sums acc[u, v] = sum_i max(cols[i, v] - MU[u, i], 0) over
+    candidate chunks ``cols_of(lo, hi)`` (ni, hi - lo) of at most 256 MiB,
+    one probe at a time.  Returns acc (r, n_out), or with ``resid`` its min
+    over probes of acc - resid (n_out,)."""
+    MUf = MU.float()
+    r, ni = MUf.shape
+    chunk = max(1, _ELEMS // max(1, ni))
+    shape = (n_out,) if resid is not None else (r, n_out)
+    out = torch.empty(shape, dtype=torch.float32, device=MU.device)
+    for lo in range(0, n_out, chunk):
+        hi = min(n_out, lo + chunk)
+        cols = cols_of(lo, hi)
+        best = torch.full((hi - lo,), INF, dtype=torch.float32, device=MU.device)
+        for u in range(r):
+            acc = (cols - MUf[u, :, None]).clamp_min_(0.0).sum(dim=0)
+            if resid is None:
+                out[u, lo:hi] = acc
+            else:
+                best = torch.minimum(best, acc - resid[u].float())
+        if resid is not None:
+            out[lo:hi] = best
+    return out
+
+
+def _cols_dense(sim: Tensor, cand_idx: Tensor | None):
+    if cand_idx is None:
+        return lambda lo, hi: sim[:, lo:hi].float()
+    return lambda lo, hi: sim[:, cand_idx[lo:hi]].float()
+
+
+def fl_pair_ref(sim: Tensor, MU: Tensor, cand_idx: Tensor | None = None) -> Tensor:
+    """acc[u, v] = sum_i max(sim[i, v] - MU[u, i], 0).  Shape (r, n) or (r, k);
+    candidates are *columns* of ``sim``."""
+    n_out = sim.shape[1] if cand_idx is None else cand_idx.shape[0]
+    return _fl_walk(_cols_dense(sim, cand_idx), n_out, MU, None)
+
+
+def fl_divergence_ref(
+    sim: Tensor,       # (ni, n) similarity; sim[i, v] = service of row i by v
+    MU: Tensor,        # (r, ni) probe coverage rows max(state, sim[:, u])
+    resid: Tensor,     # (r,) residual gains; -INF marks a pad probe
+    cand_idx: Tensor | None = None,  # (k,) columns of sim to evaluate
+) -> Tensor:
+    """w_v = min_u [sum_i max(sim[i, v] - MU[u, i], 0) - resid_u].
+
+    Shape (n,), or (k,) with ``cand_idx``.  The hinge terms are summed
+    directly, never as sum_i max(sim, MU) - sum_i MU, which would lose the
+    small gaps between candidates to float32 cancellation.
+    """
+    n_out = sim.shape[1] if cand_idx is None else cand_idx.shape[0]
+    return _fl_walk(_cols_dense(sim, cand_idx), n_out, MU, resid)
+
+
+def _cols_stream(X: Tensor, Xc: Tensor | None, cand_idx: Tensor | None):
+    Xc = X if Xc is None else Xc
+    if cand_idx is None:
+        return lambda lo, hi: sim_rows(X, Xc[lo:hi])
+    return lambda lo, hi: sim_rows(X, Xc[cand_idx[lo:hi]])
+
+
+def _n_cand(X: Tensor, Xc: Tensor | None, cand_idx: Tensor | None) -> int:
+    if cand_idx is not None:
+        return cand_idx.shape[0]
+    return (X if Xc is None else Xc).shape[0]
+
+
+def fl_stream_pair_ref(
+    X: Tensor,                        # (ni, d) served rows
+    MU: Tensor,                       # (r, ni) probe coverage rows
+    cand_idx: Tensor | None = None,   # (k,) rows of Xc to evaluate
+    Xc: Tensor | None = None,         # (n, d) candidate rows; None = X
+) -> Tensor:
+    """acc[u, v] = sum_i max(relu(x_i . xc_v) - MU[u, i], 0).  Shape (r, n)
+    or (r, k).  Similarity columns are computed a chunk at a time; the
+    (ni, n) matrix never exists."""
+    return _fl_walk(_cols_stream(X, Xc, cand_idx), _n_cand(X, Xc, cand_idx),
+                    MU, None)
+
+
+def fl_stream_divergence_ref(
+    X: Tensor,
+    MU: Tensor,
+    resid: Tensor,     # (r,); -INF marks a pad probe
+    cand_idx: Tensor | None = None,
+    Xc: Tensor | None = None,
+) -> Tensor:
+    """w_v = min_u [acc[u, v] - resid_u] over relu(X · Xcᵀ).  (n,) or (k,)."""
+    return _fl_walk(_cols_stream(X, Xc, cand_idx), _n_cand(X, Xc, cand_idx),
+                    MU, resid)

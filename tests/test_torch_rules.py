@@ -9,14 +9,22 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import feature_coverage_from_numpy, greedy, ss_sparsify, summarize
+from repro_torch import (
+    facility_location_from_features,
+    facility_location_from_numpy,
+    feature_coverage_from_numpy,
+    greedy,
+    ss_sparsify,
+    streaming_facility_location_from_numpy,
+    summarize,
+)
 from repro_torch.core import (
     CudaBackend,
     ReferenceBackend,
     SubmodularFunction,
     resolve_backend,
 )
-from repro_torch.data import news_day
+from repro_torch.data import clustered_embeddings, news_day, video
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
@@ -24,7 +32,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    assert len(files) >= 13
+    assert len(files) >= 15
+    assert {"fl_divergence.py", "fl_stream.py"} <= {f.name for f in files}
     return files + [ROOT / "chip_smoke.py"]
 
 
@@ -55,8 +64,8 @@ def _fn():
 @pytest.mark.parametrize("call", ["gains", "gains_compact", "divergence",
                                   "divergence_compact", "ss_sparsify",
                                   "greedy", "summarize"])
-def test_cuda_backend_refuses_cpu_tensors(call):
-    fn = _fn()
+def test_cuda_backend_refuses_cpu_tensors(call, fn=None):
+    fn = _fn() if fn is None else fn
     be = CudaBackend()
     probes, cand = torch.tensor([1, 2, 3]), torch.arange(10)
     calls = {
@@ -104,3 +113,38 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         feature_coverage_from_numpy(W)
     assert feature_coverage_from_numpy(W, device="cpu").device.type == "cpu"
+
+
+FL_OBJECTIVES = {
+    "facility_location": lambda: facility_location_from_features(
+        video(0, 200, 16), "cosine", device="cpu"),
+    "streaming_facility_location": lambda: streaming_facility_location_from_numpy(
+        clustered_embeddings(0, 200, 8), device="cpu"),
+}
+
+
+@pytest.mark.parametrize("objective", list(FL_OBJECTIVES))
+@pytest.mark.parametrize("call", ["gains", "gains_compact", "divergence",
+                                  "divergence_compact", "ss_sparsify",
+                                  "greedy", "summarize"])
+def test_cuda_backend_refuses_cpu_facility_location(call, objective):
+    test_cuda_backend_refuses_cpu_tensors(call, FL_OBJECTIVES[objective]())
+
+
+FL_ENTRY_POINTS = {
+    "facility_location_from_numpy": lambda W, **kw: facility_location_from_numpy(
+        W @ W.T, **kw),
+    "facility_location_from_features": lambda W, **kw:
+        facility_location_from_features(W, "dot", **kw),
+    "streaming_facility_location_from_numpy": lambda W, **kw:
+        streaming_facility_location_from_numpy(W, W, **kw),
+}
+
+
+@pytest.mark.parametrize("entry", list(FL_ENTRY_POINTS))
+def test_facility_location_entry_points_default_to_the_card(monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    W = np.ones((4, 3), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FL_ENTRY_POINTS[entry](W)
+    assert FL_ENTRY_POINTS[entry](W, device="cpu").device.type == "cpu"
