@@ -13,7 +13,11 @@ on three objectives, one after the other, each at full size:
 - path A, dense facility location over a synthetic video of 2^16 frames x
   256 features (cosine similarity, a 16 GiB matrix on the card);
 - path B, matrix-free facility location over 2^18 clustered embeddings of
-  width 16 (its dense similarity would be 256 GiB).
+  width 16 (its dense similarity would be 256 GiB);
+
+then the LM serving path: qwen3-4b at its published widths and depth (36
+layers, synthetic weights from a seed) serves four 2048-token prompts,
+prefill through the flash-attention kernel, then 32 greedy tokens of decode.
 
 For each it checks the result, its kernel launches and its agreement with
 the plain path, times each kernel at the path's shapes beside its bound and
@@ -26,6 +30,7 @@ script exits non-zero without a CUDA device or outside a checkout.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -48,6 +53,7 @@ N_B, D_B = 1 << 18, 16
 # that rate comes from the card's SM count and maximum SM clock.
 HBM_BYTES_PER_S = 3.35e12
 FFMA_FLOPS_PER_S = 67e12
+BF16_TENSOR_FLOPS_PER_S = 989e12
 FP32_INSTR_PER_S = 33.5e12
 SFU_PER_CLOCK_PER_SM = 16
 # Tolerances of kernel vs plain, relative to the size of the sums involved.
@@ -56,8 +62,11 @@ SFU_PER_CLOCK_PER_SM = 16
 # size, not the result's.  1e-4 is the repository's float32 kernel tolerance;
 # 3e-2 its bfloat16 one.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# The LM path: qwen3-4b serving four 2048-token prompts, 32 new tokens each.
+LM_ARCH, LM_B, LM_S, LM_NEW = "qwen3-4b", 4, 2048, 32
 PHIS = ("sqrt", "log1p", "setcover", "satcov", "linear")
 RATES: dict[str, float] = {}
+FLASH_WORST = [0.0]  # largest |out - ref| / tolerance of a bfloat16 flash check
 
 
 def fail(msg: str) -> None:
@@ -104,16 +113,19 @@ def card_rates() -> None:
 
 
 def bound(bytes_moved: float, fp32: float = 0.0, ffma: float = 0.0,
-          sfu: float = 0.0) -> tuple[float, str, str]:
+          sfu: float = 0.0, bf16_tc: float = 0.0) -> tuple[float, str, str]:
     """The least time for the work: the largest of the bytes over the memory
     rate and each instruction class over its own rate (FFMA at 67 TFLOP/s,
     other float32 instructions at 33.5e12/s, special functions at 16 per
-    clock per SM).  Returns (ms, "bytes" or "operations", the binding one)."""
+    clock per SM, products of bfloat16 operands with float32 accumulation
+    (``bf16_tc`` flops) on the tensor cores at 989 TFLOP/s).  Returns (ms,
+    "bytes" or "operations", the binding one)."""
     times = {
         "bytes": bytes_moved / HBM_BYTES_PER_S,
         "fp32": fp32 / FP32_INSTR_PER_S,
         "ffma": 2.0 * ffma / FFMA_FLOPS_PER_S,
         "sfu": sfu / RATES["sfu"],
+        "bf16_tc": bf16_tc / BF16_TENSOR_FLOPS_PER_S,
     }
     pipe = max(times, key=times.get)
     return times[pipe] * 1e3, ("bytes" if pipe == "bytes" else "operations"), pipe
@@ -851,6 +863,316 @@ def fl_stream_path(errs: dict) -> list[dict]:
     ]
 
 
+# -- flash attention and the LM serving path ----------------------------------
+
+
+def flash_close(out, ref, what: str) -> float:
+    """Flash kernel vs the plain version on the same inputs, both float32
+    inside; returns max |out - ref|, and keeps the largest share of the
+    bfloat16 tolerance used in ``FLASH_WORST``.  float32: 2e-4 absolute
+    (tests/test_kernels.py's).  bfloat16: per element, the output's own
+    rounding, |out - ref| <= 2^-7 |ref| + 1e-3 max|ref over the row| (two
+    float32 results rounded once to bfloat16 differ by at most one ulp,
+    <= 2^-7 of the value; the row term covers the float32 difference where
+    |ref| is tiny, and scales with the row so that a wrong late row, whose
+    outputs average many keys and are small, is not hidden)."""
+    check(out.shape == ref.shape and out.dtype == ref.dtype
+          and bool(torch.isfinite(out).all()), f"{what}: bad output")
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    if out.dtype == torch.float32:
+        check(err <= 2e-4, f"{what}: err {err} > 2e-4")
+        return err
+    r = ref.float().abs()
+    tol = 2.0 ** -7 * r + 1e-3 * r.amax(-1, keepdim=True)
+    worst = float((diff / tol.clamp_min(1e-30)).max())
+    FLASH_WORST[0] = max(FLASH_WORST[0], worst)
+    check(worst <= 1.0, f"{what}: err {err}, {worst:.3g} x the bfloat16 "
+          "tolerance (2^-7 |ref| + 1e-3 row max|ref|)")
+    return err
+
+
+def flash_sweep(errs: dict) -> None:
+    """The flash kernel vs its plain version on the card: float32 and
+    bfloat16 x head_dim 32/64/128/256 x S = 96 (ragged), 128, 2048 x causal,
+    a 32-wide window, or no mask x GQA groups of 1 and 4, held by
+    ``flash_close``."""
+    from repro_torch.kernels import attention_ref, flash_attention_kernel, flash_attention_ref
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    cases = 0
+    for dt, hd, S, (causal, window), G in itertools.product(
+        (torch.float32, torch.bfloat16), (32, 64, 128, 256), (96, 128, 2048),
+        ((True, 0), (True, 32), (False, 0)), (1, 4),
+    ):
+        B, KV = 2, 2
+        q = torch.randn((B, S, KV * G, hd), generator=g, device="cuda").to(dt)
+        k = torch.randn((B, S, KV, hd), generator=g, device="cuda").to(dt)
+        v = torch.randn((B, S, KV, hd), generator=g, device="cuda").to(dt)
+        out = flash_attention_kernel(q, k, v, causal=causal, window=window)
+        ref = attention_ref(q, k, v, causal, window)
+        err = flash_close(out, ref, f"flash_attention {dt} hd={hd} S={S} "
+                          f"causal={causal} window={window} G={G}")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        cases += 1
+    # the TPU kernel's own (BH, S, hd) form
+    q, k, v = (torch.randn((8, 200, 64), generator=g, device="cuda")
+               for _ in range(3))
+    err = flash_close(flash_attention_kernel(q, k, v, window=48),
+                      flash_attention_ref(q, k, v, True, 48),
+                      "flash_attention (BH, S, hd) form")
+    torch.cuda.synchronize()
+    print(f"flash kernel vs plain: {cases + 1} cases passed; max abs err "
+          f"{errs['flash_attention']:.3g}; bfloat16 at most {FLASH_WORST[0]:.4f} "
+          "of its tolerance", flush=True)
+
+
+@contextlib.contextmanager
+def plain_attention(seen: list | None = None):
+    """The LM path's attention through the plain version on the card (the
+    comparison route); ``seen`` keeps the first call's (q, k, v)."""
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.kernels import attention_ref
+
+    def plain(q, k, v, *, causal, window):
+        if seen is not None and not seen:
+            seen.append((q, k, v))
+        return attention_ref(q, k, v, causal, window)
+
+    kernel = attn_mod.flash_attention_kernel
+    attn_mod.flash_attention_kernel = plain
+    try:
+        yield
+    finally:
+        attn_mod.flash_attention_kernel = kernel
+
+
+def _logits_close(got, want, what):
+    """bfloat16 compute: the two routes differ in float32 summation order
+    inside attention, so a bfloat16 rounding flips here and there and
+    propagates through 36 layers; hold the logits to 3e-2 of their largest
+    magnitude, the repository's bfloat16 tolerance."""
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite logits")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(err <= TOL[torch.bfloat16] * scale,
+          f"{what}: err {err} > {TOL[torch.bfloat16]} x {scale}")
+    return err / scale
+
+
+def profile_lm(label: str, call) -> dict:
+    """One prefill or decode step under the profiler: device time by kernel
+    (device events only) against the synchronised wall, and the flash
+    kernel's share."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ]) as prof:
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_kernel = sorted(
+        ((e.self_device_time_total, e.key, e.count)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA),
+        reverse=True,
+    )
+    busy_ms = sum(us for us, _, _ in by_kernel) / 1e3
+    check(busy_ms > 0, f"the profiler saw no device time in the {label}")
+    flash_ms = sum(us for us, key, _ in by_kernel if "flash_kernel" in key) / 1e3
+    launches = sum(count for _, _, count in by_kernel)
+    print(f"profiled {label}: wall {wall_ms:.4f} ms, device busy {busy_ms:.4f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.4f}, {launches} device kernels; "
+          f"flash kernel {flash_ms:.4f} ms = {flash_ms / busy_ms:.4f} of device time")
+    for us, key, count in by_kernel[:10]:
+        print(f"  {us / 1e3:10.4f} ms  x{count:<4d} {key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "flash_ms": flash_ms,
+            "device_kernels": launches}
+
+
+def lm_path(errs: dict) -> dict:
+    """qwen3-4b at full width and depth on synthetic weights serves four
+    2048-token prompts (greedy, 32 new tokens): launches, agreement with the
+    plain route, timings, a profile of the prefill, and the flash kernel
+    timed at the path's shape and at S = 32768."""
+    from repro_torch import configs
+    from repro_torch.kernels import attention_ref, flash_attention_kernel, flash_attention_ref
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve.engine import _sample
+
+    cfg = configs.get(LM_ARCH)
+    B, S, NEW = LM_B, LM_S, LM_NEW
+    t = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t_.numel() for t_ in tree_leaves(params))
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads x {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_params} parameters "
+          f"({cfg.param_dtype}, compute {cfg.compute_dtype}) made on the card in "
+          f"{time.perf_counter() - t:.2f} s (the config counts "
+          f"{cfg.param_count()}, norm scales aside)", flush=True)
+    check(abs(n_params / cfg.param_count() - 1) < 1e-3,
+          "the parameters are not the config's")
+    sc = ServeConfig(max_len=S + NEW + 8)
+    eng = Engine(cfg, params, sc)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+
+    # the main path: Engine.generate, counts set to 0 just before
+    flash_attention_kernel.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tokens, _ = eng.generate(prompts, NEW)
+    torch.cuda.synchronize()
+    wall_gen = time.perf_counter() - t
+    launches = flash_attention_kernel.launches
+    check(tokens.shape == (B, NEW) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab_size, "generate: bad tokens")
+    check(launches == cfg.num_layers,
+          f"generate launched the flash kernel {launches} times, not once per "
+          f"layer of the prefill ({cfg.num_layers}) and never in decode")
+    print(f"generate: {B} x {S}-token prompts -> {tuple(tokens.shape)} tokens in "
+          f"{wall_gen:.4f} s (host clock, synchronised, first call); flash "
+          f"launches {launches}", flush=True)
+
+    # the same path step by step, timed, with the counts per phase
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_kernel.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, cache = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    tok = _sample(logits, None, sc)
+    torch.cuda.synchronize()
+    ttft_ms = (time.perf_counter() - t) * 1e3
+    prefill_launches = flash_attention_kernel.launches
+    flash_attention_kernel.launches = 0
+    step_logits, toks = [logits], [tok]
+    t = time.perf_counter()
+    for n in range(S, S + NEW - 1):
+        logits, cache = eng.decode_with_cache(tok, cache, n)
+        tok = _sample(logits, None, sc)
+        step_logits.append(logits)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    decode_launches = flash_attention_kernel.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(prefill_launches == cfg.num_layers and decode_launches == 0,
+          f"launches: prefill {prefill_launches}, decode {decode_launches}")
+    check(torch.equal(torch.cat(toks, 1), tokens),
+          "the step-by-step run gave other tokens than generate")
+    ms_tok = decode_s * 1e3 / (NEW - 1)
+    print(f"prefill {prefill_ms:.4f} ms, time to first token {ttft_ms:.4f} ms; "
+          f"decode {ms_tok:.4f} ms per step ({B * (NEW - 1) / decode_s:.1f} "
+          f"tokens/s over {B} requests); peak device memory {peak:.2f} GiB; "
+          f"flash launches: prefill {prefill_launches}, decode {decode_launches}",
+          flush=True)
+
+    # the plain route: same weights, attention through the plain version,
+    # fed the kernel route's tokens
+    seen = []
+    with plain_attention(seen):
+        p_logits, p_cache = prefill(cfg, params, prompts, max_len=sc.max_len)
+        rel = _logits_close(step_logits[0], p_logits, "prefill, kernel vs plain")
+        for i, n in enumerate(range(S, S + NEW - 1)):
+            p_logits, p_cache = decode_step(cfg, params, toks[i], p_cache, n)
+            rel = max(rel, _logits_close(step_logits[i + 1], p_logits,
+                                         f"decode step {i + 1}, kernel vs plain"))
+    del p_cache
+    full, _ = forward(cfg, params, torch.cat([prompts, toks[0]], 1),
+                      logits_slice=1)
+    rel_fwd = _logits_close(step_logits[1], full, "decode at S vs forward over S+1")
+    print(f"plain route (attention through the plain version, the kernel route's "
+          f"tokens): logits agree at every step, max err {rel:.4g} of max|logits|;"
+          f" decode at position {S} vs forward over {S + 1} tokens {rel_fwd:.4g}",
+          flush=True)
+    prof = {"prefill": profile_lm("prefill", lambda: eng.prefill(prompts)),
+            "decode_step": profile_lm("decode step", lambda: eng.decode_with_cache(
+                toks[-1], cache, S + NEW - 1))}
+
+    # the kernel at the path's shape: layer 0's (q, k, v) of the plain prefill
+    q, k, v = seen[0]
+    out_k, ms = timed(lambda: flash_attention_kernel(q, k, v), 1)
+    out_p, _ = timed(lambda: attention_ref(q, k, v, True, 0), 1)
+    err = flash_close(out_k, out_p, "flash at the path's shape")
+    errs["flash_attention"] = max(errs["flash_attention"], err)
+    ms = sync_ms(lambda: flash_attention_kernel(q, k, v), 20)
+    plain_ms = sync_ms(lambda: attention_ref(q, k, v, True, 0), 3)
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // KV
+    qx, kx, vx = (t_.transpose(1, 2).contiguous() for t_ in (
+        q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = sync_ms(lambda: sdpa(qx, kx, vx, is_causal=True), 20)
+
+    def flash_bound(b, s):
+        # QKᵀ on bfloat16 q, k: exact products, float32 sums, so the tensor
+        # cores' rate; P·V with P in float32: FFMA.  One exponential a pair.
+        pairs = b * H * s * (s + 1) / 2      # causal (q, k) pairs
+        nbytes = (2 * b * s * H * hd + 2 * b * s * KV * hd) * q.element_size()
+        check(q.dtype == torch.bfloat16, "flash_bound counts bfloat16 inputs")
+        return (bound(nbytes, ffma=pairs * hd, sfu=pairs,
+                      bf16_tc=2 * pairs * hd), 4 * pairs * hd)
+
+    (b_ms, b_by, b_pipe), flops = flash_bound(B, S)
+    tc_ms = flops / BF16_TENSOR_FLOPS_PER_S * 1e3
+    print(f"flash_attention at the path's shape (B={B}, S={S}, H={H}, KV={KV}, "
+          f"hd={hd}, bf16, causal): {ms:.4f} ms per launch, plain {plain_ms:.4f} "
+          f"ms, bound {b_ms:.4f} ms ({b_by}: {b_pipe}; both products on the "
+          f"bf16 tensor cores {tc_ms:.4f} ms), library "
+          f"(scaled_dot_product_attention, is_causal) {lib_ms:.4f} ms; "
+          f"{launches} launches per prefill = "
+          f"{ms * launches:.4f} ms", flush=True)
+
+    # one long request: S = 32768, B = 1, as the prefill_32k cells
+    del out_k, out_p, qx, kx, vx
+    long = 32768
+    q1 = torch.randn((1, long, H, hd), generator=gen, device="cuda").bfloat16()
+    k1 = torch.randn((1, long, KV, hd), generator=gen, device="cuda").bfloat16()
+    v1 = torch.randn((1, long, KV, hd), generator=gen, device="cuda").bfloat16()
+    out_long = flash_attention_kernel(q1, k1, v1)
+    err_plain = flash_close(out_long, attention_ref(q1, k1, v1, True, 0),
+                            f"flash at S={long} vs plain")
+    errs["flash_attention"] = max(errs["flash_attention"], err_plain)
+    long_ms = sync_ms(lambda: flash_attention_kernel(q1, k1, v1), 2)
+    qx, kx, vx = (t_.transpose(1, 2).contiguous() for t_ in (
+        q1, k1.repeat_interleave(G, dim=2), v1.repeat_interleave(G, dim=2)))
+    lib_out = sdpa(qx, kx, vx, is_causal=True)
+    lib_long = sync_ms(lambda: sdpa(qx, kx, vx, is_causal=True), 5)
+    # the library rounds P to bfloat16 before P·V, so it is held only to the
+    # repository's bfloat16 tolerance; the kernel is held to the plain version
+    err_long = float((out_long.float() - lib_out.transpose(1, 2).float()).abs().max())
+    check(err_long <= TOL[torch.bfloat16] * float(v1.float().abs().max()),
+          f"flash at S={long} vs the library: err {err_long}")
+    (bl_ms, bl_by, _), flops_l = flash_bound(1, long)
+    print(f"flash_attention at S={long}, B=1: {long_ms:.4f} ms per launch, bound "
+          f"{bl_ms:.4f} ms ({bl_by}; both products on the bf16 tensor cores "
+          f"{flops_l / BF16_TENSOR_FLOPS_PER_S * 1e3:.4f} ms), library "
+          f"{lib_long:.4f} ms; vs plain err {err_plain:.3g}, vs the library "
+          f"{err_long:.3g}; bfloat16 checks at most {FLASH_WORST[0]:.4f} of "
+          "their tolerance", flush=True)
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:122",
+        "launches": launches, "max_abs_err": errs["flash_attention"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms,
+        "tensor_core_bound_ms": tc_ms,
+        "at_32k": {"ms": long_ms, "bound_ms": bl_ms, "library_ms": lib_long},
+        "lm_path": {"arch": cfg.name, "batch": B, "prompt": S, "new": NEW,
+                    "prefill_ms": prefill_ms, "ttft_ms": ttft_ms,
+                    "decode_ms_per_step": ms_tok, "peak_gib": peak,
+                    "profile": prof},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -899,10 +1221,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         records += path(errs)
-    check(len(records) == 6 and all(
+    # 12-13. flash attention: kernel vs plain, then the LM serving path
+    errs["flash_attention"] = 0.0
+    torch.cuda.empty_cache()
+    flash_sweep(errs)
+    torch.cuda.reset_peak_memory_stats()
+    records.append(lm_path(errs))
+    check(len(records) == 7 and all(
         math.isfinite(r_[k]) for r_ in records
         for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")),
         "a measurement is missing or not finite")
+    check(math.isfinite(records[-1]["library_ms"]), "flash: no library time")
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,11 @@
-"""Carry the JAX objectives' arrays across to the port.
+"""Carry the JAX package's arrays across to the port.
 
 A JAX objective's arrays (``FeatureCoverage.W``, ``FacilityLocation.sim``,
 ``StreamingFacilityLocation.X`` / ``Xs``), as numpy arrays, become the
-port's objective on the chosen device, the card by default.  The tests and
-``chip_smoke.py`` build their objectives this way.
+port's objective on the chosen device, the card by default.  A JAX model's
+parameter tree and decode cache, as numpy arrays, become the port's (same
+layout: groups stacked on axis 0).  The tests and ``chip_smoke.py`` build
+their objectives this way.
 """
 
 from __future__ import annotations
@@ -16,16 +18,10 @@ from repro_torch.core.functions import (
     FeatureCoverage,
     StreamingFacilityLocation,
 )
-
-
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the plain "
-            "PyTorch path on the host"
-        )
-    return dev
+from repro_torch.device import resolve_device as _device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.decoder import _require_ported
+from repro_torch.models.layers import tree_leaves
 
 
 def feature_coverage_from_numpy(
@@ -82,3 +78,41 @@ def facility_location_from_features(
     on ``device`` from the rows of ``X``."""
     return FacilityLocation.from_features(_f32(X, _device(device)), kernel,
                                           n_threshold=n_threshold)
+
+
+def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A copy of a numpy array (bfloat16 arrays, which JAX hands out through
+    ml_dtypes, included) as a tensor of the same dtype on ``dev``.  Always a
+    copy: the port updates its decode cache in place, and JAX's arrays are
+    read-only views of its own buffers."""
+    a = np.array(a, order="C")
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
+
+
+def _tree(tree: dict, dev: torch.device) -> dict:
+    return {k: _tree(v, dev) if isinstance(v, dict) else _tensor(v, dev)
+            for k, v in tree.items()}
+
+
+def model_params_from_numpy(params: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """The port's parameters from a JAX parameter tree (``init_params``'s,
+    leaves as numpy arrays, groups stacked on axis 0), on ``device``, each
+    leaf in its own dtype."""
+    dev = _device(device)
+    _require_ported(cfg)
+    G = cfg.num_groups
+    for i in range(len(cfg.block_pattern)):
+        for leaf in tree_leaves(params["blocks"][f"p{i}"]):
+            if leaf.shape[:1] != (G,):
+                raise ValueError(f"{cfg.name}: blocks.p{i} must be stacked over "
+                                 f"{G} groups on axis 0, got {leaf.shape}")
+    return _tree(params, dev)
+
+
+def cache_from_numpy(cache: dict, device="cuda") -> dict:
+    """The port's decode cache from a JAX one (``prefill``'s or
+    ``init_cache``'s, leaves as numpy arrays), on ``device``."""
+    return _tree(cache, _device(device))
+

@@ -2,13 +2,16 @@
 
 from repro_torch.kernels._build import build, load_library
 from repro_torch.kernels.feature_gains import feature_gains_kernel
+from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.fl_divergence import fl_divergence_kernel, fl_gains_kernel
 from repro_torch.kernels.fl_stream import (
     fl_stream_divergence_kernel,
     fl_stream_gains_kernel,
 )
 from repro_torch.kernels.ref import (
+    attention_ref,
     feature_gains_ref,
+    flash_attention_ref,
     fl_divergence_ref,
     fl_stream_divergence_ref,
     fl_stream_pair_ref,
@@ -17,6 +20,7 @@ from repro_torch.kernels.ref import (
 from repro_torch.kernels.ss_weights import ss_divergence_kernel
 
 __all__ = [
+    "attention_ref",
     "build",
     "feature_gains_kernel",
     "feature_gains_ref",
@@ -27,6 +31,8 @@ __all__ = [
     "fl_stream_divergence_ref",
     "fl_stream_gains_kernel",
     "fl_stream_pair_ref",
+    "flash_attention_kernel",
+    "flash_attention_ref",
     "load_library",
     "ss_divergence_kernel",
     "ss_divergence_ref",

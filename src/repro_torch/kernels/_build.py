@@ -120,6 +120,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p,            # out, stream
     ]
     lib.fl_stream_launch.restype = i
+    lib.flash_attention_launch.argtypes = [
+        p, p, p, p,      # q, k, v, out
+        i, i, i, i, i, i,  # inputs are bf16, B, S, H, KV, head_dim
+        *[ll] * 12,      # (batch, seq, head) strides of q, k, v, out
+        i, i,            # causal, window
+        ctypes.c_float,  # scale
+        p,               # stream
+    ]
+    lib.flash_attention_launch.restype = i
 
 
 def load_library() -> ctypes.CDLL:

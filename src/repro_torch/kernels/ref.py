@@ -3,17 +3,21 @@
 They define the arithmetic the CUDA kernels must match: every input is
 upcast to float32 and every reduction accumulates in float32.  The kernel
 wrappers (:mod:`repro_torch.kernels.ss_weights`, ``feature_gains``,
-``fl_divergence``, ``fl_stream``) run them for tensors on the CPU; on the
-card they serve only as the comparison in ``chip_smoke.py``.
+``fl_divergence``, ``fl_stream``, ``flash_attention``) run them for tensors
+on the CPU; on the card they serve only as the comparison in
+``chip_smoke.py``.
 
 All of them walk the candidates in chunks and the probes one at a time, so
 the textbook formulas' blocks never exist: the (r, n, F) block of
 FeatureCoverage (a single (n, F) float32 temporary is already 4 GiB at
 n = 2^20, F = 1024), and the (r, n, n) hinge block of facility location, or
-in the matrix-free case even the (n, n) similarity.
+in the matrix-free case even the (n, n) similarity.  Attention walks blocks
+of query rows, so its (B, H, S, S) score block never exists either.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -247,3 +251,67 @@ def fl_stream_divergence_ref(
     """w_v = min_u [acc[u, v] - resid_u] over relu(X · Xcᵀ).  (n,) or (k,)."""
     return _fl_walk(_cols_stream(X, Xc, cand_idx), _n_cand(X, Xc, cand_idx),
                     MU, resid)
+
+
+# -- attention ---------------------------------------------------------------
+
+
+def _softcap(s: Tensor, cap: float) -> Tensor:
+    return s if cap <= 0.0 else cap * torch.tanh(s / cap)
+
+
+def attention_ref(
+    q: Tensor,             # (B, S, H, hd)
+    k: Tensor,             # (B, S, KV, hd), H a multiple of KV
+    v: Tensor,             # (B, S, KV, hd)
+    causal: bool = True,
+    window: int = 0,       # > 0: sliding window (causal only)
+    softcap: float = 0.0,  # > 0: cap * tanh(s / cap) on the scores
+) -> Tensor:
+    """Softmax attention with grouped KV heads: query head h reads KV head
+    h // (H / KV) in place.  Float32 math, the result in q's dtype.
+
+    The function the flash kernel computes: softmax(mask(QKᵀ/√hd))·V, with
+    the causal mask qpos >= kpos, the window qpos - kpos < window (causal
+    only) and no mask at all when not causal.  It walks blocks of query
+    rows, each against only the keys its mask can reach, so a score block
+    stays under 256 MiB (``_ELEMS`` float32) at any S.
+    """
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    kf, vf = k.float(), v.float()
+    out = torch.empty_like(q)
+    rows = max(1, _ELEMS // (B * H * S))
+    for lo in range(0, S, rows):
+        hi = min(S, lo + rows)
+        k_lo, k_hi = 0, S
+        if causal:
+            k_hi = hi
+            if window > 0:
+                k_lo = max(0, lo - window + 1)
+        qb = q[:, lo:hi].float().reshape(B, hi - lo, KV, G, hd)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qb, kf[:, k_lo:k_hi]) * scale
+        s = _softcap(s, softcap)
+        if causal:
+            dq = (torch.arange(lo, hi, device=q.device)[:, None]
+                  - torch.arange(k_lo, k_hi, device=q.device)[None, :])
+            mask = dq >= 0
+            if window > 0:
+                mask &= dq < window
+            s = torch.where(mask, s, NEG)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p, vf[:, k_lo:k_hi])
+        out[:, lo:hi] = o.reshape(B, hi - lo, H, hd).to(q.dtype)
+    return out
+
+
+def flash_attention_ref(
+    q: Tensor, k: Tensor, v: Tensor, causal: bool = True, window: int = 0
+) -> Tensor:
+    """Plain version of the flash-attention kernel on its TPU layout:
+    (BH, S, hd) each, batch and heads flattened, k and v already expanded
+    to the query heads.  Returns (BH, S, hd) in q's dtype."""
+    return attention_ref(q[:, :, None], k[:, :, None], v[:, :, None],
+                         causal, window)[:, :, 0]

@@ -148,3 +148,35 @@ def test_facility_location_entry_points_default_to_the_card(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FL_ENTRY_POINTS[entry](W)
     assert FL_ENTRY_POINTS[entry](W, device="cpu").device.type == "cpu"
+
+
+def _lm_entry_points():
+    from repro_torch import configs
+    from repro_torch.convert import model_params_from_numpy
+    from repro_torch.models import init_params
+    from repro_torch.serve import Engine
+
+    cfg = configs.smoke("qwen3-4b")
+    cpu_params = init_params(torch.Generator(), cfg, device="cpu")
+    np_params = _numpy(cpu_params)
+    return {
+        "init_params": lambda **kw: init_params(torch.Generator(), cfg, **kw),
+        "Engine": lambda **kw: Engine(cfg, cpu_params, **kw),
+        "model_params_from_numpy": lambda **kw: model_params_from_numpy(
+            np_params, cfg, **kw),
+    }
+
+
+def _numpy(tree):
+    return {k: _numpy(v) if isinstance(v, dict) else v.numpy()
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("entry", ["init_params", "Engine",
+                                   "model_params_from_numpy"])
+def test_lm_entry_points_default_to_the_card(monkeypatch, entry):
+    call = _lm_entry_points()[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    call(device="cpu")     # the host works when asked for
