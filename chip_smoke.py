@@ -17,7 +17,11 @@ on three objectives, one after the other, each at full size:
 
 then the LM serving path: qwen3-4b at its published widths and depth (36
 layers, synthetic weights from a seed) serves four 2048-token prompts,
-prefill through the flash-attention kernel, then 32 greedy tokens of decode.
+prefill through the flash-attention kernel (its tensor-core route, bf16 at
+head_dim 128), then 32 greedy tokens of decode.  The tensor-core route is
+timed beside the earlier CUDA-core (FFMA) kernel on the same inputs, in
+turns, and both are held to the plain version, with their flip rates
+(bf16 outputs that differ from it) beside that of P rounded to bf16 once.
 
 For each it checks the result, its kernel launches and its agreement with
 the plain path, times each kernel at the path's shapes beside its bound and
@@ -893,14 +897,32 @@ def flash_close(out, ref, what: str) -> float:
 
 
 def flash_sweep(errs: dict) -> None:
-    """The flash kernel vs its plain version on the card: float32 and
+    """The flash kernels vs their plain version on the card: float32 and
     bfloat16 x head_dim 32/64/128/256 x S = 96 (ragged), 128, 2048 x causal,
-    a 32-wide window, or no mask x GQA groups of 1 and 4, held by
-    ``flash_close``."""
-    from repro_torch.kernels import attention_ref, flash_attention_kernel, flash_attention_ref
+    a 32-wide window, or no mask x GQA groups of 1 and 4, then the TPU
+    kernel's own (BH, S, hd) form (float32, and bfloat16 at head_dim 64 and
+    128), held by ``flash_close``.  Each case goes through the route
+    ``flash_route`` names; every bfloat16 case at head_dim 64 or 128 must
+    launch the tensor-core kernel."""
+    from repro_torch.kernels import (attention_ref, flash_attention_kernel,
+                                     flash_attention_ref, flash_route)
 
     g = torch.Generator(device="cuda").manual_seed(5)
-    cases = 0
+    cases, tc_cases = 0, 0
+
+    def run(*args, **kw):
+        nonlocal cases, tc_cases
+        q = args[0]
+        n_tc = flash_attention_kernel.launches_tc
+        out = flash_attention_kernel(*args, **kw)
+        tc = flash_route(q.dtype, q.shape[-1]) == "tc"
+        check(flash_attention_kernel.launches_tc - n_tc == int(tc),
+              f"flash {q.dtype} hd={q.shape[-1]}: not the {'tc' if tc else 'ffma'}"
+              " route")
+        cases += 1
+        tc_cases += tc
+        return out
+
     for dt, hd, S, (causal, window), G in itertools.product(
         (torch.float32, torch.bfloat16), (32, 64, 128, 256), (96, 128, 2048),
         ((True, 0), (True, 32), (False, 0)), (1, 4),
@@ -909,22 +931,24 @@ def flash_sweep(errs: dict) -> None:
         q = torch.randn((B, S, KV * G, hd), generator=g, device="cuda").to(dt)
         k = torch.randn((B, S, KV, hd), generator=g, device="cuda").to(dt)
         v = torch.randn((B, S, KV, hd), generator=g, device="cuda").to(dt)
-        out = flash_attention_kernel(q, k, v, causal=causal, window=window)
+        out = run(q, k, v, causal=causal, window=window)
         ref = attention_ref(q, k, v, causal, window)
         err = flash_close(out, ref, f"flash_attention {dt} hd={hd} S={S} "
                           f"causal={causal} window={window} G={G}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
-        cases += 1
     # the TPU kernel's own (BH, S, hd) form
-    q, k, v = (torch.randn((8, 200, 64), generator=g, device="cuda")
-               for _ in range(3))
-    err = flash_close(flash_attention_kernel(q, k, v, window=48),
-                      flash_attention_ref(q, k, v, True, 48),
-                      "flash_attention (BH, S, hd) form")
+    for dt, hd in ((torch.float32, 64), (torch.bfloat16, 64), (torch.bfloat16, 128)):
+        q, k, v = (torch.randn((8, 200, hd), generator=g, device="cuda").to(dt)
+                   for _ in range(3))
+        err = flash_close(run(q, k, v, window=48),
+                          flash_attention_ref(q, k, v, True, 48),
+                          f"flash_attention (BH, S, hd) form, {dt} hd={hd}")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
     torch.cuda.synchronize()
-    print(f"flash kernel vs plain: {cases + 1} cases passed; max abs err "
-          f"{errs['flash_attention']:.3g}; bfloat16 at most {FLASH_WORST[0]:.4f} "
-          "of its tolerance", flush=True)
+    print(f"flash kernels vs plain: {cases} cases passed, {tc_cases} of them "
+          f"(every bfloat16 case at head_dim 64 and 128) on the tensor-core "
+          f"route; max abs err {errs['flash_attention']:.3g}; bfloat16 at most "
+          f"{FLASH_WORST[0]:.4f} of its tolerance", flush=True)
 
 
 @contextlib.contextmanager
@@ -993,11 +1017,14 @@ def profile_lm(label: str, call) -> dict:
 
 def lm_path(errs: dict) -> dict:
     """qwen3-4b at full width and depth on synthetic weights serves four
-    2048-token prompts (greedy, 32 new tokens): launches, agreement with the
-    plain route, timings, a profile of the prefill, and the flash kernel
-    timed at the path's shape and at S = 32768."""
+    2048-token prompts (greedy, 32 new tokens): launches (all 36 of a
+    prefill on the tensor-core route), agreement with the plain route,
+    timings, a profile of the prefill, and the flash kernels timed at the
+    path's shape and at S = 32768 beside their bounds, with flip rates."""
     from repro_torch import configs
-    from repro_torch.kernels import attention_ref, flash_attention_kernel, flash_attention_ref
+    from repro_torch.kernels import (attention_ref, attention_split_p_ref,
+                                     flash_attention_kernel)
+    from repro_torch.kernels.flash_attention import TC_PARTS, _launch
     from repro_torch.models import decode_step, forward, init_params, prefill
     from repro_torch.models.layers import tree_leaves
     from repro_torch.serve import Engine, ServeConfig
@@ -1023,25 +1050,27 @@ def lm_path(errs: dict) -> dict:
     prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
 
     # the main path: Engine.generate, counts set to 0 just before
-    flash_attention_kernel.launches = 0
+    flash_attention_kernel.launches = flash_attention_kernel.launches_tc = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     tokens, _ = eng.generate(prompts, NEW)
     torch.cuda.synchronize()
     wall_gen = time.perf_counter() - t
     launches = flash_attention_kernel.launches
+    launches_tc = flash_attention_kernel.launches_tc
     check(tokens.shape == (B, NEW) and int(tokens.min()) >= 0
           and int(tokens.max()) < cfg.vocab_size, "generate: bad tokens")
-    check(launches == cfg.num_layers,
-          f"generate launched the flash kernel {launches} times, not once per "
-          f"layer of the prefill ({cfg.num_layers}) and never in decode")
+    check(launches == launches_tc == cfg.num_layers,
+          f"generate launched the flash kernels {launches} times ({launches_tc} "
+          f"on the tensor-core route), not once per layer of the prefill "
+          f"({cfg.num_layers}), all on the tensor-core route, and never in decode")
     print(f"generate: {B} x {S}-token prompts -> {tuple(tokens.shape)} tokens in "
           f"{wall_gen:.4f} s (host clock, synchronised, first call); flash "
-          f"launches {launches}", flush=True)
+          f"launches {launches}, {launches_tc} on the tensor-core route", flush=True)
 
     # the same path step by step, timed, with the counts per phase
     torch.cuda.reset_peak_memory_stats()
-    flash_attention_kernel.launches = 0
+    flash_attention_kernel.launches = flash_attention_kernel.launches_tc = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     logits, cache = eng.prefill(prompts)
@@ -1051,6 +1080,7 @@ def lm_path(errs: dict) -> dict:
     torch.cuda.synchronize()
     ttft_ms = (time.perf_counter() - t) * 1e3
     prefill_launches = flash_attention_kernel.launches
+    prefill_tc = flash_attention_kernel.launches_tc
     flash_attention_kernel.launches = 0
     step_logits, toks = [logits], [tok]
     t = time.perf_counter()
@@ -1063,8 +1093,9 @@ def lm_path(errs: dict) -> dict:
     decode_s = time.perf_counter() - t
     decode_launches = flash_attention_kernel.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check(prefill_launches == cfg.num_layers and decode_launches == 0,
-          f"launches: prefill {prefill_launches}, decode {decode_launches}")
+    check(prefill_launches == prefill_tc == cfg.num_layers and decode_launches == 0,
+          f"launches: prefill {prefill_launches} ({prefill_tc} tensor-core), "
+          f"decode {decode_launches}")
     check(torch.equal(torch.cat(toks, 1), tokens),
           "the step-by-step run gave other tokens than generate")
     ms_tok = decode_s * 1e3 / (NEW - 1)
@@ -1098,40 +1129,84 @@ def lm_path(errs: dict) -> dict:
 
     # the kernel at the path's shape: layer 0's (q, k, v) of the plain prefill
     q, k, v = seen[0]
-    out_k, ms = timed(lambda: flash_attention_kernel(q, k, v), 1)
-    out_p, _ = timed(lambda: attention_ref(q, k, v, True, 0), 1)
-    err = flash_close(out_k, out_p, "flash at the path's shape")
-    errs["flash_attention"] = max(errs["flash_attention"], err)
-    ms = sync_ms(lambda: flash_attention_kernel(q, k, v), 20)
-    plain_ms = sync_ms(lambda: attention_ref(q, k, v, True, 0), 3)
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // KV
+
+    def ffma(q_, k_, v_):
+        # the CUDA-core kernel on the same bf16 inputs (the earlier design)
+        out = torch.empty_like(q_)
+        _launch(q_, k_, v_, out, True, 0, tc=False)
+        return out
+
+    out_k = flash_attention_kernel(q, k, v)
+    out_f = ffma(q, k, v)
+    ref = attention_ref(q, k, v, True, 0)
+    for out, what in ((out_k, "tensor-core"), (out_f, "FFMA")):
+        err = flash_close(out, ref, f"flash ({what}) at the path's shape")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+    # flip rates: the share of bf16 outputs that differ from the plain
+    # version's (float32 P throughout, rounded once at the output)
+    flips = {"tc": float((out_k != ref).float().mean()),
+             "ffma": float((out_f != ref).float().mean())}
+    for parts in (1, 2, 3):
+        alt = attention_split_p_ref(q, k, v, True, 0, parts=parts)
+        flips[f"plain_{parts}_parts"] = float((alt != ref).float().mean())
+    del out_f, alt
+    check(flips["tc"] <= flips["plain_1_parts"] / 4,
+          f"flash flip rate {flips['tc']} is over a quarter of rounding P once "
+          f"({flips['plain_1_parts']}): P·V does not keep float32 P")
+    print(f"flip rates at the path's shape (bf16 outputs that differ from the "
+          f"plain version): tensor-core route ({TC_PARTS} parts) "
+          f"{flips['tc']:.6f}, FFMA kernel {flips['ffma']:.6f}; plain with P "
+          f"rounded to bf16 once {flips['plain_1_parts']:.6f}, in 2 parts "
+          f"{flips['plain_2_parts']:.6f}, in 3 parts {flips['plain_3_parts']:.6f}",
+          flush=True)
+
+    # both kernels in turns (tc, ffma, ffma, tc), then plain and the library
+    def in_turns(args, n_tc, n_ffma):
+        t1 = sync_ms(lambda: flash_attention_kernel(*args), n_tc)
+        f1 = sync_ms(lambda: ffma(*args), n_ffma)
+        f2 = sync_ms(lambda: ffma(*args), n_ffma)
+        t2 = sync_ms(lambda: flash_attention_kernel(*args), n_tc)
+        return (t1 + t2) / 2, (f1 + f2) / 2, (t1, f1, f2, t2)
+
+    ms, ffma_ms, turns = in_turns((q, k, v), 20, 5)
+    plain_ms = sync_ms(lambda: attention_ref(q, k, v, True, 0), 3)
     qx, kx, vx = (t_.transpose(1, 2).contiguous() for t_ in (
         q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = sync_ms(lambda: sdpa(qx, kx, vx, is_causal=True), 20)
 
-    def flash_bound(b, s):
-        # QKᵀ on bfloat16 q, k: exact products, float32 sums, so the tensor
-        # cores' rate; P·V with P in float32: FFMA.  One exponential a pair.
-        pairs = b * H * s * (s + 1) / 2      # causal (q, k) pairs
+    def flash_bounds(b, s):
+        # One exponential a causal (q, k) pair.  The tensor-core design: QKᵀ
+        # on bf16 q, k (exact products, float32 sums) and P·V as TC_PARTS
+        # bf16 products, all at the tensor cores' rate.  Yardsticks: the
+        # FFMA design (P·V on the CUDA cores) and both products once on the
+        # tensor cores (P rounded once: a different result).
+        pairs = b * H * s * (s + 1) / 2
         nbytes = (2 * b * s * H * hd + 2 * b * s * KV * hd) * q.element_size()
-        check(q.dtype == torch.bfloat16, "flash_bound counts bfloat16 inputs")
-        return (bound(nbytes, ffma=pairs * hd, sfu=pairs,
-                      bf16_tc=2 * pairs * hd), 4 * pairs * hd)
+        check(q.dtype == torch.bfloat16, "flash_bounds count bfloat16 inputs")
+        tc = bound(nbytes, sfu=pairs, bf16_tc=(2 + 2 * TC_PARTS) * pairs * hd)
+        ffma_design = bound(nbytes, ffma=pairs * hd, sfu=pairs,
+                            bf16_tc=2 * pairs * hd)[0]
+        return tc, ffma_design, 4 * pairs * hd / BF16_TENSOR_FLOPS_PER_S * 1e3
 
-    (b_ms, b_by, b_pipe), flops = flash_bound(B, S)
-    tc_ms = flops / BF16_TENSOR_FLOPS_PER_S * 1e3
+    (b_ms, b_by, b_pipe), ffma_bound, tc_ms = flash_bounds(B, S)
+    share = b_ms / ms
+    check(share <= 1.05, f"flash runs at {share:.3f} of its bound: the count "
+          "is wrong")
     print(f"flash_attention at the path's shape (B={B}, S={S}, H={H}, KV={KV}, "
-          f"hd={hd}, bf16, causal): {ms:.4f} ms per launch, plain {plain_ms:.4f} "
-          f"ms, bound {b_ms:.4f} ms ({b_by}: {b_pipe}; both products on the "
-          f"bf16 tensor cores {tc_ms:.4f} ms), library "
+          f"hd={hd}, bf16, causal): tensor-core route {ms:.4f} ms per launch "
+          f"(in turns {', '.join(f'{x:.4f}' for x in turns)}: tc, ffma, ffma, tc), "
+          f"bound {b_ms:.4f} ms ({b_by}: {b_pipe}), share of the bound "
+          f"{share:.4f}; FFMA kernel {ffma_ms:.4f} ms (its design's bound "
+          f"{ffma_bound:.4f} ms); both products once on the bf16 tensor cores "
+          f"{tc_ms:.4f} ms; plain {plain_ms:.4f} ms; library "
           f"(scaled_dot_product_attention, is_causal) {lib_ms:.4f} ms; "
-          f"{launches} launches per prefill = "
-          f"{ms * launches:.4f} ms", flush=True)
+          f"{launches} launches per prefill = {ms * launches:.4f} ms", flush=True)
 
     # one long request: S = 32768, B = 1, as the prefill_32k cells
-    del out_k, out_p, qx, kx, vx
+    del out_k, ref, qx, kx, vx
     long = 32768
     q1 = torch.randn((1, long, H, hd), generator=gen, device="cuda").bfloat16()
     k1 = torch.randn((1, long, KV, hd), generator=gen, device="cuda").bfloat16()
@@ -1140,7 +1215,7 @@ def lm_path(errs: dict) -> dict:
     err_plain = flash_close(out_long, attention_ref(q1, k1, v1, True, 0),
                             f"flash at S={long} vs plain")
     errs["flash_attention"] = max(errs["flash_attention"], err_plain)
-    long_ms = sync_ms(lambda: flash_attention_kernel(q1, k1, v1), 2)
+    long_ms, long_ffma, turns_l = in_turns((q1, k1, v1), 5, 1)
     qx, kx, vx = (t_.transpose(1, 2).contiguous() for t_ in (
         q1, k1.repeat_interleave(G, dim=2), v1.repeat_interleave(G, dim=2)))
     lib_out = sdpa(qx, kx, vx, is_causal=True)
@@ -1150,22 +1225,32 @@ def lm_path(errs: dict) -> dict:
     err_long = float((out_long.float() - lib_out.transpose(1, 2).float()).abs().max())
     check(err_long <= TOL[torch.bfloat16] * float(v1.float().abs().max()),
           f"flash at S={long} vs the library: err {err_long}")
-    (bl_ms, bl_by, _), flops_l = flash_bound(1, long)
-    print(f"flash_attention at S={long}, B=1: {long_ms:.4f} ms per launch, bound "
-          f"{bl_ms:.4f} ms ({bl_by}; both products on the bf16 tensor cores "
-          f"{flops_l / BF16_TENSOR_FLOPS_PER_S * 1e3:.4f} ms), library "
+    (bl_ms, bl_by, _), ffma_bound_l, tc_l = flash_bounds(1, long)
+    share_l = bl_ms / long_ms
+    check(share_l <= 1.05, f"flash at S={long} runs at {share_l:.3f} of its bound")
+    print(f"flash_attention at S={long}, B=1: tensor-core route {long_ms:.4f} ms "
+          f"per launch (in turns {', '.join(f'{x:.4f}' for x in turns_l)}), "
+          f"bound {bl_ms:.4f} ms ({bl_by}), share {share_l:.4f}; FFMA kernel "
+          f"{long_ffma:.4f} ms (its design's bound {ffma_bound_l:.4f} ms); both "
+          f"products once on the tensor cores {tc_l:.4f} ms; library "
           f"{lib_long:.4f} ms; vs plain err {err_plain:.3g}, vs the library "
           f"{err_long:.3g}; bfloat16 checks at most {FLASH_WORST[0]:.4f} of "
           "their tolerance", flush=True)
     return {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
         "replaces": "src/repro/kernels/flash_attention.py:122",
         "launches": launches, "max_abs_err": errs["flash_attention"], "ms": ms,
         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": lib_ms,
-        "tensor_core_bound_ms": tc_ms,
-        "at_32k": {"ms": long_ms, "bound_ms": bl_ms, "library_ms": lib_long},
+        "launches_tc": launches_tc, "parts": TC_PARTS, "share_of_bound": share,
+        "flip_rates": flips,
+        "ffma_design_bound_ms": ffma_bound, "tensor_core_bound_ms": tc_ms,
+        "ffma_kernel": {"source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "ms": ffma_ms, "at_32k_ms": long_ffma},
+        "at_32k": {"ms": long_ms, "bound_ms": bl_ms, "share_of_bound": share_l,
+                   "ffma_design_bound_ms": ffma_bound_l,
+                   "tensor_core_bound_ms": tc_l, "library_ms": lib_long},
         "lm_path": {"arch": cfg.name, "batch": B, "prompt": S, "new": NEW,
                     "prefill_ms": prefill_ms, "ttft_ms": ttft_ms,
                     "decode_ms_per_step": ms_tok, "peak_gib": peak,

@@ -2,7 +2,7 @@
 
 from repro_torch.kernels._build import build, load_library
 from repro_torch.kernels.feature_gains import feature_gains_kernel
-from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_route
 from repro_torch.kernels.fl_divergence import fl_divergence_kernel, fl_gains_kernel
 from repro_torch.kernels.fl_stream import (
     fl_stream_divergence_kernel,
@@ -10,17 +10,20 @@ from repro_torch.kernels.fl_stream import (
 )
 from repro_torch.kernels.ref import (
     attention_ref,
+    attention_split_p_ref,
     feature_gains_ref,
     flash_attention_ref,
     fl_divergence_ref,
     fl_stream_divergence_ref,
     fl_stream_pair_ref,
+    split_bf16,
     ss_divergence_ref,
 )
 from repro_torch.kernels.ss_weights import ss_divergence_kernel
 
 __all__ = [
     "attention_ref",
+    "attention_split_p_ref",
     "build",
     "feature_gains_kernel",
     "feature_gains_ref",
@@ -33,7 +36,9 @@ __all__ = [
     "fl_stream_pair_ref",
     "flash_attention_kernel",
     "flash_attention_ref",
+    "flash_route",
     "load_library",
+    "split_bf16",
     "ss_divergence_kernel",
     "ss_divergence_ref",
 ]

@@ -129,6 +129,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,               # stream
     ]
     lib.flash_attention_launch.restype = i
+    lib.flash_attention_tc_launch.argtypes = [
+        p, p, p, p,      # q, k, v, out (bfloat16)
+        i, i, i, i, i,   # B, S, H, KV, head_dim
+        *[ll] * 12,      # (batch, seq, head) strides of q, k, v, out
+        i, i,            # causal, window
+        ctypes.c_float,  # scale
+        p,               # stream
+    ]
+    lib.flash_attention_tc_launch.restype = i
 
 
 def load_library() -> ctypes.CDLL:

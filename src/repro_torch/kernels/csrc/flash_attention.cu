@@ -2,7 +2,10 @@
 //
 // Replaces: src/repro/kernels/flash_attention.py:flash_attention (the Pallas
 // TPU kernel, body _flash_kernel), the fused form of the LM path's
-// models/attention.py:blockwise_attention.
+// models/attention.py:blockwise_attention, on the route that
+// kernels/flash_attention.py calls "ffma": float32 inputs, and bfloat16 at
+// head_dim 32 or 256.  bfloat16 at head_dim 64 and 128 (the LM path) takes
+// the tensor-core kernel in flash_attention_tc.cu.
 //
 // Computes, for every (batch b, query head h, query position i):
 //   O[i] = sum_j p_ij V[j] / sum_j p_ij,  p_ij = exp(s_ij - max_j s_ij),
@@ -33,8 +36,7 @@
 // loads), and a 4-query x hd/16 slice of the output accumulator, which
 // P (stored transposed) and V rows feed the same way.  The online-softmax
 // state (m, l) of a query row lives in the registers of the 16 threads that
-// share the row, reduced with shuffles.  A later redesign (wgmma on bf16
-// inputs) is in PERF.md.
+// share the row, reduced with shuffles.
 
 #include "common.cuh"
 

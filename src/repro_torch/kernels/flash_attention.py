@@ -3,11 +3,22 @@
     O = softmax(mask(Q Kᵀ / √hd)) V
 
 with the causal mask (qpos >= kpos), a sliding window (qpos - kpos <
-window, causal only) or no mask.  On CUDA tensors the wrapper launches the
-hand-written kernel in ``csrc/flash_attention.cu`` (counterpart of the
-Pallas ``repro/kernels/flash_attention.py:flash_attention``); on CPU tensors
-it runs the plain version, :func:`~repro_torch.kernels.ref.attention_ref`.
-Nothing else: a failed build or launch raises.
+window, causal only) or no mask: the counterpart of the Pallas
+``repro/kernels/flash_attention.py:flash_attention``.  On CUDA tensors the
+wrapper launches one of two hand-written kernels, chosen by
+:func:`flash_route` from the dtype and head width alone:
+
+- ``"tc"`` (bfloat16 at head_dim 64 or 128): ``csrc/flash_attention_tc.cu``,
+  both products on the tensor cores (wgmma), TMA-fed.  P stays float32: P·V
+  is summed over ``TC_PARTS`` bfloat16 parts of P (:func:`split_bf16
+  <repro_torch.kernels.ref.split_bf16>`).  TMA needs 16-byte aligned
+  tensors with strides of 16 bytes; anything else raises.
+- ``"ffma"`` (float32, and bfloat16 at head_dim 32 or 256):
+  ``csrc/flash_attention.cu``, IEEE float32 FFMA on the CUDA cores.
+
+On CPU tensors it runs the plain version,
+:func:`~repro_torch.kernels.ref.attention_ref`.  Nothing else: a failed
+build or launch raises, and no route stands in for another.
 """
 
 from __future__ import annotations
@@ -21,10 +32,38 @@ from repro_torch.kernels.ref import attention_ref
 
 Tensor = torch.Tensor
 
-__all__ = ["HEAD_DIMS", "flash_attention_kernel"]
+__all__ = ["HEAD_DIMS", "TC_HEAD_DIMS", "TC_PARTS", "flash_attention_kernel",
+           "flash_route"]
 
-# The head widths the kernel is compiled for (csrc/flash_attention.cu).
+# The head widths the FFMA kernel is compiled for (csrc/flash_attention.cu),
+# and the tensor-core kernel (csrc/flash_attention_tc.cu, bfloat16 only).
 HEAD_DIMS = (32, 64, 128, 256)
+TC_HEAD_DIMS = (64, 128)
+# bfloat16 parts of P in the tensor-core kernel's P·V (its PARTS).
+TC_PARTS = 3
+
+
+def flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that computes attention on these inputs: ``"tc"`` for
+    bfloat16 at head_dim 64 or 128, ``"ffma"`` for the rest.  A fixed rule:
+    the wrapper never reroutes on failure."""
+    return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS else "ffma"
+
+
+def check_tc_layout(q: Tensor, k: Tensor, v: Tensor) -> None:
+    """What the tensor-core route's TMA needs: each tensor's base 16-byte
+    aligned and every stride but the last (contiguous) axis a multiple of
+    16 bytes.  Raises ValueError otherwise."""
+    for arg, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {arg} is not 16-byte aligned, "
+                             "which the tensor-core route's TMA needs")
+        for i in range(t.dim() - 1):
+            if t.stride(i) * t.element_size() % 16:
+                raise ValueError(
+                    f"flash_attention: {arg}'s stride {t.stride(i)} (axis {i}) "
+                    "is not a multiple of 16 bytes, which the tensor-core "
+                    "route's TMA needs")
 
 
 def _check(q: Tensor, k: Tensor, v: Tensor, window: int) -> None:
@@ -82,38 +121,53 @@ def flash_attention_kernel(
     k and v expanded to the query heads.  The 4-D form keeps the model's
     layout, with KV heads grouped (query head h reads KV head h // (H/KV)
     in place, so the expanded copy is never built).  The arithmetic is
-    float32 on float32 or bfloat16 inputs; head_dim must be one of
-    ``HEAD_DIMS``.  ``flash_attention_kernel.launches`` counts kernel launches
-    (CPU calls do not count).
+    float32 on float32 or bfloat16 inputs (float32 P in P·V on both
+    routes); head_dim must be one of ``HEAD_DIMS``.  The kernel is
+    ``flash_route(q.dtype, head_dim)``'s.  ``flash_attention_kernel.launches``
+    counts kernel launches of both routes, ``.launches_tc`` those of the
+    tensor-core route (CPU calls do not count).
     """
     _check(q, k, v, window)
     flat = q.dim() == 3
     if flat:
         q, k, v = q[:, :, None], k[:, :, None], v[:, :, None]
+    tc = flash_route(q.dtype, q.shape[-1]) == "tc"
+    if tc:
+        check_tc_layout(q, k, v)
     if q.device.type == "cpu":
         out = attention_ref(q, k, v, causal, window)
     else:
         out = torch.empty_like(q, memory_format=torch.contiguous_format)
-        _launch(q, k, v, out, causal, window)
+        _launch(q, k, v, out, causal, window, tc)
     return out[:, :, 0] if flat else out
 
 
 def _launch(q: Tensor, k: Tensor, v: Tensor, out: Tensor, causal: bool,
-            window: int) -> None:
+            window: int, tc: bool) -> None:
+    """One kernel on (B, S, heads, hd) tensors: the tensor-core kernel
+    (``tc``: bfloat16, laid out as ``check_tc_layout`` requires) or the
+    CUDA-core kernel (either dtype)."""
     B, S, H, hd = q.shape
     if B * S * H == 0:
         return
     lib = _build.load_library()
     strides = [t.stride(i) for t in (q, k, v, out) for i in range(3)]
+    if tc:
+        name, fn, flag = "flash_attention_tc", lib.flash_attention_tc_launch, ()
+    else:
+        name, fn = "flash_attention", lib.flash_attention_launch
+        flag = (int(q.dtype == torch.bfloat16),)
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_launch(
+        rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, S, H, k.shape[2], hd, *strides,
+            *flag, B, S, H, k.shape[2], hd, *strides,
             int(causal), int(window), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.raise_on_error("flash_attention", rc)
+    _build.raise_on_error(name, rc)
     flash_attention_kernel.launches += 1
+    flash_attention_kernel.launches_tc += tc
 
 
 flash_attention_kernel.launches = 0
+flash_attention_kernel.launches_tc = 0

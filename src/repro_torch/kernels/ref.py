@@ -277,6 +277,52 @@ def attention_ref(
     rows, each against only the keys its mask can reach, so a score block
     stays under 256 MiB (``_ELEMS`` float32) at any S.
     """
+    def pv(s: Tensor, vb: Tensor) -> Tensor:
+        return torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, dim=-1), vb)
+
+    return _attention_blocks(q, k, v, causal, window, softcap, pv)
+
+
+def split_bf16(p: Tensor, parts: int) -> list[Tensor]:
+    """float32 ``p`` as ``parts`` bfloat16 tensors, the plain form of the
+    tensor-core flash kernel's split of P: hi = bf16(p), then each next part
+    rounds what the earlier ones leave (p - hi, then p - hi - mid).  Each
+    subtraction is exact in float32 (the part shares the remainder's leading
+    bits), so the parts sum back to p within 2^-(8 parts) |p|: 24 bits, all
+    of float32's, at three parts."""
+    out, r = [], p.float()
+    for _ in range(parts):
+        part = r.to(torch.bfloat16)
+        out.append(part)
+        r = r - part.float()
+    return out
+
+
+def attention_split_p_ref(
+    q: Tensor, k: Tensor, v: Tensor, causal: bool = True, window: int = 0,
+    parts: int = 3,
+) -> Tensor:
+    """:func:`attention_ref` with P·V taken over bfloat16 parts of P: with
+    p = exp(s - max s) in float32, O = sum over :func:`split_bf16`'s parts
+    of (part · V) in float32, over sum p.  At three parts it is the
+    tensor-core flash kernel's arithmetic (and the TPU kernel's function);
+    ``parts=1`` rounds P to bfloat16 once before P·V, as
+    ``scaled_dot_product_attention`` does: a different result, kept here
+    only as a yardstick for the tests and ``chip_smoke.py``."""
+    def pv(s: Tensor, vb: Tensor) -> Tensor:
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        o = sum(torch.einsum("bkgqs,bskd->bqkgd", part.float(), vb)
+                for part in split_bf16(p, parts))
+        return o / p.sum(-1).permute(0, 3, 1, 2)[..., None]
+
+    return _attention_blocks(q, k, v, causal, window, 0.0, pv)
+
+
+def _attention_blocks(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                      window: int, softcap: float, pv) -> Tensor:
+    """The block walk of the attention functions above: masked scores
+    (B, KV, G, rows, keys) of each block of query rows, turned into the
+    block's output (B, rows, KV, G, hd) by ``pv(scores, v block)``."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -301,8 +347,7 @@ def attention_ref(
             if window > 0:
                 mask &= dq < window
             s = torch.where(mask, s, NEG)
-        p = torch.softmax(s, dim=-1)
-        o = torch.einsum("bkgqs,bskd->bqkgd", p, vf[:, k_lo:k_hi])
+        o = pv(s, vf[:, k_lo:k_hi])
         out[:, lo:hi] = o.reshape(B, hi - lo, H, hd).to(q.dtype)
     return out
 

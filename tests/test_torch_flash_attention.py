@@ -1,8 +1,10 @@
 """The port's flash attention on the CPU against the JAX package: the plain
 version behind the wrapper vs the Pallas kernel in interpret mode and its
-oracle, the port's ``blockwise_attention`` vs the JAX one, and the
-wrapper's input checks.  The CUDA kernel itself is held to the same plain
-version on the card by ``chip_smoke.py``."""
+oracle, the port's ``blockwise_attention`` vs the JAX one, the wrapper's
+input checks, the route rule, and the tensor-core kernel's arithmetic (P
+split into bfloat16 parts for P·V) in its plain form.  The CUDA kernels
+themselves are held to the same plain version on the card by
+``chip_smoke.py``."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +14,14 @@ import torch
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.ref import flash_attention_ref as jax_flash_ref
 from repro.models.attention import blockwise_attention as jax_blockwise
-from repro_torch.kernels import flash_attention_kernel, flash_attention_ref
+from repro_torch.kernels import (
+    attention_split_p_ref,
+    flash_attention_kernel,
+    flash_attention_ref,
+    flash_route,
+    split_bf16,
+)
+from repro_torch.kernels.flash_attention import check_tc_layout
 from repro_torch.models.attention import blockwise_attention
 
 
@@ -131,3 +140,91 @@ def test_softcap_raises_off_the_cpu():
     q = torch.empty(1, 16, 2, 32, device="meta")
     with pytest.raises(NotImplementedError, match="softcap"):
         blockwise_attention(q, q, q, softcap=30.0)
+
+
+# -- the tensor-core route: its split of P, its route rule, its layout check --
+
+
+@pytest.mark.parametrize("parts", [1, 2, 3])
+def test_split_bf16_sums_back_to_p(parts):
+    rng = np.random.default_rng(12)
+    p = np.concatenate([rng.random(4096), rng.random(64) * 1e-20,
+                        [1.0, 0.0, 2.0**-126, 0.99999994]]).astype(np.float32)
+    pt = torch.from_numpy(p)
+    got = split_bf16(pt, parts)
+    assert len(got) == parts and all(x.dtype == torch.bfloat16 for x in got)
+    total = sum(x.double() for x in got)
+    bound = 2.0 ** (-8 * parts) * pt.double().abs()
+    assert bool(((total - pt.double()).abs() <= bound).all())
+    # each subtraction is exact in float32: the remainder is what float64 gives
+    r = pt
+    for x in got:
+        exact = r.double() - x.double()
+        r = r - x.float()
+        assert torch.equal(r.double(), exact)
+
+
+def _bf16_qkv(seed, shape_q, shape_kv):
+    """float32 inputs that bfloat16 represents exactly (the tc route's)."""
+    q, k, v = _qkv(seed, shape_q, shape_kv, shape_kv)
+    return [torch.from_numpy(a).bfloat16().float().numpy() for a in (q, k, v)]
+
+
+@pytest.mark.parametrize("S,hd", [(128, 64), (96, 128)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 32), (False, 0)])
+def test_split_p_matches_pallas_interpret(S, hd, causal, window):
+    """P·V over three bf16 parts of float32 P is the Pallas kernel's
+    function (float32 P) within 1e-5 of max|v|; P rounded to bf16 once is
+    not, on the same inputs."""
+    BH = 4
+    q, k, v = _bf16_qkv(13, (BH, S, hd), (BH, S, hd))
+    want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                causal=causal, window=window, bq=64, bk=32,
+                                interpret=True))
+    tol = 1e-5 * float(np.abs(v).max())
+    qkv = [t[:, :, None] for t in _t(q, k, v)]
+    split = attention_split_p_ref(*qkv, causal, window, parts=3)[:, :, 0]
+    assert float(np.abs(split.numpy() - want).max()) <= tol
+    once = attention_split_p_ref(*qkv, causal, window, parts=1)[:, :, 0]
+    assert float(np.abs(once.numpy() - want).max()) > tol
+
+
+def test_split_p_grouped_matches_attention_ref():
+    """The grouped (B, S, H, hd) form at three parts is attention_ref's
+    function: the split changes nothing a float32 sum can see."""
+    from repro_torch.kernels import attention_ref
+
+    B, S, H, KV, hd = 2, 80, 8, 2, 64
+    q, k, v = _t(*_bf16_qkv(14, (B, S, H, hd), (B, S, KV, hd)))
+    got = attention_split_p_ref(q, k, v, True, 24)
+    torch.testing.assert_close(got, attention_ref(q, k, v, True, 24),
+                               rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 32, "ffma"), (torch.bfloat16, 256, "ffma"),
+    (torch.float32, 64, "ffma"), (torch.float32, 128, "ffma"),
+    (torch.float32, 32, "ffma"), (torch.float32, 256, "ffma"),
+])
+def test_flash_route_table(dtype, hd, route):
+    assert flash_route(dtype, hd) == route
+
+
+def test_tc_layout_check_raises_on_misaligned_strides():
+    # the model's layout (from _project_qkv) passes
+    q = torch.zeros(2, 16, 4, 128, dtype=torch.bfloat16)
+    check_tc_layout(q, q, q)
+    # a sequence stride of 4 * 130 elements (1040 bytes) passes; a head
+    # stride of 130 (260 bytes) does not
+    wide = torch.zeros(2, 16, 4, 130, dtype=torch.bfloat16)[..., :128]
+    with pytest.raises(ValueError, match="16 bytes"):
+        check_tc_layout(wide, q, q)
+    # a base one element (2 bytes) off 16-byte alignment
+    off = torch.zeros(2 * 16 * 4 * 128 + 1, dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        check_tc_layout(q, off.view(2, 16, 4, 128), q)
+    # the wrapper applies the check on the tc route, and only there
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention_kernel(wide, q, q)
+    assert flash_attention_kernel(wide.float(), q.float(), q.float()).shape == q.shape
