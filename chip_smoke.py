@@ -38,6 +38,7 @@ import contextlib
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -66,6 +67,9 @@ SFU_PER_CLOCK_PER_SM = 16
 # size, not the result's.  1e-4 is the repository's float32 kernel tolerance;
 # 3e-2 its bfloat16 one.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# Probe counts that cross the FL kernels' tile and pass boundaries
+# (kernels/_build.py:fl_probe_tile).
+FL_TILE_PROBES = (2, 15, 16, 17, 64, 65, 128, 144, 145, 160, 161, 300)
 # The LM path: qwen3-4b serving four 2048-token prompts, 32 new tokens each.
 LM_ARCH, LM_B, LM_S, LM_NEW = "qwen3-4b", 4, 2048, 32
 PHIS = ("sqrt", "log1p", "setcover", "satcov", "linear")
@@ -469,12 +473,15 @@ def fl_sweep(errs: dict) -> None:
     """The two FL kernels and their gains instances vs their plain versions
     on the card: ragged shapes x float32/bfloat16 sim x cand_idx none or
     zero-padded x symmetric or asymmetric sim (dense), and x d x Xc = X or
-    Xc != X (matrix-free), each with a pad probe (resid = -INF)."""
+    Xc != X (matrix-free), each with a pad probe (resid = -INF); then the
+    divergence kernels at probe counts across their tile and pass
+    boundaries, with the served rows split."""
     from repro_torch.kernels import (
         fl_divergence_kernel, fl_divergence_ref, fl_gains_kernel,
         fl_stream_divergence_kernel, fl_stream_divergence_ref,
         fl_stream_gains_kernel,
     )
+    from repro_torch.kernels._build import fl_probe_tile, row_splits
     from repro_torch.kernels.ref import sim_rows
 
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -548,10 +555,43 @@ def fl_sweep(errs: dict) -> None:
                                      cand, Xc_arg),
             None, TOL[torch.float32], "fl_stream_gains: " + what))
         stream += 1
+    # Probe counts across the many-probe tile's boundaries (fl_probe_tile:
+    # 1 to 10 probes a thread, one pass or more), each with a pad probe, over
+    # 1500 candidates and 1537 or 1500 served rows, so the rows are split.
+    tiles, tile_dense, tile_stream = {}, 0, 0
+    for r in FL_TILE_PROBES:
+        tiles[r] = fl_probe_tile(r)
+        for dt, compact in itertools.product((torch.float32, torch.bfloat16),
+                                             (False, True)):
+            sim = torch.rand((1537, 1500), generator=g, device=dev).to(dt).contiguous()
+            MU, resid, _ = probe_rows(sim, r, with_state=compact)
+            cand = cand_of(1500) if compact else None
+            n_out = 1500 if cand is None else cand.numel()
+            check(row_splits(n_out, 1537) > 1, "fl tile sweep: rows not split")
+            what = f"fl_divergence tile r={r} {dt} cand={compact}"
+            errs["fl_divergence"] = max(errs["fl_divergence"], _fl_close(
+                fl_divergence_kernel(sim, MU, resid, cand),
+                fl_divergence_ref(sim, MU, resid, cand), resid, TOL[dt], what))
+            tile_dense += 1
+        for d, compact in itertools.product((16, 40), (False, True)):
+            X = torch.randn((1500, d), generator=g, device=dev)
+            X = X / X.norm(dim=1, keepdim=True)
+            MU, resid, _ = probe_rows(sim_rows(X, X), r, with_state=compact)
+            cand = cand_of(1500) if compact else None
+            what = f"fl_stream tile r={r} d={d} cand={compact}"
+            errs["fl_stream_divergence"] = max(errs["fl_stream_divergence"], _fl_close(
+                fl_stream_divergence_kernel(X, MU, resid, cand),
+                fl_stream_divergence_ref(X, MU, resid, cand), resid,
+                TOL[torch.float32], what))
+            tile_stream += 1
     torch.cuda.synchronize()
+    print("FL probe tiles swept (r: probes a thread x passes): " + ", ".join(
+        f"{r}: {t.ppt} x {t.passes}" for r, t in tiles.items()), flush=True)
     print(f"FL kernel vs plain: {dense} dense cases (fl_divergence and "
-          f"fl_gains), {stream} matrix-free cases (fl_stream_divergence and "
-          f"fl_stream_gains) passed; max abs err "
+          f"fl_gains) and {tile_dense} probe-tile cases (fl_divergence), "
+          f"{stream} matrix-free cases (fl_stream_divergence and fl_stream_gains)"
+          f" and {tile_stream} probe-tile cases (fl_stream_divergence) passed; "
+          f"max abs err "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()
                       if k.startswith("fl_")), flush=True)
 
@@ -640,6 +680,32 @@ def _round1(fn, residual):
     return m, MU, residual[probes].float().contiguous()
 
 
+def fl_tile_report(kernel: str, m: int) -> dict:
+    """The probe tile that fl_probe_tile picks at a path's m, and what
+    ptxas reported for that template instance (float32 sim): registers,
+    spills, and the 256-thread blocks an SM holds by registers."""
+    from repro_torch.kernels._build import BUILD_DIR, FL_PROBE_THREADS, fl_probe_tile
+
+    tile = fl_probe_tile(m)
+    stem, entry = {"fl_divergence": ("fl_divergence", "fl_divergence_tiledIfLi"),
+                   "fl_stream_divergence": ("fl_stream", "fl_stream_tiledILi")}[kernel]
+    lines = (BUILD_DIR / f"{stem}.ptxas.txt").read_text().splitlines()
+    found = [" ".join(lines[i + 1:i + 4]) for i, line in enumerate(lines)
+             if "Compiling entry" in line and f"{entry}{tile.ppt}E" in line]
+    check(len(found) == 1, f"{kernel}: no ptxas report for {tile.ppt} probes a thread")
+    regs = int(re.search(r"Used (\d+) registers", found[0]).group(1))
+    store, load = (int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                              found[0]))
+    per_sm = 65536 // (256 * (-(-regs // 8) * 8))
+    print(f"{kernel} at m = {m}: probe tile {FL_PROBE_THREADS} threads x "
+          f"{tile.ppt} probes, {tile.passes} pass(es), {tile.slots - m} pad "
+          f"slots; ptxas: {regs} registers, spill stores/loads {store}/{load} "
+          f"bytes, {per_sm} blocks of 256 threads per SM by registers", flush=True)
+    return {"ppt": tile.ppt, "passes": tile.passes, "pad_slots": tile.slots - m,
+            "registers": regs, "spill_store_bytes": store, "spill_load_bytes": load,
+            "blocks_per_sm_by_registers": per_sm}
+
+
 def fl_dense_path(errs: dict) -> list[dict]:
     """Path A: dense FL over 2^16 video frames x 256 features (cosine), the
     paper's video objective with a 16 GiB similarity on the card."""
@@ -665,6 +731,7 @@ def fl_dense_path(errs: dict) -> list[dict]:
     # main-path shapes against plain
     residual = fn.residual_gains()
     m, MU, resid = _round1(fn, residual)
+    tile = fl_tile_report("fl_divergence", m)
     div_k, ms = timed(lambda: fl_divergence_kernel(fn.sim, MU, resid), 3)
     div_p, plain_ms = timed(lambda: fl_divergence_ref(fn.sim, MU, resid))
     errs["fl_divergence"] = max(errs["fl_divergence"], _fl_close(
@@ -721,7 +788,7 @@ def fl_dense_path(errs: dict) -> list[dict]:
          "launches": counts["summarize"]["fl_divergence"],
          "max_abs_err": errs["fl_divergence"], "ms": ms, "plain_ms": plain_ms,
          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-         "round2_sized": {"cands": mid, "ms": ms_mid}},
+         "round2_sized": {"cands": mid, "ms": ms_mid}, "tile": tile},
         {"name": "fl_gains", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fl_divergence.cu",
          "replaces": "src/repro/kernels/fl_divergence.py:175",
@@ -767,6 +834,7 @@ def fl_stream_path(errs: dict) -> list[dict]:
     # full served width; the kernel is timed on both.
     residual = fn.residual_gains()
     m, MU, resid = _round1(fn, residual)
+    tile = fl_tile_report("fl_stream_divergence", m)
     X = fn.X
     div_k, ms = timed(lambda: fl_stream_divergence_kernel(X, MU, resid), 1)
     check(div_k.shape == (N_B,) and bool(torch.isfinite(div_k).all()),
@@ -854,7 +922,7 @@ def fl_stream_path(errs: dict) -> list[dict]:
          "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
          "library_ms": None,
          "at_2048_candidates": {"ms": ms_2048, "plain_ms": plain_ms,
-                                "bound_ms": b2_ms}},
+                                "bound_ms": b2_ms}, "tile": tile},
         {"name": "fl_stream_gains", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fl_stream.cu",
          "replaces": "src/repro/kernels/fl_stream.py:201",

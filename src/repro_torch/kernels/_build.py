@@ -19,6 +19,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -44,24 +45,29 @@ def _nvcc() -> str:
     )
 
 
-def _run_all(cmds: list[list[str]]) -> None:
-    """Run the commands in parallel; raise with the output of any failure."""
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands in parallel; return their outputs, or raise with the
+    output of any failure."""
     procs = [
         subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                          text=True)
         for c in cmds
     ]
-    failed = []
+    failed, outs = [], []
     for cmd, p in zip(cmds, procs):
         out, _ = p.communicate()
+        outs.append(out)
         if p.returncode != 0:
             failed.append(f"$ {' '.join(cmd)}\n{out}")
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return outs
 
 
 def build(force: bool = False) -> Path:
-    """Compile ``csrc/*.cu`` into the shared library; return its path."""
+    """Compile ``csrc/*.cu`` into the shared library; return its path.
+    ``ptxas`` reports each kernel's registers, shared memory and spills into
+    ``<source stem>.ptxas.txt`` beside the library."""
     sources = sorted(CSRC.glob("*.cu"))
     headers = sorted(CSRC.glob("*.cuh"))
     lib = BUILD_DIR / LIB_NAME
@@ -72,11 +78,13 @@ def build(force: bool = False) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (s.stem + ".o") for s in sources]
-        _run_all([
-            [nvcc, *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-             "-c", str(s), "-o", str(o)]
+        reports = _run_all([
+            [nvcc, *ARCH, "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler",
+             "-fPIC", "-c", str(s), "-o", str(o)]
             for s, o in zip(sources, objs)
         ])
+        for s, text in zip(sources, reports):
+            (BUILD_DIR / f"{s.stem}.ptxas.txt").write_text(text)
         staged = Path(tmp) / LIB_NAME
         _run_all([[nvcc, *ARCH, "-shared", "-o", str(staged),
                    *map(str, objs)]])
@@ -107,6 +115,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, i, ll, ll,    # sim, sim is bf16, served rows ni, candidate columns n
         p, ll,           # cand_idx (or NULL), number of outputs
         p, p, i,         # MU, resid (or NULL: zeros), r
+        i, i,            # probes per thread, passes: fl_probe_tile(r)
         i, p,            # row splits, their scratch (or NULL)
         p, p,            # out, stream
     ]
@@ -116,6 +125,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, ll,           # Xc, candidate rows n
         p, ll,           # cand_idx (or NULL), number of outputs
         p, p, i,         # MU, resid (or NULL: zeros), r
+        i, i,            # probes per thread, passes: fl_probe_tile(r)
         i, p,            # row splits, their scratch (or NULL)
         p, p,            # out, stream
     ]
@@ -221,7 +231,7 @@ def check_probes(name: str, MU: torch.Tensor, resid: torch.Tensor | None,
     return r
 
 
-def row_splits(n_out: int, ni: int) -> tuple[int, int]:
+def row_splits(n_out: int, ni: int) -> int:
     """How the facility-location kernels split their ni served rows: a grid
     of ceil(n_out / 128) candidate blocks that fills the card is not split;
     a smaller one (later SS rounds, greedy over V') is split into enough
@@ -231,6 +241,37 @@ def row_splits(n_out: int, ni: int) -> tuple[int, int]:
     if blocks >= 256:
         return 1
     return max(1, min(-(-512 // blocks), ni // 512))
+
+
+# The many-probe tile of the facility-location kernels: threads along
+# probes, and the most probes per thread of a template instance.  Must match
+# kProbeThreads and kMaxPPT in csrc/fl_common.cuh.
+FL_PROBE_THREADS = 16
+FL_MAX_PPT = 10
+
+
+class ProbeTile(NamedTuple):
+    """How the facility-location kernels walk r probes: ``passes`` passes of
+    FL_PROBE_THREADS x ``ppt`` probe slots."""
+
+    ppt: int
+    passes: int
+
+    @property
+    def slots(self) -> int:
+        return FL_PROBE_THREADS * self.ppt * self.passes
+
+
+def fl_probe_tile(r: int) -> ProbeTile:
+    """The probe tile for r probes, a pure rule of r: the fewest passes of at
+    most FL_PROBE_THREADS x FL_MAX_PPT slots, then the fewest probes per
+    thread that cover r in that many equal passes.  128, 144 and 160 probes
+    (SS at 2^16, 2^18 and 2^20 candidates) fill one pass with no pad slot;
+    any r pads fewer than FL_PROBE_THREADS slots a pass on average."""
+    if r < 1:
+        raise ValueError(f"fl_probe_tile: r must be >= 1, got {r}")
+    passes = -(-r // (FL_PROBE_THREADS * FL_MAX_PPT))
+    return ProbeTile(-(-r // (FL_PROBE_THREADS * passes)), passes)
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

@@ -15,27 +15,47 @@
 // sim is (ni, n) row-major, float32 or bfloat16 (upcast per element), and
 // is read in place: never padded, copied or transposed.  Candidates are
 // columns and the reduction runs down the rows, so a non-symmetric sim is
-// handled as it is.  The hinge terms are accumulated directly: the form
-// sum_i max(sim, MU) - sum_i MU would lose the small gaps between candidates
-// to float32 cancellation over ni rows.
+// handled as it is.  The hinge terms are accumulated directly, in row
+// order: the form sum_i max(sim, MU) - sum_i MU would lose the small gaps
+// between candidates to float32 cancellation over ni rows.
 //
 // What bounds it on this card:
 //   - many probes (an SS round): operations.  Each (probe, candidate, row)
-//     term costs three FP32 instructions (subtract, max, add); at the first
-//     round of a 2^16-frame video (128 probes) that is 1.6e15 instructions
-//     against one 16 GiB read of sim.
+//     term costs three FP32 instructions (subtract, max, add), which issue
+//     at one warp instruction a clock per scheduler; at the first round of a
+//     2^16-frame video (128 probes) that is 1.6e15 instructions against one
+//     16 GiB read of sim.  What keeps a kernel from that bound is every
+//     other instruction it issues (shared loads, staging, index
+//     arithmetic), the probe slots it computes and throws away, and the
+//     stalls while its operands arrive.
 //   - one probe (a greedy step): bytes, one read of sim.
 //
 // What the design does about it:
-//   - many probes: a block owns 128 candidates and walks the probes in
-//     passes of 64.  Each of its 256 threads keeps an 8 probe x 4 candidate
-//     tile of hinge sums in registers, so one shared-memory read of sim feeds
-//     eight terms and one (broadcast) read of MU feeds four (fl_common.cuh).
-//     sim and MU arrive in 32-row chunks through shared memory, sim read
-//     along its rows (coalesced when cand_idx is absent), MU along its rows,
-//     both stored with one word of padding so the inner loop is free of bank
-//     conflicts.  The min over probes happens here, so no (r, n) block
-//     reaches memory; sim is re-read once per pass (twice at 128 probes).
+//   - many probes: a block owns 128 candidates and all the probes of a pass;
+//     each of its 256 threads keeps a PPT probe x 8 candidate tile of hinge
+//     sums in registers (fl_common.cuh).  PPT and the number of passes come
+//     from fl_probe_tile(r) (kernels/_build.py): 128, 144 and 160 probes
+//     fill one pass exactly, so sim is read once and no pad slot is
+//     computed.  A thread's candidates and probes are contiguous in shared
+//     memory, so a staged row costs it 4 or 5 16-byte loads against 24 PPT
+//     hinge instructions (192 to 240).
+//   - sim and MU arrive in 32-row chunks through a two-slot cp.async ring:
+//     the copies of chunk k + 1 are in flight while chunk k's hinge runs,
+//     with one barrier per chunk.  sim goes as 16-byte copies when cand_idx
+//     is absent, n % 4 == 0 and sim is 16-byte aligned (float32), else one
+//     4-byte copy per element; bfloat16 is upcast by the threads on the way
+//     (no cp.async: the chunk's loads are then not overlapped).  MU is read
+//     along its rows and transposed on its way into shared memory.  Each
+//     thread's column, row and probe offsets are fixed, worked out once per
+//     pass, and out-of-range elements are zero-filled by the copy itself:
+//     padded rows and probes add max(0 - 0, 0) = 0.
+//   - one block of 8 warps per SM: the tile takes 198 registers a thread
+//     at 128 probes and about 218 at 144, with no spills.  Capped at 128 for two blocks an SM,
+//     ptxas spilled and the kernel ran slower on an H100; so did a 64-row
+//     chunk, a shallower unroll of the hinge loop, and an FMA-pipe form of
+//     the hinge term (t = s - m; acc = fma(0.5, t + |t|, acc), exact, but
+//     three instructions still).  The hinge's 8 x PPT independent sums
+//     hide the latency that more warps would.
 //   - one probe: no shared-memory staging.  Each thread owns four
 //     consecutive columns, read as one 16-byte (float32) or 8-byte (bf16)
 //     vector per row when the columns are contiguous and aligned; the eight
@@ -47,10 +67,9 @@
 //   - with cand_idx the columns are gathered in place (sim[i, cand[v]]).
 //     Those reads are not coalesced; sorted candidate buffers (the SS and
 //     greedy compactions are ascending) keep neighbours in shared sectors.
-//   - ragged ni, n and r are masked here: padded rows and probes stage as 0,
-//     whose hinge max(0 - 0, 0) adds nothing.
 
 #include <cstdint>
+#include <type_traits>
 
 #include "fl_common.cuh"
 
@@ -59,21 +78,28 @@ namespace {
 using namespace repro::fl;
 using repro::kInf;
 
-template <typename T>
-__global__ void __launch_bounds__(NT) fl_divergence_tiled(
+constexpr int MIK = 32;          // served rows per staged chunk (many probes)
+constexpr int HINGE_UNROLL = 8;  // rows of the hinge loop unrolled
+
+// Many probes, PPT per thread, `passes` passes of kProbeThreads * PPT.
+// vec: 16-byte copies of sim (float32 only, see the note above).
+template <typename T, int PPT>
+__global__ void __launch_bounds__(NT, 1) fl_divergence_tiled(
     const T* __restrict__ sim, long long ni, long long n,
     const long long* __restrict__ cand_idx, long long n_out,
     const float* __restrict__ MU, const float* __restrict__ resid, int r,
-    float* __restrict__ partial, float* __restrict__ out) {
-  __shared__ float Ss[IK][BC + 1];
-  __shared__ float Ms[IK][BP + 1];
+    int passes, bool vec, float* __restrict__ partial, float* __restrict__ out) {
+  using PT = ProbeTile<PPT, MIK>;
+  constexpr int SLOT = MIK * BC + PT::MWORDS;   // S [MIK][BC], then M
+  extern __shared__ float4 dyn[];
+  float* ring = reinterpret_cast<float*>(dyn);  // two slots
   __shared__ long long cols[BC];
-  __shared__ float red[TY][BC];
+  __shared__ float red[kProbeThreads][BC];
   __shared__ float best[BC];
 
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
+  const int tc = tid % TC;
+  const int tp = tid / TC;
   const long long c0 = static_cast<long long>(blockIdx.x) * BC;
   const RowSpan rows = row_span(ni);
 
@@ -83,28 +109,69 @@ __global__ void __launch_bounds__(NT) fl_divergence_tiled(
   }
   __syncthreads();
 
-  for (int p0 = 0; p0 < r; p0 += BP) {
-    float acc[PPT][CPT];
+  // A thread stages one column of sim (vec: one run of 4) at every
+  // SROW-th row of a chunk, from row sf on.
+  const int sc = vec ? 4 * (tid % (BC / 4)) : tid % BC;
+  const int sf = vec ? tid / (BC / 4) : tid / BC;
+  const int srow = vec ? NT / (BC / 4) : NT / BC;
+  const long long col = cols[sc];
+  const T* cbase = sim + (col >= 0 ? col : 0) + sf * n;
+  const long long step = srow * n;
+
+  auto stage_sim = [&](float* S, long long i0) {
+    const T* src = cbase + i0 * n;
+    if constexpr (std::is_same_v<T, float>) {
+      if (vec) {
+#pragma unroll
+        for (int f = sf; f < MIK; f += NT / (BC / 4), src += step) {
+          const bool ok = col >= 0 && i0 + f < rows.hi;
+          cp_async16(S + f * BC + sc, ok ? src : sim, ok);
+        }
+        return;
+      }
+#pragma unroll 4
+      for (int f = sf; f < MIK; f += NT / BC, src += step) {
+        const bool ok = col >= 0 && i0 + f < rows.hi;
+        cp_async4(S + f * BC + sc, ok ? src : sim, ok);
+      }
+    } else {
+#pragma unroll 4
+      for (int f = sf; f < MIK; f += NT / BC, src += step)
+        S[f * BC + sc] = (col >= 0 && i0 + f < rows.hi) ? repro::to_f32(*src) : 0.f;
+    }
+  };
+
+  const long long chunks = rows.hi > rows.lo ? (rows.hi - rows.lo + MIK - 1) / MIK : 0;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int p0 = pass * PT::SP;
+    const MuStager<PPT, MIK> mus(MU, ni, r, p0, tid);
+    float acc[PPT][MCPT];
 #pragma unroll
     for (int j = 0; j < PPT; ++j)
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[j][c] = 0.f;
+      for (int c = 0; c < MCPT; ++c) acc[j][c] = 0.f;
 
-    for (long long i0 = rows.lo; i0 < rows.hi; i0 += IK) {
-      for (int e = tid; e < IK * BC; e += NT) {
-        const int c = e % BC;
-        const int f = e / BC;
-        const long long col = cols[c];
-        const long long i = i0 + f;
-        Ss[f][c] = (col >= 0 && i < rows.hi) ? repro::to_f32(sim[i * n + col])
-                                             : 0.f;
-      }
-      stage_mu(Ms, MU, ni, r, p0, i0, rows.hi, tid);
-      __syncthreads();
-      hinge_tile(Ss, Ms, acc, tx, ty);
-      __syncthreads();
+    if (chunks > 0) {
+      stage_sim(ring, rows.lo);
+      mus.stage(ring + MIK * BC, rows.lo, rows.hi);
     }
-    close_pass(acc, p0, r, resid, red, best, partial, c0, n_out, tx, ty, tid);
+    cp_async_commit();
+    for (long long k = 0; k < chunks; ++k) {
+      // Chunk k has landed, and every thread is done with chunk k - 1,
+      // whose slot now takes chunk k + 1.
+      cp_async_wait_all();
+      __syncthreads();
+      if (k + 1 < chunks) {
+        float* next = ring + ((k + 1) & 1) * SLOT;
+        const long long i1 = rows.lo + (k + 1) * MIK;
+        stage_sim(next, i1);
+        mus.stage(next + MIK * BC, i1, rows.hi);
+        cp_async_commit();
+      }
+      const float* cur = ring + (k & 1) * SLOT;
+      hinge_rows<PPT, MIK, HINGE_UNROLL>(cur, cur + MIK * BC, acc, tc, tp);
+    }
+    close_pass<PPT>(acc, p0, r, resid, red, best, partial, c0, n_out, tc, tp, tid);
   }
   write_out(cols, best, out, partial, c0, tid);
 }
@@ -176,8 +243,9 @@ __global__ void __launch_bounds__(NT) fl_gains_rows(
 
 template <typename T>
 int launch(const T* sim, long long ni, long long n, const long long* cand_idx,
-           long long n_out, const float* MU, const float* resid, int r,
-           int splits, float* partial, float* out, cudaStream_t stream) {
+           long long n_out, const float* MU, const float* resid, int r, int ppt,
+           int passes, int splits, float* partial, float* out,
+           cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((n_out + BC - 1) / BC),
                   static_cast<unsigned>(splits));
   float* part = splits > 1 ? partial : nullptr;
@@ -191,29 +259,44 @@ int launch(const T* sim, long long ni, long long n, const long long* cand_idx,
       fl_gains_rows<T, false><<<grid, NT, 0, stream>>>(sim, ni, n, cand_idx, n_out,
                                                        MU, resid, part, out);
   } else {
-    fl_divergence_tiled<T><<<grid, NT, 0, stream>>>(sim, ni, n, cand_idx, n_out,
-                                                    MU, resid, r, part, out);
+    const bool vec = std::is_same_v<T, float> && cand_idx == nullptr && n % 4 == 0 &&
+                     reinterpret_cast<std::uintptr_t>(sim) % 16 == 0;
+    cudaError_t err = cudaSuccess;
+    dispatch_ppt(ppt, [&](auto tag) {
+      constexpr int PPT = decltype(tag)::value;
+      const auto kernel = fl_divergence_tiled<T, PPT>;
+      const size_t smem = 2 * (MIK * BC + ProbeTile<PPT, MIK>::MWORDS) * sizeof(float);
+      err = allow_smem(kernel, smem);
+      if (err == cudaSuccess)
+        kernel<<<grid, NT, smem, stream>>>(sim, ni, n, cand_idx, n_out, MU, resid,
+                                           r, passes, vec, part, out);
+    });
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return finish(part, splits, r, n_out, cand_idx, n, resid, out, stream);
 }
 
 }  // namespace
 
-// resid may be NULL (all zero): the greedy-gains instance.  With splits > 1
-// the served rows are split across that many blocks per candidate tile, and
-// partial must hold splits * r * n_out floats.
+// resid may be NULL (all zero): the greedy-gains instance.  ppt and passes
+// are fl_probe_tile(r) (kernels/_build.py); r == 1 takes the single-probe
+// route and ignores them.  With splits > 1 the served rows are split across
+// that many blocks per candidate tile, and partial must hold
+// splits * r * n_out floats.
 extern "C" int fl_divergence_launch(const void* sim, int sim_bf16, long long ni,
                                     long long n, const long long* cand_idx,
                                     long long n_out, const float* MU,
-                                    const float* resid, int r, int splits,
-                                    float* partial, float* out, void* stream) {
+                                    const float* resid, int r, int ppt, int passes,
+                                    int splits, float* partial, float* out,
+                                    void* stream) {
   if (n_out <= 0) return 0;
-  if (r < 1 || splits < 1 || (splits > 1 && partial == nullptr))
+  if (r < 1 || splits < 1 || (splits > 1 && partial == nullptr) ||
+      !tile_covers(r, ppt, passes))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   return sim_bf16
              ? launch(static_cast<const __nv_bfloat16*>(sim), ni, n, cand_idx,
-                      n_out, MU, resid, r, splits, partial, out, s)
+                      n_out, MU, resid, r, ppt, passes, splits, partial, out, s)
              : launch(static_cast<const float*>(sim), ni, n, cand_idx, n_out,
-                      MU, resid, r, splits, partial, out, s);
+                      MU, resid, r, ppt, passes, splits, partial, out, s);
 }

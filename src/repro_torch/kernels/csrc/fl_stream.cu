@@ -10,15 +10,16 @@
 //   out[v] = min_u [ sum_i max(sim[i, v] - MU[u, i], 0) - resid[u] ],
 //   sim[i, v] = max(Xs[i] . Xc[v], 0),
 // over the served rows i of Xs.  The (ni, n) similarity never exists: each
-// (32-row x 128-candidate) tile of it is formed here, consumed by the hinge
+// (64-row x 128-candidate) tile of it is formed here, consumed by the hinge
 // and dropped.  A pad probe carries resid = -INF; with one probe (MU = the
 // greedy state, resid NULL for 0) this is the greedy gain f(v | S).
 //
-// The dot products are IEEE float32 FFMA on the CUDA cores: no TF32 and no
-// tensor cores, since a coarser similarity would change which candidates
-// survive SS.  Xs and Xc are float32 (ni, d) and (n, d), read in place for
-// any d (in chunks of 16 features, zero-filled past d), never padded or
-// copied; cand_idx gathers rows of Xc in place.
+// The dot products are IEEE float32 FFMA on the CUDA cores, summed over the
+// features in order: no TF32 and no tensor cores, since a coarser
+// similarity would change which candidates survive SS.  Xs and Xc are
+// float32 (ni, d) and (n, d), read in place for any d (in pieces of 16
+// features, zero-filled past d), never padded or copied; cand_idx gathers
+// rows of Xc in place.
 //
 // What bounds it on this card: operations.  Each (probe, candidate, row)
 // term costs three FP32 instructions (subtract, max, add) and each
@@ -27,19 +28,33 @@
 // inputs of a few MiB.  With one probe the d FFMAs of the similarity
 // dominate.
 //
-// What the design does about it: the structure of fl_divergence.cu.  A
-// block owns 128 candidates and walks the probes in passes of 64.  For each
-// chunk of 32 served rows its 256 threads first form the similarity tile,
-// each thread a 4-row x 4-candidate register tile of dot products over d
-// (features staged through shared memory, served rows read as broadcasts),
-// and store its relu in shared memory.  Then each thread runs the hinge on
-// an 8-probe x 4-candidate register tile (fl_common.cuh), as in the dense
-// kernel, and the min over probes closes each pass.  The similarity is
-// recomputed once per pass: d FFMAs against 3 x 64 hinge instructions per
-// element.  With one probe the threads keep their dot tile in registers and
-// apply the hinge there; the eight row slices of a candidate are summed in a
-// fixed order.  A small candidate buffer splits the served rows across
-// blocks, as in the dense kernel.
+// What the design does about it (many probes, an SS round):
+//   - one pass over the probes where it fits: fl_probe_tile(r)
+//     (kernels/_build.py) sets PPT, the probes per thread, and the passes;
+//     144 probes run as 16 threads x 9 in one pass.  Fixed 64-probe
+//     passes would compute 192 slots for 144 probes and form every
+//     similarity tile three times.
+//   - a block owns 128 candidates.  Per 64-row chunk its 256 threads form
+//     the similarity tile, each a 4-row x 8-candidate register tile of dot
+//     products (d FFMAs each, against 3 x 144 hinge instructions), store its
+//     relu in shared memory, and then run the hinge on a PPT probe x 8
+//     candidate register tile (fl_common.cuh): 4 or 5 16-byte shared loads a
+//     row against 24 PPT hinge instructions.  Two barriers a chunk (tile
+//     formed, tile consumed) are spread over 64 rows.
+//   - the chunk's MU rows (transposed on the way) and, for d <= 16, its
+//     served rows come through a two-slot cp.async ring: chunk k + 1's copies
+//     are in flight while chunk k's tiles are formed and consumed.  For
+//     d <= 16 the block's candidate rows are staged once and stay in shared
+//     memory; a wider d stages each 16-feature piece of both per chunk.
+//   - one block of 8 warps per SM, up to 255 registers a thread (ptxas
+//     keeps one word on the stack at 144 probes).  Two blocks at 128
+//     registers spilled and ran slower on an H100, as did 32-row chunks.
+//   - a small candidate buffer splits the served rows across blocks, as in
+//     the dense kernel.
+//
+// One probe (greedy gains): the threads keep their dot tile in registers
+// and apply the hinge there; the eight row slices of a candidate are summed
+// in a fixed order.
 
 #include "fl_common.cuh"
 
@@ -48,19 +63,163 @@ namespace {
 using namespace repro::fl;
 using repro::kInf;
 
-constexpr int RPT = IK / TY;    // served rows per thread in the dot tile
-constexpr int DK = 16;          // features per shared-memory chunk
+constexpr int RPT = IK / TY;    // served rows per thread in the one-probe dot tile
+constexpr int DK = 16;          // features per shared-memory piece
+constexpr int XROW = DK + 1;    // a staged served row, one word of padding
+constexpr int MIK = 64;          // served rows per staged chunk (many probes)
+constexpr int HINGE_UNROLL = 4;  // rows of the hinge loop unrolled
+constexpr int RJ = MIK / kProbeThreads;  // rows per thread in the many-probe dot tile
 
-template <bool SINGLE>
-__global__ void __launch_bounds__(NT) fl_stream_kernel(
+// Many probes, PPT per thread, `passes` passes of kProbeThreads * PPT.
+template <int PPT>
+__global__ void __launch_bounds__(NT, 1) fl_stream_tiled(
+    const float* __restrict__ Xs, long long ni, int d,
+    const float* __restrict__ Xc, long long n_rows,
+    const long long* __restrict__ cand_idx, long long n_out,
+    const float* __restrict__ MU, const float* __restrict__ resid, int r,
+    int passes, float* __restrict__ partial, float* __restrict__ out) {
+  using PT = ProbeTile<PPT, MIK>;
+  constexpr int SLOT = PT::MWORDS + MIK * XROW;   // M, then the served rows
+  static_assert(SLOT % 4 == 0, "ring slots stay 16-byte aligned");
+  extern __shared__ float4 dyn[];
+  float* ring = reinterpret_cast<float*>(dyn);  // two slots
+  float* S = ring + 2 * SLOT;                   // [MIK][BC] relu(Xs . Xc^T)
+  float* Xcs = S + MIK * BC;                     // [DK][BC] candidate rows^T
+  __shared__ long long rows[BC];
+  __shared__ float red[kProbeThreads][BC];
+  __shared__ float best[BC];
+
+  const int tid = threadIdx.x;
+  const int tc = tid % TC;
+  const int tp = tid / TC;
+  const long long c0 = static_cast<long long>(blockIdx.x) * BC;
+  const RowSpan span = row_span(ni);
+  const bool resident = d <= DK;
+
+  for (int c = tid; c < BC; c += NT) {
+    rows[c] = repro::row_of(cand_idx, c0 + c, n_out, n_rows);
+    best[c] = kInf;
+  }
+  __syncthreads();
+
+  // Features d0 .. d0 + DK of the candidate rows into Xcs.
+  auto stage_xc = [&](int d0) {
+    for (int e = tid; e < BC * DK; e += NT) {
+      const int c = e % BC;
+      const int k = e / BC;
+      const long long row = rows[c];
+      Xcs[k * BC + c] = (row >= 0 && d0 + k < d) ? Xc[row * d + d0 + k] : 0.f;
+    }
+  };
+  // The chunk's served rows (d <= DK): a thread copies feature xk of rows
+  // xf and xf + NT / DK.
+  const int xk = tid % DK;
+  const int xf = tid / DK;
+  const float* xsrc = Xs + static_cast<long long>(xf) * d + xk;
+  auto stage_xs_async = [&](float* X, long long i0) {
+    const float* src = xsrc + i0 * d;
+#pragma unroll
+    for (int f = xf; f < MIK; f += NT / DK, src += static_cast<long long>(NT / DK) * d) {
+      const bool ok = i0 + f < span.hi && xk < d;
+      cp_async4(X + f * XROW + xk, ok ? src : Xs, ok);
+    }
+  };
+  auto stage_xs_sync = [&](float* X, long long i0, int d0) {
+    for (int e = tid; e < MIK * DK; e += NT) {
+      const int f = e / DK;
+      const int k = e % DK;
+      const long long i = i0 + f;
+      X[f * XROW + k] = (i < span.hi && d0 + k < d) ? Xs[i * d + d0 + k] : 0.f;
+    }
+  };
+
+  if (resident) stage_xc(0);   // seen by all threads after the first barrier
+
+  const long long chunks = span.hi > span.lo ? (span.hi - span.lo + MIK - 1) / MIK : 0;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int p0 = pass * PT::SP;
+    const MuStager<PPT, MIK> mus(MU, ni, r, p0, tid);
+    float acc[PPT][MCPT];
+#pragma unroll
+    for (int j = 0; j < PPT; ++j)
+#pragma unroll
+      for (int c = 0; c < MCPT; ++c) acc[j][c] = 0.f;
+
+    if (chunks > 0) {
+      mus.stage(ring, span.lo, span.hi);
+      if (resident) stage_xs_async(ring + PT::MWORDS, span.lo);
+    }
+    cp_async_commit();
+    for (long long k = 0; k < chunks; ++k) {
+      // Chunk k has landed, and every thread is done with chunk k - 1,
+      // whose slot now takes chunk k + 1, and with the tile S.
+      cp_async_wait_all();
+      __syncthreads();
+      const long long i0 = span.lo + k * MIK;
+      if (k + 1 < chunks) {
+        float* next = ring + ((k + 1) & 1) * SLOT;
+        mus.stage(next, i0 + MIK, span.hi);
+        if (resident) stage_xs_async(next + PT::MWORDS, i0 + MIK);
+        cp_async_commit();
+      }
+      float* cur = ring + (k & 1) * SLOT;
+      float* X = cur + PT::MWORDS;
+
+      // (1) the similarity tile: rows tp + 16 j, the thread's 8 candidates,
+      // each dot summed over the features in order.
+      float dot[RJ][MCPT];
+#pragma unroll
+      for (int j = 0; j < RJ; ++j)
+#pragma unroll
+        for (int c = 0; c < MCPT; ++c) dot[j][c] = 0.f;
+      for (int d0 = 0; d0 < d; d0 += DK) {
+        if (!resident) {
+          if (d0 > 0) __syncthreads();
+          stage_xs_sync(X, i0, d0);
+          stage_xc(d0);
+          __syncthreads();
+        }
+#pragma unroll
+        for (int kk = 0; kk < DK; ++kk) {
+          float xs[RJ];
+#pragma unroll
+          for (int j = 0; j < RJ; ++j) xs[j] = X[(tp + kProbeThreads * j) * XROW + kk];
+          const float4 a = *reinterpret_cast<const float4*>(Xcs + kk * BC + 4 * tc);
+          const float4 b = *reinterpret_cast<const float4*>(Xcs + kk * BC + 64 + 4 * tc);
+          const float xc[MCPT] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+          for (int j = 0; j < RJ; ++j)
+#pragma unroll
+            for (int c = 0; c < MCPT; ++c) dot[j][c] = fmaf(xs[j], xc[c], dot[j][c]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        float* Srow = S + (tp + kProbeThreads * j) * BC;
+        *reinterpret_cast<float4*>(Srow + 4 * tc) =
+            make_float4(fmaxf(dot[j][0], 0.f), fmaxf(dot[j][1], 0.f),
+                        fmaxf(dot[j][2], 0.f), fmaxf(dot[j][3], 0.f));
+        *reinterpret_cast<float4*>(Srow + 64 + 4 * tc) =
+            make_float4(fmaxf(dot[j][4], 0.f), fmaxf(dot[j][5], 0.f),
+                        fmaxf(dot[j][6], 0.f), fmaxf(dot[j][7], 0.f));
+      }
+      __syncthreads();
+      // (2) the hinge over the tile and the chunk's MU rows.
+      hinge_rows<PPT, MIK, HINGE_UNROLL>(S, cur, acc, tc, tp);
+    }
+    close_pass<PPT>(acc, p0, r, resid, red, best, partial, c0, n_out, tc, tp, tid);
+  }
+  write_out(rows, best, out, partial, c0, tid);
+}
+
+// One probe: the greedy gains (or their partial sums over this block's rows).
+__global__ void __launch_bounds__(NT) fl_stream_gains_kernel(
     const float* __restrict__ Xs, long long ni, int d,
     const float* __restrict__ Xc, long long n_rows,
     const long long* __restrict__ cand_idx, long long n_out,
     const float* __restrict__ MU, const float* __restrict__ resid, int r,
     float* __restrict__ partial, float* __restrict__ out) {
-  __shared__ float Ss[IK][BC + 1];     // relu(Xs . Xc^T) tile
-  __shared__ float Ms[IK][BP + 1];     // MU tile, transposed
-  __shared__ float Xss[IK][DK + 1];    // served rows, one feature chunk
+  __shared__ float Xss[IK][DK + 1];    // served rows, one feature piece
   __shared__ float Xcs[DK][BC + 1];    // candidate rows, transposed
   __shared__ long long rows[BC];
   __shared__ float red[TY][BC];
@@ -78,12 +237,13 @@ __global__ void __launch_bounds__(NT) fl_stream_kernel(
   }
   __syncthreads();
 
-  for (int p0 = 0; p0 < r; p0 += BP) {
-    float acc[PPT][CPT];
+  // One iteration, since r == 1.  The loop stays on purpose: in it ptxas
+  // schedules the row loop in 64 registers; without it, in 48, and the
+  // kernel ran 7% slower on an H100 (in turns).
+  for (int p0 = 0; p0 < r; p0 += 64) {
+    float acc[CPT];
 #pragma unroll
-    for (int j = 0; j < PPT; ++j)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[j][c] = 0.f;
+    for (int c = 0; c < CPT; ++c) acc[c] = 0.f;
 
     for (long long i0 = span.lo; i0 < span.hi; i0 += IK) {
       // (1) the similarity tile: rows i0 + ty + TY * j, candidates tx + TX * c.
@@ -121,51 +281,32 @@ __global__ void __launch_bounds__(NT) fl_stream_kernel(
         __syncthreads();
       }
 
-      if constexpr (SINGLE) {
-        // (2') one probe: the hinge on the thread's own rows, in registers.
-        // Rows past the split have sim = relu(0) = 0 and mu = 0: they add
-        // nothing.
+      // (2) the hinge on the thread's own rows, in registers.  Rows past the
+      // split have sim = relu(0) = 0 and mu = 0: they add nothing.
 #pragma unroll
-        for (int j = 0; j < RPT; ++j) {
-          const long long i = i0 + ty + TY * j;
-          const float m = i < span.hi ? __ldg(MU + i) : 0.f;
+      for (int j = 0; j < RPT; ++j) {
+        const long long i = i0 + ty + TY * j;
+        const float m = i < span.hi ? __ldg(MU + i) : 0.f;
 #pragma unroll
-          for (int c = 0; c < CPT; ++c)
-            acc[0][c] += fmaxf(fmaxf(dot[j][c], 0.f) - m, 0.f);
-        }
-      } else {
-        // (2) many probes: stage the tile and MU, then the register-tiled
-        // hinge of fl_divergence.cu.
-#pragma unroll
-        for (int j = 0; j < RPT; ++j)
-#pragma unroll
-          for (int c = 0; c < CPT; ++c)
-            Ss[ty + TY * j][tx + TX * c] = fmaxf(dot[j][c], 0.f);
-        stage_mu(Ms, MU, ni, r, p0, i0, span.hi, tid);
-        __syncthreads();
-        hinge_tile(Ss, Ms, acc, tx, ty);
-        __syncthreads();
+        for (int c = 0; c < CPT; ++c)
+          acc[c] += fmaxf(fmaxf(dot[j][c], 0.f) - m, 0.f);
       }
     }
 
-    if constexpr (SINGLE) {
-      // Sum the TY row slices of each candidate, in a fixed order.
+    // Sum the TY row slices of each candidate, in a fixed order.
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) red[ty][tx + TX * c] = acc[0][c];
-      __syncthreads();
-      const float rs = resid ? resid[0] : 0.f;
-      for (int c = tid; c < BC; c += NT) {
-        float s = 0.f;
+    for (int c = 0; c < CPT; ++c) red[ty][tx + TX * c] = acc[c];
+    __syncthreads();
+    const float rs = resid ? resid[0] : 0.f;
+    for (int c = tid; c < BC; c += NT) {
+      float s = 0.f;
 #pragma unroll
-        for (int y = 0; y < TY; ++y) s += red[y][c];
-        if (partial && c0 + c < n_out)
-          partial[static_cast<long long>(blockIdx.y) * n_out + c0 + c] = s;
-        best[c] = s - rs;
-      }
-      __syncthreads();
-    } else {
-      close_pass(acc, p0, r, resid, red, best, partial, c0, n_out, tx, ty, tid);
+      for (int y = 0; y < TY; ++y) s += red[y][c];
+      if (partial && c0 + c < n_out)
+        partial[static_cast<long long>(blockIdx.y) * n_out + c0 + c] = s;
+      best[c] = s - rs;
     }
+    __syncthreads();
   }
   write_out(rows, best, out, partial, c0, tid);
 }
@@ -174,26 +315,40 @@ __global__ void __launch_bounds__(NT) fl_stream_kernel(
 
 // Xc is the (n_rows, d) candidate matrix (the served rows Xs themselves for
 // the global objective); resid may be NULL (all zero): the greedy instance.
-// With splits > 1 the served rows are split across that many blocks per
-// candidate tile, and partial must hold splits * r * n_out floats.
+// ppt and passes are fl_probe_tile(r) (kernels/_build.py); r == 1 takes the
+// single-probe kernel and ignores them.  With splits > 1 the served rows are
+// split across that many blocks per candidate tile, and partial must hold
+// splits * r * n_out floats.
 extern "C" int fl_stream_launch(const float* Xs, long long ni, int d,
                                 const float* Xc, long long n_rows,
                                 const long long* cand_idx, long long n_out,
                                 const float* MU, const float* resid, int r,
-                                int splits, float* partial, float* out,
-                                void* stream) {
+                                int ppt, int passes, int splits, float* partial,
+                                float* out, void* stream) {
   if (n_out <= 0) return 0;
-  if (r < 1 || d < 1 || splits < 1 || (splits > 1 && partial == nullptr))
+  if (r < 1 || d < 1 || splits < 1 || (splits > 1 && partial == nullptr) ||
+      !tile_covers(r, ppt, passes))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>((n_out + BC - 1) / BC),
                   static_cast<unsigned>(splits));
   const auto s = static_cast<cudaStream_t>(stream);
   float* part = splits > 1 ? partial : nullptr;
-  if (r == 1)
-    fl_stream_kernel<true><<<grid, NT, 0, s>>>(Xs, ni, d, Xc, n_rows, cand_idx,
+  if (r == 1) {
+    fl_stream_gains_kernel<<<grid, NT, 0, s>>>(Xs, ni, d, Xc, n_rows, cand_idx,
                                                n_out, MU, resid, r, part, out);
-  else
-    fl_stream_kernel<false><<<grid, NT, 0, s>>>(Xs, ni, d, Xc, n_rows, cand_idx,
-                                                n_out, MU, resid, r, part, out);
+  } else {
+    cudaError_t err = cudaSuccess;
+    dispatch_ppt(ppt, [&](auto tag) {
+      constexpr int PPT = decltype(tag)::value;
+      const auto kernel = fl_stream_tiled<PPT>;
+      const size_t smem =
+          (2 * (ProbeTile<PPT, MIK>::MWORDS + MIK * XROW) + MIK * BC + DK * BC) * sizeof(float);
+      err = allow_smem(kernel, smem);
+      if (err == cudaSuccess)
+        kernel<<<grid, NT, smem, s>>>(Xs, ni, d, Xc, n_rows, cand_idx, n_out, MU,
+                                      resid, r, passes, part, out);
+    });
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return finish(part, splits, r, n_out, cand_idx, n_rows, resid, out, s);
 }

@@ -43,6 +43,7 @@ def _launch(sim: Tensor, MU: Tensor, resid: Tensor | None,
     if n_out == 0:
         return out
     r = MU.shape[0]
+    tile = _build.fl_probe_tile(r)
     splits = _build.row_splits(n_out, ni)
     partial = (torch.empty((splits * r * n_out,), dtype=torch.float32,
                            device=sim.device) if splits > 1 else None)
@@ -51,6 +52,7 @@ def _launch(sim: Tensor, MU: Tensor, resid: Tensor | None,
         rc = lib.fl_divergence_launch(
             sim.data_ptr(), int(sim.dtype == torch.bfloat16), ni, n,
             _build.ptr(cand_idx), n_out, MU.data_ptr(), _build.ptr(resid), r,
+            tile.ppt, tile.passes,
             splits, _build.ptr(partial), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -72,6 +72,7 @@ def _launch(X: Tensor, Xc: Tensor, MU: Tensor, resid: Tensor | None,
     if n_out == 0:
         return out
     r = MU.shape[0]
+    tile = _build.fl_probe_tile(r)
     splits = _build.row_splits(n_out, X.shape[0])
     partial = (torch.empty((splits * r * n_out,), dtype=torch.float32,
                            device=X.device) if splits > 1 else None)
@@ -80,6 +81,7 @@ def _launch(X: Tensor, Xc: Tensor, MU: Tensor, resid: Tensor | None,
         rc = lib.fl_stream_launch(
             X.data_ptr(), X.shape[0], X.shape[1], Xc.data_ptr(), Xc.shape[0],
             _build.ptr(cand_idx), n_out, MU.data_ptr(), _build.ptr(resid), r,
+            tile.ppt, tile.passes,
             splits, _build.ptr(partial), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )

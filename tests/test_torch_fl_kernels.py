@@ -279,3 +279,81 @@ def test_fl_stream_wrapper_rejects_mismatched_widths():
     X, MU, resid = torch.rand(20, 6), torch.rand(3, 20), torch.rand(3)
     with pytest.raises(ValueError):
         fl_stream_divergence_kernel(X, MU, resid, Xc=torch.rand(30, 5))
+
+
+# -- the many-probe tile (csrc/fl_common.cuh) --------------------------------
+
+
+def test_fl_probe_tile_rule():
+    """fl_probe_tile covers every r with fewer than FL_PROBE_THREADS pad
+    slots a pass (on average), fills one pass exactly at the SS paths' probe
+    counts, and picks a template instance the launchers have."""
+    from repro_torch.kernels import _build
+
+    for r in range(1, 513):
+        tile = _build.fl_probe_tile(r)
+        assert tile == _build.fl_probe_tile(r)   # a pure rule of r
+        assert 1 <= tile.ppt <= _build.FL_MAX_PPT and tile.passes >= 1
+        assert tile.slots >= r
+        assert tile.slots - r < _build.FL_PROBE_THREADS * tile.passes
+        # no fewer passes would do
+        assert r > _build.FL_PROBE_THREADS * _build.FL_MAX_PPT * (tile.passes - 1)
+    for r in (128, 144, 160):
+        tile = _build.fl_probe_tile(r)
+        assert tile.passes == 1 and tile.slots == r
+    with pytest.raises(ValueError):
+        _build.fl_probe_tile(0)
+
+
+def test_fl_probe_tile_matches_the_cuda_header():
+    """The rule's constants are those the kernels are compiled with."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    text = (_build.CSRC / "fl_common.cuh").read_text()
+    consts = dict(re.findall(r"constexpr int (kProbeThreads|kMaxPPT) = (\d+);", text))
+    assert int(consts["kProbeThreads"]) == _build.FL_PROBE_THREADS
+    assert int(consts["kMaxPPT"]) == _build.FL_MAX_PPT
+
+
+@pytest.mark.parametrize("n,r,dtype,compact", [
+    (200, 65, "float32", False), (200, 65, "bfloat16", True),
+    (320, 144, "float32", True), (320, 144, "bfloat16", False),
+    (180, 161, "float32", False),
+])
+def test_fl_divergence_across_probe_tiles(n, r, dtype, compact):
+    """Probe counts past one 64-probe pass (65), path B's one pass of 144,
+    and two passes of the probe tile (161), against the Pallas kernel in
+    interpret mode."""
+    jdt, tdt, tol = DTYPES[dtype]
+    rng = np.random.default_rng(n * r)
+    sim = _fl_sim(r, n, "cosine")
+    MU, resid, _ = _probe_inputs(rng, sim, r, with_state=compact)
+    cand = _cand(rng, n) if compact else None
+    jcand = None if cand is None else jnp.asarray(cand)
+    tcand = None if cand is None else _t(cand)
+    ref = j_fl_divergence(jnp.asarray(sim).astype(jdt), jnp.asarray(MU),
+                          jnp.asarray(resid), jcand, interpret=True)
+    out = fl_divergence_kernel(_t(sim, tdt), _t(MU), _t(resid), tcand)
+    _close(out, ref, resid, tol)
+
+
+@pytest.mark.parametrize("n,r,d,compact", [
+    (200, 65, 16, False), (200, 65, 5, True), (320, 144, 16, True),
+    (320, 144, 130, False), (180, 161, 16, True),
+])
+def test_fl_stream_divergence_across_probe_tiles(n, r, d, compact):
+    rng = np.random.default_rng(n * r + d)
+    X = rng.normal(size=(n, d)).astype(np.float32)
+    X /= np.linalg.norm(X, axis=1, keepdims=True)
+    sim = np.maximum(X @ X.T, 0.0)
+    MU, resid, _ = _probe_inputs(rng, sim, r, with_state=compact)
+    cand = _cand(rng, n) if compact else None
+    jcand = None if cand is None else jnp.asarray(cand)
+    tcand = None if cand is None else _t(cand)
+    ref = jfs.fl_stream_divergence_kernel(jnp.asarray(X), jnp.asarray(MU),
+                                          jnp.asarray(resid), jcand,
+                                          interpret=True)
+    out = fl_stream_divergence_kernel(_t(X), _t(MU), _t(resid), tcand)
+    _close(out, ref, resid, 1e-4)
