@@ -70,6 +70,12 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # Probe counts that cross the FL kernels' tile and pass boundaries
 # (kernels/_build.py:fl_probe_tile).
 FL_TILE_PROBES = (2, 15, 16, 17, 64, 65, 128, 144, 145, 160, 161, 300)
+# Widths and (served rows, candidates) across the one-probe matrix-free
+# kernels' edges (csrc/fl_stream.cu: 16 resident features, 128-row chunks,
+# 128-candidate blocks; kernels/_build.py:row_splits).
+GAINS_EDGE_D = (1, 15, 16, 17, 33)
+GAINS_EDGE_SHAPES = ((700, 300), (1037, 301), (5000, 130), (70001, 1500),
+                     (300, 40000))
 # The LM path: qwen3-4b serving four 2048-token prompts, 32 new tokens each.
 LM_ARCH, LM_B, LM_S, LM_NEW = "qwen3-4b", 4, 2048, 32
 PHIS = ("sqrt", "log1p", "setcover", "satcov", "linear")
@@ -232,10 +238,13 @@ def _cuda_vs_reference(fn, k: int, seed: int, what: str = "small"):
     return res_k, ss_k
 
 
-def profile_summarize(label: str, fn) -> dict:
+def profile_summarize(label: str, fn, watch: tuple[str, ...] = ()) -> dict:
     """One summarize under the profiler: device busy time by kernel (device
     events only: a PyTorch operator also reports its kernels' time as its
-    own, and would count them twice) against the synchronised wall."""
+    own, and would count them twice) against the synchronised wall, and for
+    each string of ``watch`` the total of the kernels whose names hold it,
+    or for an operator ("aten::...") the device time of the kernels it
+    launched."""
     from repro_torch import summarize
 
     torch.cuda.synchronize()
@@ -246,10 +255,10 @@ def profile_summarize(label: str, fn) -> dict:
         summarize(fn, K, torch.Generator(device="cuda").manual_seed(0), r=R, c=C)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
     by_kernel = sorted(
         ((e.self_device_time_total, e.key, e.count)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA),
+         for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
         reverse=True,
     )
     busy_ms = sum(us for us, _, _ in by_kernel) / 1e3
@@ -261,6 +270,13 @@ def profile_summarize(label: str, fn) -> dict:
           f"{busy_ms:.4f} ms, idle share {1 - busy_ms / wall_ms:.4f}")
     for us, key, count in by_kernel[:8]:
         print(f"  {us / 1e3:10.4f} ms  x{count:<4d} {key[:90]}")
+    for name in watch:
+        if name.startswith("aten::"):
+            hits = [(e.device_time_total, e.count) for e in events if e.key == name]
+        else:
+            hits = [(us, count) for us, key, count in by_kernel if name in key]
+        print(f"  {name}: {sum(us for us, _ in hits) / 1e3:.4f} ms of device time "
+              f"over {sum(count for _, count in hits)} calls")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms}
 
 
@@ -449,7 +465,7 @@ def fc_path(errs: dict) -> list[dict]:
     check(torch.equal(res2.selected, res.selected), "a rerun of the path differs")
     print(f"warm rerun: SS wall {wall_ss:.4f} s, greedy on V' wall {wall_gr:.4f} s "
           "(host clock, synchronised)")
-    profile_summarize("FeatureCoverage", fn)
+    profile_summarize("FeatureCoverage", fn, ("feature_gains",))
     return records
 
 
@@ -584,13 +600,38 @@ def fl_sweep(errs: dict) -> None:
                 fl_stream_divergence_ref(X, MU, resid, cand), resid,
                 TOL[torch.float32], what))
             tile_stream += 1
+    # The one-probe matrix-free kernels across their tiles' edges: d on both
+    # sides of the resident kernel's 16 features (1, 15, 16; 17 and 33 take
+    # the piecewise kernel), served rows off the 128-row chunk, candidates off
+    # the 128-candidate block, rows split and not, and a state with negative
+    # entries (the hinge's max(-m, 0) floor).
+    edge = 0
+    for d, (ni, nc), compact in itertools.product(
+        GAINS_EDGE_D, GAINS_EDGE_SHAPES, (False, True)
+    ):
+        X = torch.randn((ni, d), generator=g, device=dev)
+        X = X / X.norm(dim=1, keepdim=True)
+        Xc = torch.randn((nc, d), generator=g, device=dev)
+        Xc = Xc / Xc.norm(dim=1, keepdim=True)
+        state = torch.rand((ni,), generator=g, device=dev) * 0.6 - 0.1
+        cand = cand_of(nc) if compact else None
+        n_out = nc if cand is None else cand.numel()
+        what = (f"fl_stream_gains edge d={d} ni={ni} n={nc} cand={compact} "
+                f"splits={row_splits(n_out, ni)}")
+        errs["fl_stream_gains"] = max(errs["fl_stream_gains"], _fl_close(
+            fl_stream_gains_kernel(X, state, cand, Xc),
+            fl_stream_divergence_ref(X, state[None], torch.zeros(1, device=dev),
+                                     cand, Xc),
+            None, TOL[torch.float32], what))
+        edge += 1
     torch.cuda.synchronize()
     print("FL probe tiles swept (r: probes a thread x passes): " + ", ".join(
         f"{r}: {t.ppt} x {t.passes}" for r, t in tiles.items()), flush=True)
     print(f"FL kernel vs plain: {dense} dense cases (fl_divergence and "
           f"fl_gains) and {tile_dense} probe-tile cases (fl_divergence), "
           f"{stream} matrix-free cases (fl_stream_divergence and fl_stream_gains)"
-          f" and {tile_stream} probe-tile cases (fl_stream_divergence) passed; "
+          f" and {tile_stream} probe-tile cases (fl_stream_divergence), {edge} "
+          f"tile-edge cases (fl_stream_gains) passed; "
           f"max abs err "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()
                       if k.startswith("fl_")), flush=True)
@@ -623,21 +664,25 @@ def fl_small_pipelines() -> None:
 
 
 def _fl_drive(label: str, fn, kernels: dict) -> tuple:
-    """Greedy on V, then summarize, each with the kernels' counts set to 0
-    just before and read just after; checks the results, except the
-    relative quality, which the caller checks after its measurements."""
+    """Greedy on V, then summarize, each with the kernels' counts (and the
+    count of V' panel gathers) set to 0 just before and read just after;
+    checks the results, except the relative quality, which the caller checks
+    after its measurements."""
     from repro_torch import greedy, summarize
+    from repro_torch.kernels import fl_gains_panel
 
     counts = {}
 
     def run(path, call):
         for kern in kernels.values():
             kern.launches = 0
+        fl_gains_panel.gathers = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
         out = call()
         torch.cuda.synchronize()
         counts[path] = {name: kern.launches for name, kern in kernels.items()}
+        counts[path]["panel_gathers"] = fl_gains_panel.gathers
         return out, time.perf_counter() - t
 
     full, wall_full = run("greedy_on_V", lambda: greedy(fn, K))
@@ -680,23 +725,32 @@ def _round1(fn, residual):
     return m, MU, residual[probes].float().contiguous()
 
 
+def ptxas_report(stem: str, entry: str, threads: int = 256) -> tuple[int, int, int, int]:
+    """What ptxas reported for the one kernel of ``csrc/<stem>.cu`` whose
+    mangled name holds ``entry``: registers, spill store and load bytes,
+    and the blocks of ``threads`` threads an SM holds by registers."""
+    from repro_torch.kernels._build import BUILD_DIR
+
+    lines = (BUILD_DIR / f"{stem}.ptxas.txt").read_text().splitlines()
+    found = [" ".join(lines[i + 1:i + 4]) for i, line in enumerate(lines)
+             if "Compiling entry" in line and entry in line]
+    check(len(found) == 1, f"{stem}: no single ptxas report for {entry}")
+    regs = int(re.search(r"Used (\d+) registers", found[0]).group(1))
+    store, load = (int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)",
+                                              found[0]))
+    return regs, store, load, 65536 // (threads * (-(-regs // 8) * 8))
+
+
 def fl_tile_report(kernel: str, m: int) -> dict:
     """The probe tile that fl_probe_tile picks at a path's m, and what
     ptxas reported for that template instance (float32 sim): registers,
     spills, and the 256-thread blocks an SM holds by registers."""
-    from repro_torch.kernels._build import BUILD_DIR, FL_PROBE_THREADS, fl_probe_tile
+    from repro_torch.kernels._build import FL_PROBE_THREADS, fl_probe_tile
 
     tile = fl_probe_tile(m)
     stem, entry = {"fl_divergence": ("fl_divergence", "fl_divergence_tiledIfLi"),
                    "fl_stream_divergence": ("fl_stream", "fl_stream_tiledILi")}[kernel]
-    lines = (BUILD_DIR / f"{stem}.ptxas.txt").read_text().splitlines()
-    found = [" ".join(lines[i + 1:i + 4]) for i, line in enumerate(lines)
-             if "Compiling entry" in line and f"{entry}{tile.ppt}E" in line]
-    check(len(found) == 1, f"{kernel}: no ptxas report for {tile.ppt} probes a thread")
-    regs = int(re.search(r"Used (\d+) registers", found[0]).group(1))
-    store, load = (int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)",
-                                              found[0]))
-    per_sm = 65536 // (256 * (-(-regs // 8) * 8))
+    regs, store, load, per_sm = ptxas_report(stem, f"{entry}{tile.ppt}E")
     print(f"{kernel} at m = {m}: probe tile {FL_PROBE_THREADS} threads x "
           f"{tile.ppt} probes, {tile.passes} pass(es), {tile.slots - m} pad "
           f"slots; ptxas: {regs} registers, spill stores/loads {store}/{load} "
@@ -713,7 +767,8 @@ def fl_dense_path(errs: dict) -> list[dict]:
     from repro_torch.core.greedy import compact_indices, selection_bucket
     from repro_torch.core.sparsify import bucket_schedule
     from repro_torch.kernels import (
-        fl_divergence_kernel, fl_divergence_ref, fl_gains_kernel,
+        fl_divergence_kernel, fl_divergence_ref, fl_gains_kernel, fl_gains_panel,
+        takes_panel,
     )
 
     t = time.perf_counter()
@@ -727,6 +782,15 @@ def fl_dense_path(errs: dict) -> list[dict]:
           f"{time.perf_counter() - t:.2f} s", flush=True)
     kernels = {"fl_divergence": fl_divergence_kernel, "fl_gains": fl_gains_kernel}
     full, res, ss, counts, rel = _fl_drive("path A", fn, kernels)
+    # greedy over V' copies V''s columns once (a panel) and reads it K times
+    check(counts["summarize"]["panel_gathers"] == 1
+          and counts["greedy_on_V"]["panel_gathers"] == 0,
+          f"path A: panel gathers {counts['summarize']['panel_gathers']} in "
+          f"summarize, {counts['greedy_on_V']['panel_gathers']} in greedy on V "
+          "(want one per greedy run over V', none at full width)")
+    check(counts["summarize"]["fl_gains"] == K,
+          f"path A: {counts['summarize']['fl_gains']} fl_gains launches in "
+          f"summarize, not one per greedy step ({K})")
 
     # main-path shapes against plain
     residual = fn.residual_gains()
@@ -752,14 +816,23 @@ def fl_dense_path(errs: dict) -> list[dict]:
     size = selection_bucket(N_A, int(ss.vprime.sum()))
     check(size is not None, "path A: V' does not fit a compact bucket")
     cand_vp = compact_indices(ss.vprime, size)
+    check(takes_panel(size, N_A), f"path A: V' ({size} slots) takes no panel")
     st = res.state.float().contiguous()
-    g_k, ms_vp = timed(lambda: fl_gains_kernel(fn.sim, st, cand_vp), 200)
+    panel = fl_gains_panel(fn.sim, cand_vp)
+    gather_ms = sync_ms(lambda: fl_gains_panel(fn.sim, cand_vp), 5)
+    panel_bytes = panel.cols.numel() * panel.cols.element_size()
+    g_k, ms_vp = timed(lambda: fl_gains_kernel(panel.cols, st), 200)
+    g_g, ms_gathered = timed(lambda: fl_gains_kernel(fn.sim, st, cand_vp), 50)
+    check(torch.equal(g_k, g_g),
+          "path A V' gains: the panel route is not bitwise the gathered route")
     g_p, plain_vp = timed(lambda: fl_divergence_ref(fn.sim, st[None], zero, cand_vp))
     errs["fl_gains"] = max(errs["fl_gains"], _fl_close(
         g_k, g_p, None, TOL[torch.float32], "path A V' gains"))
+    del panel
     print("path A main-path shapes: kernels match their plain versions (round 1,"
-          f" a round-2-sized buffer of {mid}; full-width and V' gains); greedy "
-          "on V' selects the same set through the reference backend", flush=True)
+          f" a round-2-sized buffer of {mid}; full-width and V' gains, the V' "
+          "panel bitwise equal to the gathered columns); greedy on V' selects "
+          "the same set through the reference backend", flush=True)
 
     # bounds: 3 float32 instructions (subtract, max, add) per (probe,
     # candidate, row); each input read once, the output written once.
@@ -776,10 +849,13 @@ def fl_dense_path(errs: dict) -> list[dict]:
     print(f"fl_gains, full width (greedy on V, {N_A} x {N_A}): {ms_full:.4f} ms "
           f"per launch, plain {plain_full:.4f} ms, bound {bf_ms:.4f} ms ({bf_by}); "
           f"{counts['greedy_on_V']['fl_gains']} launches; over V' ({size} "
-          f"gathered columns): {ms_vp:.4f} ms, plain {plain_vp:.4f} ms, bound "
-          f"{bv_ms:.4f} ms ({bv_by}); {counts['summarize']['fl_gains']} launches "
-          "in summarize; library none", flush=True)
-    profile_summarize("path A", fn)
+          f"columns, from the panel): {ms_vp:.4f} ms, gathered in place "
+          f"{ms_gathered:.4f} ms, plain {plain_vp:.4f} ms, bound {bv_ms:.4f} ms "
+          f"({bv_by}); {counts['summarize']['fl_gains']} launches in summarize; "
+          f"the panel ({panel_bytes} bytes) gathered in {gather_ms:.4f} ms, "
+          f"{counts['summarize']['panel_gathers']} per greedy run; library none",
+          flush=True)
+    profile_summarize("path A", fn, ("fl_gains_rows", "aten::index_select"))
     check(rel >= 0.95, f"path A: relative quality {rel} < 0.95")
     return [
         {"name": "fl_divergence", "route": "cuda",
@@ -797,7 +873,10 @@ def fl_dense_path(errs: dict) -> list[dict]:
          "bound_ms": bv_ms, "bound_by": bv_by, "library_ms": None,
          "full_width": {"ms": ms_full, "plain_ms": plain_full, "bound_ms": bf_ms,
                         "bound_by": bf_by,
-                        "launches": counts["greedy_on_V"]["fl_gains"]}},
+                        "launches": counts["greedy_on_V"]["fl_gains"]},
+         "panel": {"ms": gather_ms, "bytes": panel_bytes,
+                   "per_greedy_run": counts["summarize"]["panel_gathers"]},
+         "gathered_ms": ms_gathered},
     ]
 
 
@@ -828,6 +907,7 @@ def fl_stream_path(errs: dict) -> list[dict]:
     kernels = {"fl_stream_divergence": fl_stream_divergence_kernel,
                "fl_stream_gains": fl_stream_gains_kernel}
     full, res, ss, counts, rel = _fl_drive("path B", fn, kernels)
+    check(counts["summarize"]["panel_gathers"] == 0, "path B gathered a panel")
 
     # main-path shapes against plain.  A full-width plain round 1 would take
     # minutes, so the plain comparison runs on 2048 gathered candidates at
@@ -883,6 +963,13 @@ def fl_stream_path(errs: dict) -> list[dict]:
           f"{counts['summarize']['fl_stream_divergence']} launches in summarize")
     bf_ms, bf_by, bf_pipe = stream_bound(N_B, 1)
     bv_ms, bv_by, bv_pipe = stream_bound(size, 1)
+    regs, store, load, per_sm = ptxas_report("fl_stream", "fl_stream_gains_resident",
+                                             threads=128)
+    gains_ptxas = {"registers": regs, "spill_store_bytes": store,
+                   "spill_load_bytes": load, "blocks_per_sm_by_registers": per_sm}
+    print(f"fl_stream_gains (d <= 16: fl_stream_gains_resident): ptxas {regs} "
+          f"registers, spill stores/loads {store}/{load} bytes, {per_sm} blocks "
+          "of 128 threads per SM by registers", flush=True)
     print(f"fl_stream_gains, full width (greedy on V): {ms_full:.4f} ms per "
           f"launch, bound {bf_ms:.4f} ms ({bf_by}: {bf_pipe}), plain at 2048 "
           f"candidates {plain_g:.4f} ms; {counts['greedy_on_V']['fl_stream_gains']}"
@@ -890,7 +977,7 @@ def fl_stream_path(errs: dict) -> list[dict]:
           f"{plain_vp:.4f} ms, bound {bv_ms:.4f} ms ({bv_by}: {bv_pipe}); "
           f"{counts['summarize']['fl_stream_gains']} launches in summarize; "
           "library none", flush=True)
-    profile_summarize("path B", fn)
+    profile_summarize("path B", fn, ("fl_stream_gains",))
 
     # SS's quality at r = c = 8 falls as this data set grows, in the JAX
     # reference as in the port (they prune alike under the same draws,
@@ -931,7 +1018,8 @@ def fl_stream_path(errs: dict) -> list[dict]:
          "bound_ms": bv_ms, "bound_by": bv_by, "library_ms": None,
          "full_width": {"ms": ms_full, "bound_ms": bf_ms, "bound_by": bf_by,
                         "plain_ms_at_2048_candidates": plain_g,
-                        "launches": counts["greedy_on_V"]["fl_stream_gains"]}},
+                        "launches": counts["greedy_on_V"]["fl_stream_gains"]},
+         "ptxas": gains_ptxas},
     ]
 
 

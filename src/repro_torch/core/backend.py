@@ -2,8 +2,11 @@
 
 SS and greedy evaluate four primitives: ``gains`` / ``gains_compact`` (the
 greedy step, full width or over a compacted candidate buffer) and
-``divergence`` / ``divergence_compact`` (the SS round, paper Def. 2).  This
-module decides how they run:
+``divergence`` / ``divergence_compact`` (the SS round, paper Def. 2).
+Greedy over a buffer first asks ``prepare_compact`` what its steps should
+read (the objective's ``cuda_prepare`` under ``cuda``: dense facility
+location gathers its candidate columns once).  This module decides how they
+run:
 
 - ``reference`` (:class:`ReferenceBackend`): plain PyTorch on whatever
   device the objective lives on; the counterpart of the JAX ``oracle``.
@@ -45,6 +48,12 @@ class Backend:
     ) -> Tensor:
         """f(v|S) for the candidate buffer ``cand_idx`` (k,).  Shape (k,)."""
         return fn.gains_compact(state, cand_idx)
+
+    def prepare_compact(self, fn: SubmodularFunction, cand_idx: Tensor):
+        """What greedy's steps over the buffer ``cand_idx`` hand
+        :meth:`gains_compact` in its place, made once before the first
+        step: ``cand_idx`` itself on the plain path."""
+        return cand_idx
 
     def divergence(
         self,
@@ -96,6 +105,10 @@ class CudaBackend(Backend):
     def gains_compact(self, fn, state, cand_idx):
         self._check(fn)
         return fn.cuda_gains(state, cand_idx)
+
+    def prepare_compact(self, fn, cand_idx):
+        self._check(fn)
+        return fn.cuda_prepare(cand_idx)
 
     def divergence(self, fn, probes, residual=None, state=None):
         self._check(fn)

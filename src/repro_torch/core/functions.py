@@ -19,7 +19,9 @@ operation.
 Two kernel hooks, ``cuda_divergence`` and ``cuda_gains``, carry the SS round
 and the greedy step to the CUDA kernels (:mod:`repro_torch.core.backend`,
 ``CudaBackend``).  The base class has no kernel: its hooks raise, and the
-backend does not fall back to the plain path.
+backend does not fall back to the plain path.  A third, ``cuda_prepare``,
+lays a greedy run's candidate buffer out for ``cuda_gains`` once, before the
+first step; by default it keeps the buffer as it is.
 """
 
 from __future__ import annotations
@@ -30,7 +32,13 @@ import dataclasses
 import torch
 
 from repro_torch.kernels.feature_gains import feature_gains_kernel
-from repro_torch.kernels.fl_divergence import fl_divergence_kernel, fl_gains_kernel
+from repro_torch.kernels.fl_divergence import (
+    GainsPanel,
+    fl_divergence_kernel,
+    fl_gains_kernel,
+    fl_gains_panel,
+    takes_panel,
+)
 from repro_torch.kernels.fl_stream import (
     fl_stream_col_max,
     fl_stream_divergence_kernel,
@@ -127,10 +135,16 @@ class SubmodularFunction(abc.ABC):
         )
 
     def cuda_gains(self, state: Tensor, cand_idx: Tensor | None = None) -> Tensor:
-        """Fused greedy gains f(v|S) for all v, or for v = cand_idx."""
+        """Fused greedy gains f(v|S) for all v, or for v = cand_idx (or what
+        :meth:`cuda_prepare` made of it)."""
         raise NotImplementedError(
             f"{type(self).__name__} has no CUDA gains kernel"
         )
+
+    def cuda_prepare(self, cand_idx: Tensor):
+        """What :meth:`cuda_gains` reads in place of the candidate buffer
+        ``cand_idx`` over a greedy run, made once: the buffer itself."""
+        return cand_idx
 
 
 @dataclasses.dataclass(frozen=True)
@@ -390,7 +404,19 @@ class FacilityLocation(SubmodularFunction):
             self.sim, MU, residual[probes].float().contiguous(), cand_idx
         )
 
-    def cuda_gains(self, state: Tensor, cand_idx: Tensor | None = None) -> Tensor:
+    def cuda_prepare(self, cand_idx: Tensor) -> "Tensor | GainsPanel":
+        """sim's candidate columns copied once into a contiguous panel when
+        :func:`takes_panel` says so (the kernel then reads them with 16-byte
+        vectors, not a sector per element), else ``cand_idx``."""
+        if not takes_panel(cand_idx.shape[0], self.sim.shape[1]):
+            return cand_idx
+        return fl_gains_panel(self.sim, cand_idx)
+
+    def cuda_gains(
+        self, state: Tensor, cand_idx: "Tensor | GainsPanel | None" = None
+    ) -> Tensor:
+        if isinstance(cand_idx, GainsPanel):
+            return fl_gains_kernel(cand_idx.cols, state)
         return fl_gains_kernel(self.sim, state, cand_idx)
 
 

@@ -9,9 +9,11 @@ Compact selection: after SS the live set is |V'| = O(log² n) ≪ n.  When
 ``alive`` is sparse, ``greedy`` gathers it once into a buffer of the
 smallest :func:`repro_torch.core.sparsify.bucket_schedule` size that holds
 it (ascending ground order, zero padding), runs every step over that buffer
-and maps the picks back to ground indices.  Compact and full-width runs pick
-the same elements, because both argmaxes take the first maximum in ground
-order.
+and maps the picks back to ground indices.  The backend sees the buffer once
+before the first step (``prepare_compact``: dense facility location on the
+card copies its columns into a panel, freed when greedy returns).  Compact
+and full-width runs pick the same elements, because both argmaxes take the
+first maximum in ground order.
 """
 
 from __future__ import annotations
@@ -131,11 +133,12 @@ def _greedy_compact(
     be = backend
     alive = alive.to(device=fn.device, dtype=torch.bool)
     cand_idx = compact_indices(alive, size)
+    cands = be.prepare_compact(fn, cand_idx)  # once per run (a panel, say)
     avail = torch.arange(size, device=fn.device) < alive.sum()  # pads are dead
     st = fn.empty_state() if state is None else state
     sel, gains = [], []
     for _ in range(k):
-        g = torch.where(avail, be.gains_compact(fn, st, cand_idx), NEG)
+        g = torch.where(avail, be.gains_compact(fn, st, cands), NEG)
         vc = torch.argmax(g)
         v = cand_idx[vc]
         ok = avail[vc].clone()

@@ -3,7 +3,13 @@
 from repro_torch.kernels._build import build, load_library
 from repro_torch.kernels.feature_gains import feature_gains_kernel
 from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_route
-from repro_torch.kernels.fl_divergence import fl_divergence_kernel, fl_gains_kernel
+from repro_torch.kernels.fl_divergence import (
+    GainsPanel,
+    fl_divergence_kernel,
+    fl_gains_kernel,
+    fl_gains_panel,
+    takes_panel,
+)
 from repro_torch.kernels.fl_stream import (
     fl_stream_divergence_kernel,
     fl_stream_gains_kernel,
@@ -22,6 +28,7 @@ from repro_torch.kernels.ref import (
 from repro_torch.kernels.ss_weights import ss_divergence_kernel
 
 __all__ = [
+    "GainsPanel",
     "attention_ref",
     "attention_split_p_ref",
     "build",
@@ -30,6 +37,7 @@ __all__ = [
     "fl_divergence_kernel",
     "fl_divergence_ref",
     "fl_gains_kernel",
+    "fl_gains_panel",
     "fl_stream_divergence_kernel",
     "fl_stream_divergence_ref",
     "fl_stream_gains_kernel",
@@ -41,4 +49,5 @@ __all__ = [
     "split_bf16",
     "ss_divergence_kernel",
     "ss_divergence_ref",
+    "takes_panel",
 ]

@@ -4,9 +4,11 @@
 // probe pass, the split of the served rows across blocks, and the kernel
 // that sums the splits.
 //
-// Two block shapes, both of 256 threads over 128 candidates:
+// Block shapes, all over 128 candidates:
 //   - one probe (greedy gains): TX x TY threads, CPT candidates each
-//     (fl_gains_rows, fl_stream_gains_kernel).
+//     (fl_gains_rows, fl_stream_gains_pieces); fl_stream_gains_resident
+//     keeps the TY row slices with 128 threads of 8 candidates
+//     (fl_stream.cu).
 //   - many probes (an SS round): 16 threads along candidates x 16 along
 //     probes.  A thread owns 8 candidates (two runs of 4: 4 tc .. 4 tc + 3
 //     and 64 + 4 tc ..) and PPT consecutive probes, so its reads of a staged

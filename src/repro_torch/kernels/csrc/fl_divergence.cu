@@ -67,6 +67,13 @@
 //   - with cand_idx the columns are gathered in place (sim[i, cand[v]]).
 //     Those reads are not coalesced; sorted candidate buffers (the SS and
 //     greedy compactions are ascending) keep neighbours in shared sectors.
+//     One probe over a small buffer pays a 32-byte sector per element
+//     (1024 columns of a 2^16-wide sim lie about 64 floats apart), so
+//     greedy over V' does not come here: it copies the columns once into a
+//     contiguous panel (kernels/fl_divergence.py:takes_panel,
+//     fl_gains_panel) and every step takes the 16-byte vector route over it,
+//     with the same rows in the same order: the gains are bitwise those of
+//     the gathered route.
 
 #include <cstdint>
 #include <type_traits>

@@ -9,9 +9,17 @@ the wrappers launch the hand-written kernel in ``csrc/fl_divergence.cu``
 fl_divergence_kernel`` and ``fl_gains_kernel``); on a CPU tensor they run the
 plain version, :func:`fl_divergence_ref`.  Nothing else: a failed build or
 launch raises.
+
+Greedy over a small candidate buffer reads the same columns of ``sim`` in
+every step.  Gathered in place, each column element costs the kernel a
+32-byte sector of its own; :func:`fl_gains_panel` copies them once into a
+contiguous panel (as the JAX wrapper's ``jnp.take`` does on every call), and
+the steps read that with 16-byte vectors.  :func:`takes_panel` decides.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -20,7 +28,11 @@ from repro_torch.kernels.ref import fl_divergence_ref
 
 Tensor = torch.Tensor
 
-__all__ = ["fl_divergence_kernel", "fl_divergence_ref", "fl_gains_kernel"]
+__all__ = ["GainsPanel", "fl_divergence_kernel", "fl_divergence_ref",
+           "fl_gains_kernel", "fl_gains_panel", "takes_panel"]
+
+#: A panel of k columns is taken when it is at most 1/PANEL_SHARE of sim.
+PANEL_SHARE = 8
 
 
 def _check(name: str, sim: Tensor, MU: Tensor, resid: Tensor | None,
@@ -102,5 +114,31 @@ def fl_gains_kernel(
     return out
 
 
+def takes_panel(k: int, n: int) -> bool:
+    """Whether greedy over k gathered columns of an (ni, n) sim copies them
+    into a panel first: a pure rule of shapes, true when the panel is at
+    most 1/PANEL_SHARE of sim (path A: 1024 of 65536 columns, 268 MB; not a
+    near-full SS bucket of 23296, which would be 6.1 GB)."""
+    return 0 < k and PANEL_SHARE * k <= n
+
+
+class GainsPanel(NamedTuple):
+    """sim[:, cand_idx] as one contiguous (ni, k) tensor in sim's dtype:
+    what greedy's steps read in place of the gathered columns."""
+
+    cols: Tensor
+
+
+def fl_gains_panel(sim: Tensor, cand_idx: Tensor) -> GainsPanel:
+    """Gather the columns ``cand_idx`` of ``sim`` once, for the greedy steps
+    (``fl_gains_kernel(panel.cols, state)`` then equals
+    ``fl_gains_kernel(sim, state, cand_idx)`` bitwise: the kernel walks the
+    same rows in the same order).  ``fl_gains_panel.gathers`` counts the
+    gathers, on any device."""
+    fl_gains_panel.gathers += 1
+    return GainsPanel(sim.index_select(1, cand_idx))
+
+
 fl_divergence_kernel.launches = 0
 fl_gains_kernel.launches = 0
+fl_gains_panel.gathers = 0
