@@ -25,7 +25,14 @@ turns, and both are held to the plain version, with their flip rates
 
 For each it checks the result, its kernel launches and its agreement with
 the plain path, times each kernel at the path's shapes beside its bound and
-its plain version, and profiles the path.
+its plain version, and profiles the path.  The FeatureCoverage kernels sum
+only the terms W's nonzeros make nonzero, so they are also swept over sparse
+W and their bounds count what these inputs need (W read once as stored, the
+work of its nonzeros), printed beside the dense bounds; the divergence is
+also timed on a dense random W of round 1's shape.  Every time follows one
+rule, ``kernel_ms``: the median of 5 windows of back-to-back calls between
+CUDA events, each window queued behind a sleep on the card where Python's
+enqueue takes at least half of it, so that the events time the card alone.
 
 The last two lines of its output are JSON: the kernels' records, then
 ``{"ok": true, "device": {...}}``.  Any failure raises before them, and the
@@ -39,10 +46,12 @@ import itertools
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -92,23 +101,69 @@ def check(cond, msg: str) -> None:
         fail(msg)
 
 
-def sync_ms(fn, iters: int) -> float:
-    """Milliseconds per call from CUDA events, after one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    return timed(fn, iters)[1]
+class Timing(NamedTuple):
+    ms: float              # per call: the median of the windows
+    windows: list[float]   # per call, each window
+    host_ms: float         # per call: the time Python takes to enqueue it
+    queued: bool           # the windows were queued behind a sleep on the card
 
 
-def timed(fn, iters: int = 1):
-    """(last result, milliseconds per call) from CUDA events, no warm-up."""
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
+def _window(fn, iters: int, sleep_ms: float = 0.0):
+    """(last result, ms on the card, ms to enqueue, ms slept) of `iters`
+    back-to-back calls between two CUDA events, after a sleep on the card
+    of `sleep_ms` if one is asked for."""
+    pre, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    pre.record()
+    if sleep_ms:
+        torch.cuda._sleep(int(RATES["clock_hz"] * sleep_ms / 1e3))
     start.record()
+    t = time.perf_counter()
     for _ in range(iters):
         out = fn()
+    enqueue_ms = (time.perf_counter() - t) * 1e3
     end.record()
     torch.cuda.synchronize()
-    return out, start.elapsed_time(end) / iters
+    return out, start.elapsed_time(end), enqueue_ms, pre.elapsed_time(start)
+
+
+def kernel_ms(fn, iters: int, windows: int = 5):
+    """(last result, Timing): the one timing rule of every record.  After a
+    warm-up call, `windows` windows of `iters` back-to-back calls, each
+    between CUDA events; the time is the median window per call.  The
+    first window also times Python's enqueue: where that takes at least
+    half the window, the events would time the host, so every window is
+    instead queued behind a sleep on the card that outlasts its enqueue
+    (checked), and the events time the card alone.  A call that waits on
+    the card (a sync inside, or more launches than the queue holds) cannot
+    be queued: the sleep ends first, and such a call keeps its plain
+    windows, host time included."""
+    fn()
+    torch.cuda.synchronize()
+    out, ms, enqueue, _ = _window(fn, iters)
+    host = enqueue / iters
+    times, sleep = [ms], 0.0
+    if enqueue >= 0.5 * ms:
+        sleep = 4 * enqueue + 5.0
+        out, ms, enqueue, slept = _window(fn, iters, sleep)
+        if slept > enqueue:
+            times = [ms]
+        else:
+            sleep = 0.0
+    while len(times) < windows:
+        out, ms, enqueue, slept = _window(fn, iters, sleep)
+        check(not sleep or slept > enqueue,
+              f"kernel_ms: the sleep ({slept:.3f} ms) ended before the {iters} "
+              f"calls were queued ({enqueue:.3f} ms)")
+        times.append(ms)
+    per_call = [t / iters for t in times]
+    return out, Timing(statistics.median(per_call), per_call, host, bool(sleep))
+
+
+def fmt_windows(t: Timing) -> str:
+    """How a time was taken, for the printed lines."""
+    return (f"median of {', '.join(f'{x:.4f}' for x in t.windows)}"
+            + ("; queued on the card" if t.queued else "")
+            + f"; {t.host_ms:.4f} ms a call to enqueue")
 
 
 def card_rates() -> None:
@@ -207,6 +262,139 @@ def sweep(errs: dict) -> None:
           f"{errs['feature_gains']:.3g}", flush=True)
 
 
+# The sparse sweep: densities of W (100%: every element nonzero), and
+# (n, F, r) with F a multiple of 4 or not, of the 192-slot chunk or not,
+# at the sparse loop's widest (8192) and past it (the dense loop), and r on
+# both sides of the 32-probe passes.
+SPARSE_DENSITIES = (0.005, 0.01, 0.1, 1.0)
+SPARSE_SHAPES = ((300, 1024, 161), (1000, 1023, 33), (700, 257, 65),
+                 (2000, 512, 32), (130, 8192, 3), (200, 8196, 5))
+
+
+def sparse_w(n: int, f: int, density: float, g) -> torch.Tensor:
+    """A float32 W of the given density in [0, 1), with row 0 empty, row 1
+    one nonzero and, below full density, row n - 1 dense: its block crosses
+    the dense-loop rule (csrc/ss_divergence.cu) while the others stay
+    sparse."""
+    W = torch.rand((n, f), generator=g, device="cuda")
+    W *= torch.rand((n, f), generator=g, device="cuda") < density
+    W[0] = 0.0
+    W[1] = 0.0
+    W[1, f // 3] = 0.7
+    if density < 1.0:
+        W[n - 1] = torch.rand((f,), generator=g, device="cuda") + 0.05
+    return W
+
+
+def sparse_sweep(errs: dict) -> None:
+    """Kernel vs plain on sparse W: every phi x dtype x density x shape, with
+    feat_w, a zero-padded cand_idx and a phi_cu / phi_c that is not the sum
+    of phi cycled through them, and a pad probe (phi_cu = -INF) in every
+    divergence; tolerances as in sweep()."""
+    from repro_torch.kernels import (
+        feature_gains_kernel, feature_gains_ref, ss_divergence_kernel,
+        ss_divergence_ref,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dev = "cuda"
+    variants = list(itertools.product((False, True), repeat=3))
+    cases = 0
+    for (n, f, r), dens, phi, dt in itertools.product(
+        SPARSE_SHAPES, SPARSE_DENSITIES, PHIS, (torch.float32, torch.bfloat16)
+    ):
+        weighted, compact, summed = variants[cases % len(variants)]
+        W32 = sparse_w(n, f, dens, g)
+        W = W32.to(dt)
+        state = W32[2:6].sum(0)
+        CU = (state[None, :] + W32[torch.randint(0, n, (r,), generator=g,
+                                                 device=dev)]).contiguous()
+        resid = torch.rand((r,), generator=g, device=dev)
+        fw = (torch.linspace(0.5, 1.5, f, device=dev) if weighted else None)
+        cap = 0.2 * W.float().sum(0) + 0.01 if phi == "satcov" else None
+        phi_cu = plain_phi_sum(phi, CU, cap, fw)
+        if not summed:  # any phi_cu: the kernel computes its offset itself
+            phi_cu = phi_cu + torch.randn((r,), generator=g, device=dev)
+        phi_cu[-1] = -1e30  # a pad probe: never wins the min
+        cand = (torch.randint(0, n, (n // 3 + 2,), generator=g, device=dev)
+                if compact else None)
+        if cand is not None:
+            cand[-2:] = 0  # zero padding, as the SS loop's buffers carry
+        what = (f"{phi} {dt} {n}x{f}x{r} density {dens} fw={weighted} "
+                f"cand={compact} summed={summed}")
+        tol = TOL[dt]
+        out = ss_divergence_kernel(W, CU, phi_cu, resid, cap, fw, cand, phi=phi)
+        ref = ss_divergence_ref(W, CU, phi_cu, resid, cap, phi, fw, cand)
+        scale = max(1.0, float(phi_cu[:-1].abs().max()) + float(resid.abs().max()))
+        err = float((out - ref).abs().max())
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+              f"sparse ss_divergence {what}: bad output")
+        check(err <= tol * scale, f"sparse ss_divergence {what}: err {err} > "
+              f"{tol * scale}")
+        errs["ss_divergence"] = max(errs["ss_divergence"], err)
+
+        c = CU[0]
+        phi_c = plain_phi_sum(phi, c, cap, fw) + (0.0 if summed else 0.3)
+        out = feature_gains_kernel(W, c, phi_c, cap, fw, cand, phi=phi)
+        ref = feature_gains_ref(W, c, phi_c, cap, phi, fw, cand)
+        scale = max(1.0, float(phi_c.abs()), float(ref.abs().max()))
+        err = float((out - ref).abs().max())
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+              f"sparse feature_gains {what}: bad output")
+        check(err <= tol * scale, f"sparse feature_gains {what}: err {err} > "
+              f"{tol * scale}")
+        errs["feature_gains"] = max(errs["feature_gains"], err)
+        cases += 1
+    torch.cuda.synchronize()
+    print(f"sparse kernel vs plain: {cases} cases per kernel passed (densities "
+          f"{SPARSE_DENSITIES}); max abs err so far ss_divergence "
+          f"{errs['ss_divergence']:.3g}, feature_gains {errs['feature_gains']:.3g}",
+          flush=True)
+
+
+def route_check() -> None:
+    """ss_divergence's two loops give the same bits for the same row: block
+    0 of W holds 128 rows of 1% density, block 1 the same rows with row 7
+    made dense.  The kernel's own flags (left in its scratch) must say that
+    block 0 ran the sparse loop and block 1 the dense one, and the other
+    127 rows' divergences must be equal."""
+    from repro_torch.kernels import ss_weights
+    from repro_torch.kernels._build import SS_BLOCK_CANDS, ss_scratch_floats
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dev = "cuda"
+    B, f, r = SS_BLOCK_CANDS, 1024, 40
+    keep = torch.arange(B, device=dev) != 7
+    for phi, dt, weighted in itertools.product(
+        PHIS, (torch.float32, torch.bfloat16), (False, True)
+    ):
+        A = sparse_w(B, f, 0.01, g)[: B - 1]
+        A = torch.cat([A, torch.zeros((1, f), device=dev)])
+        W = torch.cat([A, A])
+        W[B + 7] = torch.rand((f,), generator=g, device=dev) + 0.05
+        W = W.to(dt)
+        CU = torch.rand((r, f), generator=g, device=dev)
+        CU *= torch.rand((r, f), generator=g, device=dev) < 0.05
+        fw = torch.linspace(0.5, 1.5, f, device=dev) if weighted else None
+        cap = 0.2 * W.float().sum(0) + 0.01 if phi == "satcov" else None
+        phi_cu = plain_phi_sum(phi, CU, cap, fw)
+        phi_cu[-1] = -1e30
+        resid = torch.rand((r,), generator=g, device=dev)
+        out = torch.empty((2 * B,), device=dev)
+        scratch = torch.empty((ss_scratch_floats(r, f, 2 * B),), device=dev)
+        ss_weights._launch(W, CU, phi_cu, resid, cap, fw, None, phi, scratch, out)
+        flags = scratch[-2:].view(torch.int32).tolist()
+        what = f"ss_divergence {phi} {dt} fw={weighted}"
+        check(flags == [0, 1], f"{what}: the kernel flagged its blocks {flags}, "
+              "not [0, 1] (sparse, dense)")
+        check(torch.equal(out[:B][keep], out[B:][keep]),
+              f"{what}: the sparse and dense loops give different bits")
+    torch.cuda.synchronize()
+    print("route check: ss_divergence's sparse and dense loops give the same "
+          f"bits ({len(PHIS) * 4} cases; each block's loop read from the "
+          "kernel's own flag)", flush=True)
+
+
 def small_pipeline() -> None:
     """The whole pipeline on a small corpus, kernels vs the plain backend on
     the card, under the same draws: same V' and the same picks."""
@@ -278,6 +466,61 @@ def profile_summarize(label: str, fn, watch: tuple[str, ...] = ()) -> dict:
         print(f"  {name}: {sum(us for us, _ in hits) / 1e3:.4f} ms of device time "
               f"over {sum(count for _, count in hits)} calls")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+
+
+def ss_bounds(n: int, f: int, m: int, nnz: int) -> tuple[float, str, str, float]:
+    """ss_divergence's bound at n candidates x m probes x f features whose
+    rows hold nnz nonzeros (sqrt): W read once as stored, CU, phi_cu and
+    resid read and the output written once; per (nonzero, probe) an add, a
+    max and a subtraction (float32), sqrt.approx (special function) and the
+    weighted accumulate (FFMA); per (candidate, probe) the offset's add and
+    the min; phi(CU) once per (probe, feature).  Returns the bound as
+    bound() does, then the dense bound, which counts every element of W as
+    a nonzero."""
+    bytes_ = n * f * 4 + m * f * 4 + 2 * m * 4 + n * 4
+    pairs = nnz * m
+    b = bound(bytes_, fp32=3 * pairs + 2 * n * m, ffma=pairs, sfu=pairs + m * f)
+    elems = n * m * f
+    dense = bound(bytes_, fp32=2 * elems + 3 * n * m, ffma=elems, sfu=elems)
+    return (*b, dense[0])
+
+
+def gains_bounds(n: int, f: int, nnz: int, w_bytes: int) -> tuple[float, str, str, float]:
+    """feature_gains' bound over n rows of f features holding nnz nonzeros
+    (sqrt): the rows read once as stored (w_bytes, with cand_idx), c, the
+    scalar phi_c and the output; a compare per element; per nonzero an add,
+    a max, a subtraction, sqrt.approx and the weighted accumulate; phi(c)
+    once per feature.  Then the dense bound."""
+    bytes_ = w_bytes + f * 4 + 4 + n * 4
+    b = bound(bytes_, fp32=n * f + 3 * nnz + n, ffma=nnz, sfu=nnz + f)
+    elems = n * f
+    dense = bound(bytes_, fp32=2 * elems + n, ffma=elems, sfu=elems)
+    return (*b, dense[0])
+
+
+def ss_dense_w(m: int) -> dict:
+    """ss_divergence on a dense random W at round 1's shape (every element
+    nonzero: the dense loop in every block), timed and held to the plain
+    version once."""
+    from repro_torch.kernels import ss_divergence_kernel, ss_divergence_ref
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    Wd = torch.rand((N, F), generator=g, device="cuda")
+    CU = Wd[torch.randint(0, N, (m,), generator=g, device="cuda")].contiguous()
+    phi_cu = torch.sqrt(CU).sum(-1)
+    resid = torch.rand((m,), generator=g, device="cuda")
+    out, t = kernel_ms(lambda: ss_divergence_kernel(Wd, CU, phi_cu, resid), 1)
+    err = float((out - ss_divergence_ref(Wd, CU, phi_cu, resid)).abs().max())
+    scale = max(1.0, float(phi_cu.abs().max()) + float(resid.abs().max()))
+    check(err <= TOL[torch.float32] * scale, f"dense W divergence err {err}")
+    b_ms, b_by, b_pipe, _ = ss_bounds(N, F, m, N * F)
+    del Wd
+    torch.cuda.empty_cache()
+    print(f"ss_divergence on a dense random W ({N} x {m} x {F}, every element "
+          f"nonzero): {t.ms:.4f} ms per launch ({fmt_windows(t)}), bound "
+          f"{b_ms:.4f} ms ({b_by}: {b_pipe}), share {b_ms / t.ms:.4f}; vs plain "
+          f"err {err:.3g}", flush=True)
+    return {"ms": t.ms, "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
 
 
 def fc_path(errs: dict) -> list[dict]:
@@ -396,59 +639,78 @@ def fc_path(errs: dict) -> list[dict]:
           "round-2-sized buffer; full-width and V' gains); greedy on V' selects "
           "the same set through the reference backend", flush=True)
 
-    # times at the main path's shapes
+    # times at the main path's shapes, against bounds that count the work
+    # these inputs need: W read once as stored, and the float32 and
+    # special-function work of its nonzeros only (a zero of W adds exactly 0
+    # to both kernels' sums).  The dense bounds, which price every element
+    # of W as a nonzero, are printed beside them.
     records = []
-    ms = sync_ms(lambda: ss_divergence_kernel(fn.W, CU, phi_cu, resid), 5)
-    plain_ms = sync_ms(lambda: ss_divergence_ref(fn.W, CU, phi_cu, resid), 1)
-    # sqrt, per (candidate, probe, feature): add and max (float32), sqrt.approx
-    # (special function), the weighted accumulate (FFMA); per (candidate,
-    # probe) the two subtractions and the min.
-    elems = N * m * F
-    b_ms, b_by, b_pipe = bound(N * F * 4 + m * F * 4 + 2 * m * 4 + N * 4,
-                               fp32=2 * elems + 3 * N * m, ffma=elems, sfu=elems)
-    print(f"ss_divergence, round 1 ({N} candidates x {m} probes x {F} features): "
-          f"{ms:.4f} ms per launch, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}: {b_pipe}), library none; "
-          f"{counts['summarize']['ss_divergence']} launches in summarize")
+    _, t = kernel_ms(lambda: ss_divergence_kernel(fn.W, CU, phi_cu, resid), 3)
+    plain_ms = kernel_ms(lambda: ss_divergence_ref(fn.W, CU, phi_cu, resid),
+                         1)[1].ms
+    nnz = int(torch.count_nonzero(fn.W))
+    b_ms, b_by, b_pipe, d_ms = ss_bounds(N, F, m, nnz)
+    regs, st, ld, per_sm = ptxas_report("ss_divergence", "ss_divergence_sparseIfLi0ELb1E")
+    d_regs, d_st, d_ld, d_per_sm = ptxas_report("ss_divergence",
+                                                "ss_divergence_denseIfLi0E")
+    print(f"ss_divergence, round 1 ({N} candidates x {m} probes x {F} features, "
+          f"{nnz} nonzeros, {nnz / N:.2f} a row): {t.ms:.4f} ms per launch "
+          f"({fmt_windows(t)}), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}: {b_pipe}), share {b_ms / t.ms:.4f}; dense bound {d_ms:.4f} "
+          f"ms; library none; {counts['summarize']['ss_divergence']} launches in "
+          f"summarize; ptxas: sparse kernel {regs} registers, spill stores/loads "
+          f"{st}/{ld} bytes; dense kernel {d_regs} registers, spill stores/loads "
+          f"{d_st}/{d_ld} bytes, {d_per_sm} blocks an SM by registers", flush=True)
     records.append({
         "name": "ss_divergence", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ss_divergence.cu",
         "replaces": "src/repro/kernels/ss_weights.py:114",
         "launches": counts["summarize"]["ss_divergence"],
-        "max_abs_err": errs["ss_divergence"], "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": errs["ss_divergence"], "ms": t.ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "nnz": nnz, "share_of_bound": b_ms / t.ms, "dense_bound_ms": d_ms,
+        "host_ms_per_call": t.host_ms,
+        "ptxas": {"sparse": {"registers": regs, "spill_store_bytes": st,
+                             "spill_load_bytes": ld},
+                  "dense": {"registers": d_regs, "spill_store_bytes": d_st,
+                            "spill_load_bytes": d_ld}},
     })
 
-    ms_full = sync_ms(lambda: feature_gains_kernel(fn.W, state_half, phi_c), 20)
-    plain_full = sync_ms(lambda: feature_gains_ref(fn.W, state_half, phi_c), 3)
-    elems = N * F
-    bf_ms, bf_by, bf_pipe = bound(N * F * 4 + F * 4 + 4 + N * 4,
-                                  fp32=2 * elems + N, ffma=elems, sfu=elems)
-    print(f"feature_gains, full width (greedy on V, {N} x {F}): {ms_full:.4f} ms "
-          f"per launch, plain {plain_full:.4f} ms, bound {bf_ms:.4f} ms "
-          f"({bf_by}: {bf_pipe}); {counts['greedy_on_V']['feature_gains']} launches")
-    ms = sync_ms(lambda: feature_gains_kernel(
+    _, t_full = kernel_ms(lambda: feature_gains_kernel(fn.W, state_half, phi_c), 10)
+    plain_full = kernel_ms(lambda: feature_gains_ref(fn.W, state_half, phi_c),
+                           3)[1].ms
+    bf_ms, bf_by, bf_pipe, bfd_ms = gains_bounds(N, F, nnz, N * F * 4)
+    print(f"feature_gains, full width (greedy on V, {N} x {F}, {nnz} nonzeros): "
+          f"{t_full.ms:.4f} ms per launch ({fmt_windows(t_full)}), plain "
+          f"{plain_full:.4f} ms, bound {bf_ms:.4f} ms ({bf_by}: {bf_pipe}), share "
+          f"{bf_ms / t_full.ms:.4f}; dense bound {bfd_ms:.4f} ms; "
+          f"{counts['greedy_on_V']['feature_gains']} launches", flush=True)
+    nnz_vp = int(torch.count_nonzero(fn.W[cand_vp]))
+    _, t = kernel_ms(lambda: feature_gains_kernel(
         fn.W, state_red, phi_red, cand_idx=cand_vp), 200)
-    plain_ms = sync_ms(lambda: feature_gains_ref(
-        fn.W, state_red, phi_red, cand_idx=cand_vp), 20)
-    elems = size * F
-    b_ms, b_by, b_pipe = bound(size * (F * 4 + 8 + 4) + F * 4 + 4,
-                               fp32=2 * elems + size, ffma=elems, sfu=elems)
-    print(f"feature_gains in summarize (greedy on V': {size} slots x {F}): "
-          f"{ms:.4f} ms per launch, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-          f"({b_by}: {b_pipe}), library none; "
-          f"{counts['summarize']['feature_gains']} launches")
+    plain_ms = kernel_ms(lambda: feature_gains_ref(
+        fn.W, state_red, phi_red, cand_idx=cand_vp), 20)[1].ms
+    b_ms, b_by, b_pipe, bd_ms = gains_bounds(size, F, nnz_vp, size * (F * 4 + 8))
+    print(f"feature_gains in summarize (greedy on V': {size} slots x {F}, "
+          f"{nnz_vp} nonzeros): {t.ms:.4f} ms per launch ({fmt_windows(t)}), "
+          f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {b_pipe}), "
+          f"share {b_ms / t.ms:.4f}; dense bound {bd_ms:.4f} ms; library none; "
+          f"{counts['summarize']['feature_gains']} launches", flush=True)
     records.append({
         "name": "feature_gains", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/feature_gains.cu",
         "replaces": "src/repro/kernels/feature_gains.py:61",
         "launches": counts["summarize"]["feature_gains"],
-        "max_abs_err": errs["feature_gains"], "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": errs["feature_gains"], "ms": t.ms, "plain_ms": plain_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "full_width": {"ms": ms_full, "plain_ms": plain_full, "bound_ms": bf_ms,
-                       "bound_by": bf_by,
+        "nnz": nnz_vp, "share_of_bound": b_ms / t.ms, "dense_bound_ms": bd_ms,
+        "host_ms_per_call": t.host_ms,
+        "full_width": {"ms": t_full.ms, "plain_ms": plain_full, "bound_ms": bf_ms,
+                       "bound_by": bf_by, "nnz": nnz, "dense_bound_ms": bfd_ms,
                        "launches": counts["greedy_on_V"]["feature_gains"]},
     })
+    # last, so that its minute of special functions heats no other timing
+    records[0]["dense_w"] = ss_dense_w(m)
 
     # where the time goes: the same run again, warm, split by stage and
     # then under the profiler for device time by kernel.
@@ -465,7 +727,8 @@ def fc_path(errs: dict) -> list[dict]:
     check(torch.equal(res2.selected, res.selected), "a rerun of the path differs")
     print(f"warm rerun: SS wall {wall_ss:.4f} s, greedy on V' wall {wall_gr:.4f} s "
           "(host clock, synchronised)")
-    profile_summarize("FeatureCoverage", fn, ("feature_gains",))
+    profile_summarize("FeatureCoverage", fn,
+                      ("ss_divergence", "ss_probe", "feature_gains"))
     return records
 
 
@@ -796,21 +1059,23 @@ def fl_dense_path(errs: dict) -> list[dict]:
     residual = fn.residual_gains()
     m, MU, resid = _round1(fn, residual)
     tile = fl_tile_report("fl_divergence", m)
-    div_k, ms = timed(lambda: fl_divergence_kernel(fn.sim, MU, resid), 3)
-    div_p, plain_ms = timed(lambda: fl_divergence_ref(fn.sim, MU, resid))
+    div_k, (ms, *_) = kernel_ms(lambda: fl_divergence_kernel(fn.sim, MU, resid), 3)
+    div_p, (plain_ms, *_) = kernel_ms(lambda: fl_divergence_ref(fn.sim, MU, resid),
+                                      1)
     errs["fl_divergence"] = max(errs["fl_divergence"], _fl_close(
         div_k, div_p, resid, TOL[torch.float32], "path A round 1 divergence"))
     mid = bucket_schedule(N_A, C)[1]
     cand_mid = torch.sort(torch.randperm(N_A, device="cuda")[:mid]).values
-    div_mid, ms_mid = timed(lambda: fl_divergence_kernel(fn.sim, MU, resid,
-                                                         cand_mid), 3)
+    div_mid, (ms_mid, *_) = kernel_ms(lambda: fl_divergence_kernel(
+        fn.sim, MU, resid, cand_mid), 3)
     errs["fl_divergence"] = max(errs["fl_divergence"], _fl_close(
         div_mid, div_p[cand_mid], resid, TOL[torch.float32],
         "path A round-2-sized divergence"))
     state_half = fn.add_many(fn.empty_state(), _mask(N_A, full.selected[: K // 2]))
     zero = torch.zeros(1, device="cuda")
-    g_k, ms_full = timed(lambda: fl_gains_kernel(fn.sim, state_half), 20)
-    g_p, plain_full = timed(lambda: fl_divergence_ref(fn.sim, state_half[None], zero))
+    g_k, (ms_full, *_) = kernel_ms(lambda: fl_gains_kernel(fn.sim, state_half), 20)
+    g_p, (plain_full, *_) = kernel_ms(lambda: fl_divergence_ref(
+        fn.sim, state_half[None], zero), 1)
     errs["fl_gains"] = max(errs["fl_gains"], _fl_close(
         g_k, g_p, None, TOL[torch.float32], "path A full-width gains"))
     size = selection_bucket(N_A, int(ss.vprime.sum()))
@@ -819,13 +1084,16 @@ def fl_dense_path(errs: dict) -> list[dict]:
     check(takes_panel(size, N_A), f"path A: V' ({size} slots) takes no panel")
     st = res.state.float().contiguous()
     panel = fl_gains_panel(fn.sim, cand_vp)
-    gather_ms = sync_ms(lambda: fl_gains_panel(fn.sim, cand_vp), 5)
+    gather_ms = kernel_ms(lambda: fl_gains_panel(fn.sim, cand_vp), 5)[1].ms
     panel_bytes = panel.cols.numel() * panel.cols.element_size()
-    g_k, ms_vp = timed(lambda: fl_gains_kernel(panel.cols, st), 200)
-    g_g, ms_gathered = timed(lambda: fl_gains_kernel(fn.sim, st, cand_vp), 50)
+    g_k, t_vp = kernel_ms(lambda: fl_gains_kernel(panel.cols, st), 200)
+    ms_vp = t_vp.ms
+    g_g, (ms_gathered, *_) = kernel_ms(lambda: fl_gains_kernel(fn.sim, st, cand_vp),
+                                       50)
     check(torch.equal(g_k, g_g),
           "path A V' gains: the panel route is not bitwise the gathered route")
-    g_p, plain_vp = timed(lambda: fl_divergence_ref(fn.sim, st[None], zero, cand_vp))
+    g_p, (plain_vp, *_) = kernel_ms(lambda: fl_divergence_ref(
+        fn.sim, st[None], zero, cand_vp), 1)
     errs["fl_gains"] = max(errs["fl_gains"], _fl_close(
         g_k, g_p, None, TOL[torch.float32], "path A V' gains"))
     del panel
@@ -849,7 +1117,8 @@ def fl_dense_path(errs: dict) -> list[dict]:
     print(f"fl_gains, full width (greedy on V, {N_A} x {N_A}): {ms_full:.4f} ms "
           f"per launch, plain {plain_full:.4f} ms, bound {bf_ms:.4f} ms ({bf_by}); "
           f"{counts['greedy_on_V']['fl_gains']} launches; over V' ({size} "
-          f"columns, from the panel): {ms_vp:.4f} ms, gathered in place "
+          f"columns, from the panel): {ms_vp:.4f} ms ({fmt_windows(t_vp)}), "
+          f"gathered in place "
           f"{ms_gathered:.4f} ms, plain {plain_vp:.4f} ms, bound {bv_ms:.4f} ms "
           f"({bv_by}); {counts['summarize']['fl_gains']} launches in summarize; "
           f"the panel ({panel_bytes} bytes) gathered in {gather_ms:.4f} ms, "
@@ -916,12 +1185,15 @@ def fl_stream_path(errs: dict) -> list[dict]:
     m, MU, resid = _round1(fn, residual)
     tile = fl_tile_report("fl_stream_divergence", m)
     X = fn.X
-    div_k, ms = timed(lambda: fl_stream_divergence_kernel(X, MU, resid), 1)
+    div_k, (ms, *_) = kernel_ms(lambda: fl_stream_divergence_kernel(X, MU, resid),
+                                1)
     check(div_k.shape == (N_B,) and bool(torch.isfinite(div_k).all()),
           "path B round 1 divergence: bad output")
     cand = torch.sort(torch.randperm(N_B, device="cuda")[:2048]).values
-    d_k, ms_2048 = timed(lambda: fl_stream_divergence_kernel(X, MU, resid, cand), 3)
-    d_p, plain_ms = timed(lambda: fl_stream_divergence_ref(X, MU, resid, cand))
+    d_k, (ms_2048, *_) = kernel_ms(lambda: fl_stream_divergence_kernel(
+        X, MU, resid, cand), 3)
+    d_p, (plain_ms, *_) = kernel_ms(lambda: fl_stream_divergence_ref(
+        X, MU, resid, cand), 1)
     errs["fl_stream_divergence"] = max(errs["fl_stream_divergence"], _fl_close(
         d_k, d_p, resid, TOL[torch.float32], "path B 2048-candidate divergence"))
     errs["fl_stream_divergence"] = max(errs["fl_stream_divergence"], _fl_close(
@@ -929,18 +1201,19 @@ def fl_stream_path(errs: dict) -> list[dict]:
         "path B round 1 divergence at 2048 candidates"))
     state_half = fn.add_many(fn.empty_state(), _mask(N_B, full.selected[: K // 2]))
     zero = torch.zeros(1, device="cuda")
-    g_k, ms_full = timed(lambda: fl_stream_gains_kernel(X, state_half), 3)
-    g_p, plain_g = timed(lambda: fl_stream_divergence_ref(X, state_half[None], zero,
-                                                          cand))
+    g_k, (ms_full, *_) = kernel_ms(lambda: fl_stream_gains_kernel(X, state_half), 3)
+    g_p, (plain_g, *_) = kernel_ms(lambda: fl_stream_divergence_ref(
+        X, state_half[None], zero, cand), 1)
     errs["fl_stream_gains"] = max(errs["fl_stream_gains"], _fl_close(
         g_k[cand], g_p, None, TOL[torch.float32], "path B full-width gains"))
     size = selection_bucket(N_B, int(ss.vprime.sum()))
     check(size is not None, "path B: V' does not fit a compact bucket")
     cand_vp = compact_indices(ss.vprime, size)
     st = res.state.float().contiguous()
-    g_k, ms_vp = timed(lambda: fl_stream_gains_kernel(X, st, cand_vp), 20)
-    g_p, plain_vp = timed(lambda: fl_stream_divergence_ref(X, st[None], zero,
-                                                           cand_vp))
+    g_k, t_vp = kernel_ms(lambda: fl_stream_gains_kernel(X, st, cand_vp), 20)
+    ms_vp = t_vp.ms
+    g_p, (plain_vp, *_) = kernel_ms(lambda: fl_stream_divergence_ref(
+        X, st[None], zero, cand_vp), 1)
     errs["fl_stream_gains"] = max(errs["fl_stream_gains"], _fl_close(
         g_k, g_p, None, TOL[torch.float32], "path B V' gains"))
     print("path B main-path shapes: kernels match their plain versions (round "
@@ -973,7 +1246,8 @@ def fl_stream_path(errs: dict) -> list[dict]:
     print(f"fl_stream_gains, full width (greedy on V): {ms_full:.4f} ms per "
           f"launch, bound {bf_ms:.4f} ms ({bf_by}: {bf_pipe}), plain at 2048 "
           f"candidates {plain_g:.4f} ms; {counts['greedy_on_V']['fl_stream_gains']}"
-          f" launches; over V' ({size} slots): {ms_vp:.4f} ms, plain "
+          f" launches; over V' ({size} slots): {ms_vp:.4f} ms "
+          f"({fmt_windows(t_vp)}), plain "
           f"{plain_vp:.4f} ms, bound {bv_ms:.4f} ms ({bv_by}: {bv_pipe}); "
           f"{counts['summarize']['fl_stream_gains']} launches in summarize; "
           "library none", flush=True)
@@ -1320,18 +1594,18 @@ def lm_path(errs: dict) -> dict:
 
     # both kernels in turns (tc, ffma, ffma, tc), then plain and the library
     def in_turns(args, n_tc, n_ffma):
-        t1 = sync_ms(lambda: flash_attention_kernel(*args), n_tc)
-        f1 = sync_ms(lambda: ffma(*args), n_ffma)
-        f2 = sync_ms(lambda: ffma(*args), n_ffma)
-        t2 = sync_ms(lambda: flash_attention_kernel(*args), n_tc)
+        t1 = kernel_ms(lambda: flash_attention_kernel(*args), n_tc)[1].ms
+        f1 = kernel_ms(lambda: ffma(*args), n_ffma)[1].ms
+        f2 = kernel_ms(lambda: ffma(*args), n_ffma)[1].ms
+        t2 = kernel_ms(lambda: flash_attention_kernel(*args), n_tc)[1].ms
         return (t1 + t2) / 2, (f1 + f2) / 2, (t1, f1, f2, t2)
 
     ms, ffma_ms, turns = in_turns((q, k, v), 20, 5)
-    plain_ms = sync_ms(lambda: attention_ref(q, k, v, True, 0), 3)
+    plain_ms = kernel_ms(lambda: attention_ref(q, k, v, True, 0), 3)[1].ms
     qx, kx, vx = (t_.transpose(1, 2).contiguous() for t_ in (
         q, k.repeat_interleave(G, dim=2), v.repeat_interleave(G, dim=2)))
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = sync_ms(lambda: sdpa(qx, kx, vx, is_causal=True), 20)
+    lib_ms = kernel_ms(lambda: sdpa(qx, kx, vx, is_causal=True), 20)[1].ms
 
     def flash_bounds(b, s):
         # One exponential a causal (q, k) pair.  The tensor-core design: QKᵀ
@@ -1375,7 +1649,7 @@ def lm_path(errs: dict) -> dict:
     qx, kx, vx = (t_.transpose(1, 2).contiguous() for t_ in (
         q1, k1.repeat_interleave(G, dim=2), v1.repeat_interleave(G, dim=2)))
     lib_out = sdpa(qx, kx, vx, is_causal=True)
-    lib_long = sync_ms(lambda: sdpa(qx, kx, vx, is_causal=True), 5)
+    lib_long = kernel_ms(lambda: sdpa(qx, kx, vx, is_causal=True), 5)[1].ms
     # the library rounds P to bfloat16 before P·V, so it is held only to the
     # repository's bfloat16 tolerance; the kernel is held to the plain version
     err_long = float((out_long.float() - lib_out.transpose(1, 2).float()).abs().max())
@@ -1445,6 +1719,8 @@ def main() -> int:
     # 3. kernel vs plain, and the small pipeline
     errs = {"ss_divergence": 0.0, "feature_gains": 0.0}
     sweep(errs)
+    sparse_sweep(errs)
+    route_check()
     small_pipeline()
 
     # 4-7. the FeatureCoverage main path at full size

@@ -100,6 +100,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, ll,           # cand_idx (or NULL), number of outputs
         p, p, p, i,      # CU, phi_cu, resid, r
         p, p, i,         # cap (or NULL), feat_w (or NULL), phi kind
+        p,               # scratch: ss_scratch_floats(r, F, n_out) floats
         p, p,            # out, stream
     ]
     lib.ss_divergence_launch.restype = i
@@ -241,6 +242,22 @@ def row_splits(n_out: int, ni: int) -> int:
     if blocks >= 256:
         return 1
     return max(1, min(-(-512 // blocks), ni // 512))
+
+
+# The FeatureCoverage SS divergence kernel (csrc/ss_divergence.cu): its
+# scratch.  Must match kBlockCands and kProbePass there.
+SS_BLOCK_CANDS = 128
+SS_PROBE_PASS = 32
+
+
+def ss_scratch_floats(r: int, F: int, n_out: int) -> int:
+    """Floats of scratch the SS divergence kernel takes for n_out outputs:
+    the probe table CT (F x RP pairs), the per-probe offsets Q (RP), with RP
+    = r rounded up to SS_PROBE_PASS, and a dense flag per block of
+    SS_BLOCK_CANDS outputs (int32, last; written only when F is at most
+    the sparse loop's widest, 8192)."""
+    rp = -(-r // SS_PROBE_PASS) * SS_PROBE_PASS
+    return 2 * F * rp + rp + -(-n_out // SS_BLOCK_CANDS)
 
 
 # The many-probe tile of the facility-location kernels: threads along

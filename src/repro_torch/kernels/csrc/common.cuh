@@ -27,11 +27,13 @@ constexpr float kInf = 1e30f;
 template <int KIND>
 __device__ __forceinline__ float phi(float c, float cap) {
   if constexpr (KIND == PHI_SQRT) {
-    // One special-function instruction (max error about 1 ulp).  The IEEE
-    // sqrtf takes a fix-up branch at 0, and on TF-IDF rows most arguments
-    // are exactly 0 (measured in PERF.md).
+    // One special-function instruction, MUFU.SQRT (max error about 1 ulp).
+    // The IEEE sqrtf takes a fix-up branch at 0, where most arguments of a
+    // TF-IDF row lie; .ftz takes a subnormal argument (below 1.2e-38) as 0,
+    // which drops the compare and two multiplies that scale one around the
+    // MUFU (measured in PERF.md).
     float r;
-    asm("sqrt.approx.f32 %0, %1;" : "=f"(r) : "f"(fmaxf(c, 0.f)));
+    asm("sqrt.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(fmaxf(c, 0.f)));
     return r;
   } else if constexpr (KIND == PHI_LOG1P) {
     return log1pf(fmaxf(c, 0.f));
@@ -42,6 +44,18 @@ __device__ __forceinline__ float phi(float c, float cap) {
   } else {
     return c;
   }
+}
+
+// One term of the coverage difference form, acc + fw (phi(c + w) - phi(c)),
+// with phic = phi<KIND>(c, cap) from the same instruction: the term is
+// exactly 0 at w = 0, so a sum over a row's nonzeros in feature order is
+// bitwise the sum over all its features.  Each step rounds on its own
+// (no contraction), so every kernel that sums these terms in the same order
+// gets the same bits.
+template <int KIND>
+__device__ __forceinline__ float coverage_step(float acc, float fw, float c,
+                                               float phic, float w, float cap) {
+  return __fmaf_rn(fw, __fsub_rn(phi<KIND>(__fadd_rn(c, w), cap), phic), acc);
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

@@ -4,9 +4,10 @@
 
 for every candidate v, once per greedy step.  On a CUDA tensor the wrapper
 launches the hand-written kernel in ``csrc/feature_gains.cu`` (counterpart of
-the Pallas ``repro/kernels/feature_gains.py:feature_gains_kernel``); on a CPU
-tensor it runs the plain version, :func:`feature_gains_ref`.  Nothing else: a
-failed build or launch raises.
+the Pallas ``repro/kernels/feature_gains.py:feature_gains_kernel``), which
+sums phi(c + W) - phi(c) over a row's nonzeros only and adds
+sum_f w_f phi(c) - phi_c once; on a CPU tensor it runs the plain version,
+:func:`feature_gains_ref`.  Nothing else: a failed build or launch raises.
 """
 
 from __future__ import annotations

@@ -3,10 +3,15 @@
     w_v = min_{u in U} [ sum_f w_f phi(CU[u, f] + W[v, f]) - phi_cu[u] - resid[u] ]
 
 for every candidate v in one pass.  On a CUDA tensor the wrapper launches the
-hand-written kernel in ``csrc/ss_divergence.cu`` (counterpart of the Pallas
-``repro/kernels/ss_weights.py:ss_divergence_kernel``); on a CPU tensor it runs
-the plain version, :func:`ss_divergence_ref`.  Nothing else: a failed build
-or launch raises.
+hand-written kernels in ``csrc/ss_divergence.cu`` (counterpart of the Pallas
+``repro/kernels/ss_weights.py:ss_divergence_kernel``), which sum only the
+terms W's nonzeros make nonzero, phi(CU + W) - phi(CU), and add the probe's
+offset sum_f w_f phi(CU[u]) - phi_cu[u] - resid[u] once; a block whose rows
+are dense (a rule of the kernel's own, stated in its note) runs a dense loop
+with the same bits.  The wrapper allocates their scratch
+(``_build.ss_scratch_floats``), where each block also flags its loop.  On a
+CPU tensor it runs the plain version, :func:`ss_divergence_ref`.  Nothing
+else: a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -60,18 +65,31 @@ def ss_divergence_kernel(
     out = torch.empty((n_out,), dtype=torch.float32, device=W.device)
     if n_out == 0:
         return out
+    scratch = torch.empty((_build.ss_scratch_floats(r, F, n_out),),
+                          dtype=torch.float32, device=W.device)
+    _launch(W, CU, phi_cu, resid, cap, feat_w, cand_idx, phi, scratch, out)
+    return out
+
+
+def _launch(W: Tensor, CU: Tensor, phi_cu: Tensor, resid: Tensor,
+            cap: Tensor | None, feat_w: Tensor | None, cand_idx: Tensor | None,
+            phi: str, scratch: Tensor, out: Tensor) -> None:
+    """The kernels on checked CUDA tensors, into ``out`` (n_out >= 1), with
+    ``scratch`` of ``_build.ss_scratch_floats`` floats; each block's loop
+    is left in its flag there (int32, the scratch's last
+    ceil(n_out / SS_BLOCK_CANDS) floats: 1 = dense)."""
+    n, F = W.shape
     lib = _build.load_library()
     with torch.cuda.device(W.device):
         rc = lib.ss_divergence_launch(
             W.data_ptr(), int(W.dtype == torch.bfloat16), n, F,
-            _build.ptr(cand_idx), n_out, CU.data_ptr(), phi_cu.data_ptr(),
-            resid.data_ptr(), r, _build.ptr(cap), _build.ptr(feat_w),
-            _build.PHI_CODES[phi], out.data_ptr(),
+            _build.ptr(cand_idx), out.shape[0], CU.data_ptr(), phi_cu.data_ptr(),
+            resid.data_ptr(), CU.shape[0], _build.ptr(cap), _build.ptr(feat_w),
+            _build.PHI_CODES[phi], scratch.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.raise_on_error("ss_divergence", rc)
     ss_divergence_kernel.launches += 1
-    return out
 
 
 ss_divergence_kernel.launches = 0
