@@ -25,10 +25,18 @@ turns, and both are held to the plain version, with their flip rates
 
 For each it checks the result, its kernel launches and its agreement with
 the plain path, times each kernel at the path's shapes beside its bound and
-its plain version, and profiles the path.  The FeatureCoverage kernels sum
-only the terms W's nonzeros make nonzero, so they are also swept over sparse
-W and their bounds count what these inputs need (W read once as stored, the
-work of its nonzeros), printed beside the dense bounds; the divergence is
+its plain version, and profiles the path.  On each SS path's objective at
+full size it also runs stochastic greedy over V' and over V (k = 32, s from
+the live count: the gains kernel once a step), and on FeatureCoverage lazy
+greedy over V and V' (every evaluation through the kernel, f(S) equal to
+greedy's); the §3.4 post-reduction runs after SS on a 2^16-sentence news
+day.  At n = 4096 the three objectives hold stochastic and lazy greedy to
+the plain backend and ``postreduce`` on the card to the host under the same
+draws, and ``examples/quickstart_torch.py`` runs on the card.  The
+FeatureCoverage kernels sum only the terms W's nonzeros make nonzero, so
+they are also swept over sparse W and their bounds count what these inputs
+need (W read once as stored, the work of its nonzeros), printed beside the
+dense bounds; the divergence is
 also timed on a dense random W of round 1's shape.  Every time follows one
 rule, ``kernel_ms``: the median of 5 windows of back-to-back calls between
 CUDA events, each window queued behind a sleep on the card where Python's
@@ -426,21 +434,329 @@ def _cuda_vs_reference(fn, k: int, seed: int, what: str = "small"):
     return res_k, ss_k
 
 
+# -- the paper's other selectors and the §3.4 post-reduction ------------------
+
+
+def _small_objectives(n: int) -> dict:
+    """The three objectives at a small n, each built on a given device from
+    the same numpy data."""
+    from repro_torch import (
+        StreamingFacilityLocation, clustered_embeddings,
+        facility_location_from_features, feature_coverage_from_numpy, news_day,
+        video,
+    )
+
+    W, X, E = news_day(0, n, 512), video(0, n, 256), clustered_embeddings(0, n, 16)
+    return {
+        "FeatureCoverage": lambda dev: feature_coverage_from_numpy(W, device=dev),
+        "dense FL": lambda dev: facility_location_from_features(X, "cosine",
+                                                                device=dev),
+        "matrix-free FL": lambda dev: StreamingFacilityLocation.from_features(
+            torch.from_numpy(E).to(dev), "dot"),
+    }
+
+
+def _shared_cover_eps(fn, fn_cpu, members, pruned, eps0: float) -> tuple[float, float]:
+    """An eps at or above ``eps0`` at which the card's and the host's float32
+    edge weights of ``members`` (the arithmetic of ``postreduce``'s edge
+    pass on each device) cover the same pruned elements: the midpoint of the
+    first gap between consecutive card weights where both devices' covers
+    agree.  Sums in another order differ in their last bits, which can move
+    an edge lying within a rounding of eps across it; at such an eps both
+    devices must then keep the same members.  Also returns the largest
+    |card - host| edge weight, held to TOL of the weights' size."""
+    from repro_torch.core.sparsify import member_edges
+
+    valid = torch.ones_like(members, dtype=torch.bool)
+    W_k = torch.cat([w for _, w in member_edges(fn, members, valid)])[:, pruned]
+    W_p = torch.cat([w for _, w in member_edges(fn_cpu, members.cpu(),
+                                                valid.cpu())])[:, pruned.cpu()]
+    err = float((W_k.cpu() - W_p).abs().max())
+    scale = max(1.0, float(W_p.abs().max()))
+    check(err <= TOL[torch.float32] * scale,
+          f"postreduce edge weights: card vs host err {err} > TOL x {scale}")
+    vals = torch.unique(W_k.flatten())                      # ascending
+    vals = vals[vals >= eps0]
+    for lo, hi in zip(vals[:-1].tolist(), vals[1:].tolist()):
+        eps = 0.5 * (lo + hi)
+        if torch.equal((W_k <= eps).cpu(), W_p <= eps):
+            return eps, err
+    fail("postreduce: no eps above eps_hat where card and host covers agree")
+
+
+def host_syncs(call) -> int:
+    """How many synchronising CUDA operations (a value read back to the
+    host, a stream synchronise) one call makes: torch.cuda's sync debug mode
+    warns at each.  The mode is switched on outside the count: its first
+    switch in a process warns once itself."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def selectors_small() -> None:
+    """Stochastic greedy, lazy greedy and postreduce at n = 4096 on the three
+    objectives.  Stochastic greedy over V and over V' (after an SS run)
+    through the kernels and through the plain backend under the same
+    injected noise: the same picks, gains within TOL; greedy and stochastic
+    greedy over V and V' through the kernels make as many host syncs in k
+    steps as in one (no step waits on the host); lazy greedy the same picks,
+    gains within TOL; postreduce on the card and on the host under the same
+    uniforms (at an eps where both devices' edge weights cover alike): the
+    same mask."""
+    from repro_torch import (
+        SSResult, greedy, lazy_greedy, postreduce, ss_sparsify, stochastic_greedy,
+    )
+    from repro_torch.core import selection_bucket
+    from repro_torch.core.greedy import gumbel
+
+    n, k = 4096, 10
+    for label, make in _small_objectives(n).items():
+        fn = make("cuda")
+        g = torch.Generator(device="cuda").manual_seed(2)
+        ss = ss_sparsify(fn, g, r=R, c=C)
+        nv = int(ss.vprime.sum())
+        syncs = []
+        for where, alive in (("V", None), ("V'", ss.vprime)):
+            m = n if alive is None else selection_bucket(n, nv)
+            noise = torch.stack([gumbel(m, g, "cuda") for _ in range(k)])
+            a = stochastic_greedy(fn, k, alive=alive, noise=noise)
+            b = stochastic_greedy(fn, k, alive=alive, noise=noise,
+                                  backend="reference")
+            check(torch.equal(a.selected, b.selected),
+                  f"small {label} stochastic greedy on {where}: picks differ")
+            err = float((a.gains - b.gains).abs().max())
+            check(err <= TOL[torch.float32] * max(1.0, float(b.gains.abs().max())),
+                  f"small {label} stochastic greedy on {where}: gains err {err}")
+            check(alive is None or bool(alive[a.selected].all()),
+                  f"small {label} stochastic greedy left V'")
+            for name, select in (("greedy", greedy),
+                                 ("stochastic greedy", stochastic_greedy)):
+                def run(kk, select=select, alive=alive):
+                    extra = ((torch.Generator(device="cuda").manual_seed(4),)
+                             if select is stochastic_greedy else ())
+                    return select(fn, kk, *extra, alive=alive)
+
+                one, many = host_syncs(lambda: run(1)), host_syncs(lambda: run(k))
+                check(many == one, f"small {label} {name} on {where}: {many} host "
+                      f"syncs in {k} steps, {one} in 1 (a step waits on the host)")
+                syncs.append(f"{name} on {where} {one}")
+        lz_k, lz_p = lazy_greedy(fn, k), lazy_greedy(fn, k, backend="reference")
+        check(torch.equal(lz_k.selected, lz_p.selected),
+              f"small {label} lazy greedy: picks differ")
+        lz_err = float((lz_k.gains - lz_p.gains).abs().max())
+        check(lz_err <= TOL[torch.float32] * max(1.0, float(lz_p.gains.abs().max())),
+              f"small {label} lazy greedy: gains err {lz_err}")
+
+        # postreduce over V''s |V'| slots on the card and on the host
+        fn_cpu = make("cpu")
+        members = torch.nonzero(ss.vprime).flatten()
+        eps, err = _shared_cover_eps(fn, fn_cpu, members, ~ss.vprime,
+                                     float(ss.eps_hat))
+        u = torch.rand((nv,), generator=g, device="cuda")
+        vpp = postreduce(fn, ss, eps, max_members="exact", noise=u)
+        ss_cpu = SSResult(ss.vprime.cpu(), None, None, ss.rounds, None)
+        vpp_cpu = postreduce(fn_cpu, ss_cpu, eps, max_members="exact", noise=u.cpu())
+        check(torch.equal(vpp.cpu(), vpp_cpu),
+              f"small {label} postreduce: card and host masks differ")
+        check(bool((~vpp | ss.vprime).all()) and int(vpp.sum()) > 0,
+              f"small {label} postreduce: V'' is empty or leaves V'")
+        print(f"small {label} selectors (n={n}, k={k}): stochastic greedy on V "
+              f"and V' cuda == reference; host syncs a run, the same at k = 1 "
+              f"and k = {k}: {', '.join(syncs)}; lazy greedy cuda == reference, "
+              f"gains err {lz_err:.3g} "
+              f"({lz_k.reevaluations} re-evaluations); postreduce card == host, "
+              f"|V'| = {nv} -> |V''| = {int(vpp.sum())} at eps {eps:.6f} "
+              f"(eps_hat {float(ss.eps_hat):.6f}; edge weights card vs host err "
+              f"{err:.3g})", flush=True)
+        del fn, fn_cpu
+        torch.cuda.empty_cache()
+
+
+def quickstart_phase() -> None:
+    """``examples/quickstart_torch.py`` on the card, asserts included."""
+    import runpy
+
+    path = Path(__file__).resolve().parent / "examples" / "quickstart_torch.py"
+    argv = sys.argv
+    sys.argv = [str(path)]
+    t = time.perf_counter()
+    try:
+        runpy.run_path(str(path), run_name="__main__")
+    finally:
+        sys.argv = argv
+    print(f"examples/quickstart_torch.py on the card passed its asserts in "
+          f"{time.perf_counter() - t:.2f} s", flush=True)
+
+
+def _synced(call):
+    """(result, seconds) of one call on the host clock, synchronised."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def stochastic_phase(label: str, fn, ss, full, wall_full: float, kernel,
+                     panel: bool = False) -> dict:
+    """Stochastic greedy at k = K, s = None, over V' (after the path's SS)
+    and over V, while the path's objective is on the card: each run with
+    the gains kernel's count (and the V' panel gathers) set to 0 just before
+    and read just after.  Checks K launches a run, picks in V', one panel
+    gather over V' where the path takes panels, and as many host syncs in K
+    steps as in one; prints s, the synchronised
+    wall beside greedy on V's, the device busy time of a profiled rerun and
+    f(S) relative to greedy on V."""
+    from repro_torch import stochastic_greedy
+    from repro_torch.core import auto_sample_size
+    from repro_torch.kernels import fl_gains_panel
+
+    out = {}
+    f_full = float(full.value)
+    for where, alive in (("V'", ss.vprime), ("V", None)):
+        live = fn.n if alive is None else int(alive.sum())
+        s = auto_sample_size(fn.n, K, 0.1, live)
+
+        def call(k=K):
+            return stochastic_greedy(
+                fn, k, torch.Generator(device="cuda").manual_seed(3), alive=alive)
+
+        kernel.launches = 0
+        fl_gains_panel.gathers = 0
+        res, wall = _synced(call)
+        launches, gathers = kernel.launches, fl_gains_panel.gathers
+        what = f"{label} stochastic greedy on {where}"
+        check(res.selected.shape == (K,) and bool(torch.isfinite(res.gains).all()),
+              f"{what}: wrong shape or non-finite gains")
+        check(int(res.selected.unique().numel()) == K, f"{what}: picked twice")
+        check(alive is None or bool(alive[res.selected].all()), f"{what}: left V'")
+        check(launches == K, f"{what}: {launches} launches of the gains kernel, "
+              f"not one a step ({K})")
+        want = int(panel and alive is not None)
+        check(gathers == want, f"{what}: {gathers} panel gathers, not {want}")
+        syncs, syncs_1 = host_syncs(call), host_syncs(lambda: call(1))
+        check(syncs == syncs_1, f"{what}: {syncs} host syncs in {K} steps, "
+              f"{syncs_1} in 1 (a step waits on the host)")
+        rel = float(res.value) / f_full
+        prof = profile_run(what, call, watch=("Memcpy DtoH",), top=4)
+        busy = prof.get("busy_ms")  # None: the profiler saw no device time
+        print(f"{what}: s = {s} of {live}, f(S) = {float(res.value):.6f}, relative "
+              f"to greedy on V {rel:.6f}; wall {wall:.4f} s (host clock, "
+              f"synchronised; greedy on V {wall_full:.4f} s); device busy "
+              + ("not measured" if busy is None else f"{busy:.4f} ms")
+              + f" (profiler, a rerun); {launches} gains launches, {gathers} "
+              f"panel gathers; {syncs} host syncs a run, as at k = 1", flush=True)
+        out[where] = {"s": s, "relative": rel, "wall_s": wall, "busy_ms": busy,
+                      "launches": launches, "panel_gathers": gathers,
+                      "host_syncs": syncs}
+    return out
+
+
+def lazy_phase(fn, ss, full, res) -> dict:
+    """Lazy greedy on FeatureCoverage at full size, on V and on V', with
+    feature_gains' count set to 0 just before and read just after: every
+    evaluation goes through the kernel (one full-width bound pass, then one
+    one-slot call per re-evaluation), and f(S) equals greedy's to 1e-5
+    relative (news_day has duplicate rows, so picks may differ where gains
+    tie: the differing positions are printed)."""
+    from repro_torch import lazy_greedy
+    from repro_torch.kernels import feature_gains_kernel
+
+    out = {}
+    for where, alive, ref in (("V", None, full), ("V'", ss.vprime, res)):
+        feature_gains_kernel.launches = 0
+        lz, wall = _synced(lambda: lazy_greedy(fn, K, alive=alive))
+        launches = feature_gains_kernel.launches
+        what = f"lazy greedy on {where}"
+        check(launches == 1 + lz.reevaluations,
+              f"{what}: {launches} feature_gains launches for "
+              f"{lz.reevaluations} re-evaluations (want one more)")
+        f_lz, f_ref = float(lz.value), float(ref.value)
+        check(abs(f_lz - f_ref) <= 1e-5 * f_ref,
+              f"{what}: f(S) {f_lz} vs greedy's {f_ref}")
+        diff = torch.nonzero(lz.selected != ref.selected).flatten().tolist()
+        print(f"{what}: f(S) = {f_lz:.6f} (greedy {f_ref:.6f}), "
+              f"{lz.reevaluations} re-evaluations, {launches} feature_gains "
+              f"launches, wall {wall:.4f} s (host clock, synchronised); picks "
+              f"differ from greedy's at positions {diff}"
+              + "".join(f" [{i}: {int(lz.selected[i])} gain {float(lz.gains[i]):.6f}"
+                        f" vs {int(ref.selected[i])} gain {float(ref.gains[i]):.6f}]"
+                        for i in diff), flush=True)
+        out[where] = {"reevaluations": lz.reevaluations, "launches": launches,
+                      "wall_s": wall, "differing_positions": diff}
+    return out
+
+
+def postreduce_path() -> dict:
+    """postreduce (§3.4 improvement 3) after SS at r = c = 8 on
+    news_day(0, 2^16, 1024), eps = eps_hat: V'' must be a nonempty subset
+    of V'; prints |V'|, |V''|, the wall, the peak device memory and f(greedy
+    on V'') relative to f(greedy on V').  Cut from 2^20: there its 2720
+    slots make the (slots, n) edge pass 2.9e12 terms of the plain torch
+    arithmetic (PERF.md section 4)."""
+    from repro_torch import (
+        feature_coverage_from_numpy, greedy, news_day, postreduce, ss_sparsify,
+    )
+    from repro_torch.core import ss_live_bound
+
+    n = 1 << 16
+    fn = feature_coverage_from_numpy(news_day(0, n, F))
+    ss = ss_sparsify(fn, torch.Generator(device="cuda").manual_seed(0), r=R, c=C)
+    nv = int(ss.vprime.sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    vpp, wall = _synced(lambda: postreduce(
+        fn, ss, float(ss.eps_hat), torch.Generator(device="cuda").manual_seed(1),
+        r=R, c=C))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    extra = (torch.cuda.max_memory_allocated() - base) / 2**30
+    n2 = int(vpp.sum())
+    check(bool((~vpp | ss.vprime).all()), "postreduce: V'' leaves V'")
+    check(n2 > 0, "postreduce: V'' is empty")
+    f_vp = float(greedy(fn, K, alive=ss.vprime).value)
+    f_vpp = float(greedy(fn, K, alive=vpp).value)
+    slots = min(n, ss_live_bound(n, R, C))
+    print(f"postreduce on news_day(0, {n}, {F}), eps = eps_hat = "
+          f"{float(ss.eps_hat):.6f}: {slots} slots, |V'| = {nv} -> |V''| = {n2}; "
+          f"wall {wall:.4f} s (host clock, synchronised); peak device memory "
+          f"{peak:.2f} GiB ({extra:.2f} GiB above the objective and V'); "
+          f"f(greedy on V'') / f(greedy on V') = {f_vpp / f_vp:.6f} at k = {K}",
+          flush=True)
+    return {"n": n, "slots": slots, "vprime": nv, "vpp": n2, "wall_s": wall,
+            "peak_gib": peak, "relative_to_vprime": f_vpp / f_vp}
+
+
 def profile_summarize(label: str, fn, watch: tuple[str, ...] = ()) -> dict:
-    """One summarize under the profiler: device busy time by kernel (device
+    """One summarize under the profiler (``profile_run``)."""
+    from repro_torch import summarize
+
+    return profile_run(f"{label} summarize", lambda: summarize(
+        fn, K, torch.Generator(device="cuda").manual_seed(0), r=R, c=C), watch)
+
+
+def profile_run(label: str, call, watch: tuple[str, ...] = (), top: int = 8) -> dict:
+    """One call under the profiler: device busy time by kernel (device
     events only: a PyTorch operator also reports its kernels' time as its
     own, and would count them twice) against the synchronised wall, and for
     each string of ``watch`` the total of the kernels whose names hold it,
     or for an operator ("aten::...") the device time of the kernels it
     launched."""
-    from repro_torch import summarize
-
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
     ]) as prof:
         t = time.perf_counter()
-        summarize(fn, K, torch.Generator(device="cuda").manual_seed(0), r=R, c=C)
+        call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     events = prof.key_averages()
@@ -451,12 +767,11 @@ def profile_summarize(label: str, fn, watch: tuple[str, ...] = ()) -> dict:
     )
     busy_ms = sum(us for us, _, _ in by_kernel) / 1e3
     if busy_ms <= 0:
-        print(f"profiled {label} summarize: the profiler saw no device time "
-              "(not measured)")
+        print(f"profiled {label}: the profiler saw no device time (not measured)")
         return {}
-    print(f"profiled {label} summarize: wall {wall_ms:.4f} ms, device busy "
+    print(f"profiled {label}: wall {wall_ms:.4f} ms, device busy "
           f"{busy_ms:.4f} ms, idle share {1 - busy_ms / wall_ms:.4f}")
-    for us, key, count in by_kernel[:8]:
+    for us, key, count in by_kernel[:top]:
         print(f"  {us / 1e3:10.4f} ms  x{count:<4d} {key[:90]}")
     for name in watch:
         if name.startswith("aten::"):
@@ -729,6 +1044,11 @@ def fc_path(errs: dict) -> list[dict]:
           "(host clock, synchronised)")
     profile_summarize("FeatureCoverage", fn,
                       ("ss_divergence", "ss_probe", "feature_gains"))
+
+    # the paper's other selectors at full size, on the same objective
+    records[1]["stochastic"] = stochastic_phase(
+        "FeatureCoverage", fn, ss, full, wall_full, feature_gains_kernel)
+    records[1]["lazy"] = lazy_phase(fn, ss, full, res)
     return records
 
 
@@ -974,7 +1294,7 @@ def _fl_drive(label: str, fn, kernels: dict) -> tuple:
     ref = greedy(fn, K, alive=ss.vprime, backend="reference")
     check(torch.equal(ref.selected, res.selected),
           f"{label}: greedy on V' through the plain backend picks another set")
-    return full, res, ss, counts, rel
+    return full, res, ss, counts, rel, wall_full
 
 
 def _round1(fn, residual):
@@ -1044,7 +1364,7 @@ def fl_dense_path(errs: dict) -> list[dict]:
           f"similarity ({N_A} x {N_A} float32) on the card in "
           f"{time.perf_counter() - t:.2f} s", flush=True)
     kernels = {"fl_divergence": fl_divergence_kernel, "fl_gains": fl_gains_kernel}
-    full, res, ss, counts, rel = _fl_drive("path A", fn, kernels)
+    full, res, ss, counts, rel, wall_full = _fl_drive("path A", fn, kernels)
     # greedy over V' copies V''s columns once (a panel) and reads it K times
     check(counts["summarize"]["panel_gathers"] == 1
           and counts["greedy_on_V"]["panel_gathers"] == 0,
@@ -1126,6 +1446,8 @@ def fl_dense_path(errs: dict) -> list[dict]:
           flush=True)
     profile_summarize("path A", fn, ("fl_gains_rows", "aten::index_select"))
     check(rel >= 0.95, f"path A: relative quality {rel} < 0.95")
+    stochastic = stochastic_phase("path A", fn, ss, full, wall_full,
+                                  fl_gains_kernel, panel=True)
     return [
         {"name": "fl_divergence", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fl_divergence.cu",
@@ -1145,7 +1467,7 @@ def fl_dense_path(errs: dict) -> list[dict]:
                         "launches": counts["greedy_on_V"]["fl_gains"]},
          "panel": {"ms": gather_ms, "bytes": panel_bytes,
                    "per_greedy_run": counts["summarize"]["panel_gathers"]},
-         "gathered_ms": ms_gathered},
+         "gathered_ms": ms_gathered, "stochastic": stochastic},
     ]
 
 
@@ -1175,7 +1497,7 @@ def fl_stream_path(errs: dict) -> list[dict]:
           f"{t_host:.2f} s", flush=True)
     kernels = {"fl_stream_divergence": fl_stream_divergence_kernel,
                "fl_stream_gains": fl_stream_gains_kernel}
-    full, res, ss, counts, rel = _fl_drive("path B", fn, kernels)
+    full, res, ss, counts, rel, wall_full = _fl_drive("path B", fn, kernels)
     check(counts["summarize"]["panel_gathers"] == 0, "path B gathered a panel")
 
     # main-path shapes against plain.  A full-width plain round 1 would take
@@ -1252,6 +1574,8 @@ def fl_stream_path(errs: dict) -> list[dict]:
           f"{counts['summarize']['fl_stream_gains']} launches in summarize; "
           "library none", flush=True)
     profile_summarize("path B", fn, ("fl_stream_gains",))
+    stochastic = stochastic_phase("path B", fn, ss, full, wall_full,
+                                  fl_stream_gains_kernel)
 
     # SS's quality at r = c = 8 falls as this data set grows, in the JAX
     # reference as in the port (they prune alike under the same draws,
@@ -1293,7 +1617,7 @@ def fl_stream_path(errs: dict) -> list[dict]:
          "full_width": {"ms": ms_full, "bound_ms": bf_ms, "bound_by": bf_by,
                         "plain_ms_at_2048_candidates": plain_g,
                         "launches": counts["greedy_on_V"]["fl_stream_gains"]},
-         "ptxas": gains_ptxas},
+         "ptxas": gains_ptxas, "stochastic": stochastic},
     ]
 
 
@@ -1723,15 +2047,22 @@ def main() -> int:
     route_check()
     small_pipeline()
 
-    # 4-7. the FeatureCoverage main path at full size
+    # 4-7. the FeatureCoverage main path at full size, then stochastic and
+    # lazy greedy on the same objective
     records = fc_path(errs)
+    # the §3.4 post-reduction at 2^16 (PERF.md section 4 says why not 2^20)
+    torch.cuda.empty_cache()
+    records[1]["postreduce"] = postreduce_path()
 
-    # 8-9. facility location: kernel vs plain, the small pipelines
+    # 8-9. facility location: kernel vs plain, the small pipelines; the
+    # other selectors at n = 4096 on all three objectives; the quickstart
     errs.update(fl_divergence=0.0, fl_gains=0.0, fl_stream_divergence=0.0,
                 fl_stream_gains=0.0)
     torch.cuda.empty_cache()
     fl_sweep(errs)
     fl_small_pipelines()
+    selectors_small()
+    quickstart_phase()
 
     # 10-11. path A and path B at full size, each on a freed card
     for path in (fl_dense_path, fl_stream_path):

@@ -14,16 +14,29 @@ from repro_torch.core.functions import (
     SubmodularFunction,
 )
 from repro_torch.core.graph import (
+    check_triangle_inequality,
     divergence,
     divergence_compact,
+    divergence_update,
     edge_weights,
     edge_weights_compact,
+    full_edge_matrix,
 )
-from repro_torch.core.greedy import GreedyResult, greedy, selection_bucket
+from repro_torch.core.greedy import (
+    GreedyResult,
+    LazyGreedyResult,
+    auto_sample_size,
+    bidirectional_greedy,
+    greedy,
+    lazy_greedy,
+    selection_bucket,
+    stochastic_greedy,
+)
 from repro_torch.core.sparsify import (
     SSResult,
     bucket_schedule,
     max_rounds,
+    postreduce,
     predicted_live_counts,
     preprune_mask,
     probe_count,
@@ -35,10 +48,12 @@ from repro_torch.core.sparsify import (
 
 __all__ = [
     "Backend", "CudaBackend", "FacilityLocation", "FeatureCoverage",
-    "GreedyResult", "NEG", "ReferenceBackend", "SSResult",
-    "StreamingFacilityLocation", "SubmodularFunction", "bucket_schedule",
-    "divergence", "divergence_compact", "edge_weights", "edge_weights_compact",
-    "greedy", "max_rounds", "predicted_live_counts", "preprune_mask",
+    "GreedyResult", "LazyGreedyResult", "NEG", "ReferenceBackend", "SSResult",
+    "StreamingFacilityLocation", "SubmodularFunction", "auto_sample_size",
+    "bidirectional_greedy", "bucket_schedule", "check_triangle_inequality",
+    "divergence", "divergence_compact", "divergence_update", "edge_weights",
+    "edge_weights_compact", "full_edge_matrix", "greedy", "lazy_greedy",
+    "max_rounds", "postreduce", "predicted_live_counts", "preprune_mask",
     "probe_count", "resolve_backend", "selection_bucket", "ss_cost_model",
-    "ss_live_bound", "ss_sparsify", "summarize",
+    "ss_live_bound", "ss_sparsify", "stochastic_greedy", "summarize",
 ]

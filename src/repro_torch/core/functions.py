@@ -93,7 +93,9 @@ class SubmodularFunction(abc.ABC):
 
     @abc.abstractmethod
     def add(self, state: Tensor, v: Tensor) -> Tensor:
-        """State for S + v."""
+        """State for S + v; ``v`` a 0-d int64 tensor on the objective's
+        device, read with ``index_select`` (indexing by it would read it
+        back to the host)."""
 
     @abc.abstractmethod
     def add_many(self, state: Tensor, mask: Tensor) -> Tensor:
@@ -205,7 +207,7 @@ class FeatureCoverage(SubmodularFunction):
         )
 
     def add(self, state: Tensor, v: Tensor) -> Tensor:
-        return state + self.W[v]
+        return state + self.W.index_select(0, v.reshape(1))[0]
 
     def add_many(self, state: Tensor, mask: Tensor) -> Tensor:
         return state + mask.to(self.W.dtype) @ self.W
@@ -233,8 +235,12 @@ class FeatureCoverage(SubmodularFunction):
         cap = self._cap()
         cu = base[None, :] + self.W[probes]                      # (r, F)
         phi_cu = self._wsum(_phi(self.phi, cu, cap))             # (r,)
-        both = cu[:, None, :] + rows[None, :, :]                 # (r, k, F)
-        out = self._wsum(_phi(self.phi, both, cap)) - phi_cu[:, None]
+        # (r, chunk, F) blocks of at most 256 MiB: the whole (r, k, F) block
+        # is 480 GB for 1792 probes over 2^16 rows of 1024 features.
+        step = max(1, _ELEMS // max(1, cu.numel()))
+        pair = [self._wsum(_phi(self.phi, cu[:, None, :] + chunk[None, :, :], cap))
+                for chunk in rows.split(step)]
+        out = torch.cat(pair, dim=1) - phi_cu[:, None]
         # Set semantics: f(u | S + u) = 0 (the coverage state is a sum, so
         # v == probe would otherwise count W[u] twice).
         return torch.where(probes[:, None] == cand[None, :], 0.0, out)
@@ -368,7 +374,7 @@ class FacilityLocation(SubmodularFunction):
         return fl_pair_ref(self.sim, state[None, :], cand_idx)[0]
 
     def add(self, state: Tensor, v: Tensor) -> Tensor:
-        return torch.maximum(state, self.sim[:, v])
+        return torch.maximum(state, self.sim.index_select(1, v.reshape(1))[:, 0])
 
     def add_many(self, state: Tensor, mask: Tensor) -> Tensor:
         mask = mask.to(device=self.sim.device, dtype=torch.bool)
@@ -488,7 +494,8 @@ class StreamingFacilityLocation(SubmodularFunction):
                                   cand_idx, Xc=self.X)[0]
 
     def add(self, state: Tensor, v: Tensor) -> Tensor:
-        return torch.maximum(state, sim_rows(self._served(), self.X[v][None])[:, 0])
+        row = self.X.index_select(0, v.reshape(1))
+        return torch.maximum(state, sim_rows(self._served(), row)[:, 0])
 
     def add_many(self, state: Tensor, mask: Tensor) -> Tensor:
         return torch.maximum(state, fl_stream_col_max(self._served(), self.X, mask))

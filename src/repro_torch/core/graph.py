@@ -13,9 +13,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.functions import SubmodularFunction
+from repro_torch.core.functions import NEG, SubmodularFunction
 
 Tensor = torch.Tensor
+INF = -NEG  # +1e30
 
 
 def edge_weights(
@@ -72,3 +73,40 @@ def divergence_compact(
     """
     w = edge_weights_compact(fn, probes, cand_idx, residual, state)
     return w.min(dim=0).values
+
+
+def divergence_update(
+    fn: SubmodularFunction,
+    current: Tensor,
+    probes: Tensor,
+    probe_mask: Tensor | None = None,
+    residual: Tensor | None = None,
+    state: Tensor | None = None,
+) -> Tensor:
+    """min(current, w_{U,v}): the running divergence as V' grows, one (r, n)
+    block a round.  ``probe_mask`` (r,) marks the valid probe slots; the
+    others never win the min."""
+    w = edge_weights(fn, probes, residual, state)
+    if probe_mask is not None:
+        w = torch.where(probe_mask[:, None], w, INF)
+    return torch.minimum(current, w.min(dim=0).values)
+
+
+def full_edge_matrix(fn: SubmodularFunction, state: Tensor | None = None) -> Tensor:
+    """All n x n edge weights, rows u, columns v (tests and analysis only)."""
+    return edge_weights(fn, torch.arange(fn.n, device=fn.device), state=state)
+
+
+def check_triangle_inequality(W: Tensor) -> Tensor:
+    """Largest violation of Lemma 3, w_vx <= w_vu + w_ux, over distinct
+    (v, u, x): max of w_vx - (w_vu + w_ux), at most float32 rounding for
+    any submodular f (the lemma's proof needs u not in {v, x}).  O(n^3); a
+    test utility."""
+    n = W.shape[0]
+    rhs = W[:, :, None] + W[None, :, :]        # [v, u, x] = w_vu + w_ux
+    lhs = W[:, None, :]                        # [v, ., x] = w_vx
+    i = torch.arange(n, device=W.device)
+    distinct = ((i[:, None, None] != i[None, :, None])
+                & (i[None, :, None] != i[None, None, :])
+                & (i[:, None, None] != i[None, None, :]))
+    return torch.where(distinct, lhs - rhs, NEG).max()

@@ -1,9 +1,16 @@
 """Greedy maximization under a cardinality constraint, in PyTorch.
 
-The counterpart of ``greedy`` in ``repro/core/greedy.py``.  Each step
-recomputes the masked gains of all candidates with one backend call (the
-CUDA kernel under ``cuda``) and takes the first argmax; nothing waits on the
-host inside the loop.
+The counterpart of ``repro/core/greedy.py``: ``greedy``, the paper's other
+selectors (``stochastic_greedy``, "lazier than lazy greedy"; Minoux's
+``lazy_greedy``) and ``bidirectional_greedy`` for the §3.4 post-reduction.
+Each step of greedy and stochastic greedy recomputes the masked gains of all
+candidates with one backend call (the CUDA kernel under ``cuda``) and takes
+the first argmax.  No step reads a value back to the host: the pick stays a
+(1,) tensor and is used through ``gather`` / ``index_fill_`` (indexing by a
+0-d tensor would read it back with ``.item()``, a wait on the card).
+Stochastic greedy masks the gains to a sample drawn from injected Gumbel
+noise or a ``torch.Generator``, so a test can replay the JAX reference's own
+draws.
 
 Compact selection: after SS the live set is |V'| = O(log² n) ≪ n.  When
 ``alive`` is sparse, ``greedy`` gathers it once into a buffer of the
@@ -18,12 +25,16 @@ first maximum in ground order.
 
 from __future__ import annotations
 
+import heapq
+import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.backend import Backend, resolve_backend
 from repro_torch.core.functions import NEG, SubmodularFunction
+from repro_torch.device import resolve_device
 
 Tensor = torch.Tensor
 
@@ -33,6 +44,33 @@ class GreedyResult(NamedTuple):
     gains: Tensor        # (k,) marginal gain at each step
     value: Tensor        # () f(S)
     state: Tensor        # final summary state
+
+
+class LazyGreedyResult(NamedTuple):
+    selected: Tensor     # (k,) int64 ground indices, in selection order
+    gains: Tensor        # (k,) float32 marginal gain at each step
+    value: Tensor        # () f(S)
+    state: Tensor        # final summary state
+    reevaluations: int   # stale bounds recomputed (one-slot gains calls)
+
+
+def gumbel(n: int, generator: torch.Generator | None, device) -> Tensor:
+    """(n,) standard Gumbel draws, -log(E) with E ~ Exp(1), on ``device``."""
+    e = torch.empty((n,), dtype=torch.float32, device=device)
+    e.exponential_(generator=generator)
+    return -torch.log(e.clamp_min_(torch.finfo(torch.float32).tiny))
+
+
+def check_noise(noise: Tensor, shape: tuple[int, ...], device) -> Tensor:
+    """Injected draws as float32 on ``device``, after checking their shape
+    and that every draw is finite (a non-finite draw could silently break a
+    sampler's invariants, such as every sampled slot being live)."""
+    if tuple(noise.shape) != tuple(shape):
+        raise ValueError(f"noise must be {tuple(shape)}, got {tuple(noise.shape)}")
+    noise = noise.to(device=device, dtype=torch.float32)
+    if not bool(torch.isfinite(noise).all()):
+        raise ValueError("noise must be finite")
+    return noise
 
 
 def compact_indices(alive: Tensor, size: int) -> Tensor:
@@ -58,15 +96,28 @@ def selection_bucket(
     return None if size >= n else size
 
 
-def _compact_plan(n: int, alive: Tensor | None, compact: bool | None) -> int | None:
-    """The compact buffer size, or None for the full-width path: None/True
-    compact when ``alive`` is sparse enough (one host read of the live
-    count), False never.  (The JAX package also takes an int bound on the
-    live count, for masks it cannot read under tracing; eager PyTorch can
-    always read the mask.)"""
-    if compact is False or alive is None:
-        return None
-    return selection_bucket(n, int(alive.sum()))
+def auto_sample_size(
+    n: int, k: int, eps: float = 0.1, live: int | None = None
+) -> int:
+    """Stochastic greedy's sample size s = ceil((n'/k) ln(1/eps)), with n'
+    the live count (|V'| after SS) when known, else the ground-set size."""
+    base = (n if live is None else live) / max(k, 1)
+    return max(1, int(math.ceil(base * math.log(1.0 / eps))))
+
+
+def _compact_plan(
+    n: int, alive: Tensor | None, compact: bool | None
+) -> tuple[int | None, int | None]:
+    """(bucket size, live count): the compact buffer size, or None for the
+    full-width path, and |alive| as read to size the bucket (one host read).
+    None/True compact when ``alive`` is sparse enough; False never, and
+    reads nothing (live None, as without a mask).  (The JAX package also
+    takes an int bound on the live count, for masks it cannot read under
+    tracing; eager PyTorch can always read the mask.)"""
+    if alive is None or compact is False:
+        return None, None
+    live = int(alive.sum())
+    return selection_bucket(n, live), live
 
 
 def greedy(
@@ -96,7 +147,7 @@ def _greedy_dense(
     compact: bool | None,
     backend: Backend,
 ) -> GreedyResult:
-    size = _compact_plan(fn.n, alive, compact)
+    size, _ = _compact_plan(fn.n, alive, compact)
     if size is None:
         return _greedy(fn, k, alive, state, backend)
     return _greedy_compact(fn, k, size, alive, state, backend)
@@ -104,32 +155,36 @@ def _greedy_dense(
 
 def _greedy(
     fn: SubmodularFunction, k: int, alive: Tensor | None,
-    state: Tensor | None, backend: Backend,
+    state: Tensor | None, backend: Backend, sample=None,
 ) -> GreedyResult:
+    """Full-width steps.  ``sample(i, avail)`` (stochastic greedy) gives
+    step i's candidate mask, else every available element competes."""
     be = backend
     dev = fn.device
     avail = (torch.ones((fn.n,), dtype=torch.bool, device=dev) if alive is None
              else alive.to(device=dev, dtype=torch.bool).clone())
     st = fn.empty_state() if state is None else state
     sel, gains = [], []
-    for _ in range(k):
-        g = torch.where(avail, be.gains(fn, st), NEG)
-        v = torch.argmax(g)
-        ok = avail[v].clone()  # a 0-d index gives a view
-        st = torch.where(ok, fn.add(st, v), st)
-        avail[v] = False
+    for i in range(k):
+        pool = avail if sample is None else sample(i, avail)
+        g = torch.where(pool, be.gains(fn, st), NEG)
+        v = torch.argmax(g, dim=0, keepdim=True)  # (1,): see the module doc
+        ok = avail.gather(0, v)
+        st = torch.where(ok, fn.add(st, v[0]), st)
+        avail.index_fill_(0, v, False)
         sel.append(v)
-        gains.append(torch.where(ok, g[v], 0.0))
-    return GreedyResult(torch.stack(sel), torch.stack(gains), fn.value(st), st)
+        gains.append(torch.where(ok, g.gather(0, v), 0.0))
+    return GreedyResult(torch.cat(sel), torch.cat(gains), fn.value(st), st)
 
 
 def _greedy_compact(
     fn: SubmodularFunction, k: int, size: int, alive: Tensor,
-    state: Tensor | None, backend: Backend,
+    state: Tensor | None, backend: Backend, sample=None,
 ) -> GreedyResult:
     """Gains and argmax in (size,)-slot index space over the ascending
     buffer of live ground indices; exhausted steps record index 0 / gain 0,
-    like the full-width path."""
+    like the full-width path.  ``sample`` as in :func:`_greedy`, over
+    slots."""
     be = backend
     alive = alive.to(device=fn.device, dtype=torch.bool)
     cand_idx = compact_indices(alive, size)
@@ -137,13 +192,171 @@ def _greedy_compact(
     avail = torch.arange(size, device=fn.device) < alive.sum()  # pads are dead
     st = fn.empty_state() if state is None else state
     sel, gains = [], []
-    for _ in range(k):
-        g = torch.where(avail, be.gains_compact(fn, st, cands), NEG)
-        vc = torch.argmax(g)
-        v = cand_idx[vc]
-        ok = avail[vc].clone()
-        st = torch.where(ok, fn.add(st, v), st)
-        avail[vc] = False
+    for i in range(k):
+        pool = avail if sample is None else sample(i, avail)
+        g = torch.where(pool, be.gains_compact(fn, st, cands), NEG)
+        vc = torch.argmax(g, dim=0, keepdim=True)
+        v = cand_idx.gather(0, vc)
+        ok = avail.gather(0, vc)
+        st = torch.where(ok, fn.add(st, v[0]), st)
+        avail.index_fill_(0, vc, False)
         sel.append(torch.where(ok, v, 0))
-        gains.append(torch.where(ok, g[vc], 0.0))
-    return GreedyResult(torch.stack(sel), torch.stack(gains), fn.value(st), st)
+        gains.append(torch.where(ok, g.gather(0, vc), 0.0))
+    return GreedyResult(torch.cat(sel), torch.cat(gains), fn.value(st), st)
+
+
+# ------------------------------------------------------- stochastic greedy --
+
+def stochastic_greedy(
+    fn: SubmodularFunction,
+    k: int,
+    generator: torch.Generator | None = None,
+    s: int | None = None,
+    alive: Tensor | None = None,
+    backend: "str | Backend | None" = None,
+    state: Tensor | None = None,
+    compact: bool | None = None,
+    eps: float = 0.1,
+    *,
+    noise: Tensor | None = None,
+) -> GreedyResult:
+    """"Lazier than lazy greedy" [Mirzasoleiman et al. 2015]: each step takes
+    the best element of a uniform random sample of ``s`` available ones.
+
+    ``s=None`` derives the sample size from the live count (
+    :func:`auto_sample_size`): after SS it scales with |V'|, not n.  On the
+    compact path (``compact`` as in :func:`greedy`) the draws live in the
+    buffer's slot space.  Each step evaluates the gains of the whole buffer
+    (full width, or every slot) with one backend call and masks them to the
+    sample, as the JAX reference does.
+
+    The sample is the s largest of Gumbel draws + (0 where available, NEG
+    elsewhere), ties broken toward the lower index (``jax.lax.top_k``'s
+    order; a stable sort, since ``torch.topk`` keeps none).  ``noise`` is a
+    (k, m) float32 tensor of such draws, m = n on the full-width path and m
+    = the bucket size on the compact path, row i for step i; without it,
+    each step draws from ``generator`` on ``fn``'s device.
+    """
+    be = resolve_backend(backend, fn.device)
+    n, dev = fn.n, fn.device
+    size, live = _compact_plan(n, alive, compact)
+    if s is None:
+        if live is None and alive is not None:  # full width by request
+            live = int(alive.sum())
+        s = auto_sample_size(n, k, eps, live=live)
+    m = n if size is None else size
+    s = int(min(s, m))
+    if s < 1:
+        raise ValueError(f"sample size must be >= 1; got {s}")
+    if noise is not None:
+        noise = check_noise(noise, (k, m), dev)
+
+    def sample(i: int, avail: Tensor) -> Tensor:
+        g = noise[i] if noise is not None else gumbel(m, generator, dev)
+        g = g + torch.where(avail, 0.0, NEG)
+        top = torch.sort(g, descending=True, stable=True).indices[:s]
+        return torch.zeros_like(avail).index_fill_(0, top, True) & avail
+
+    if size is None:
+        return _greedy(fn, k, alive, state, be, sample)
+    return _greedy_compact(fn, k, size, alive, state, be, sample)
+
+
+# ------------------------------------------------------------- lazy greedy --
+
+def lazy_greedy(
+    fn: SubmodularFunction,
+    k: int,
+    alive: Tensor | None = None,
+    backend: "str | Backend | None" = None,
+) -> LazyGreedyResult:
+    """Minoux's accelerated greedy with a priority queue on the host, the
+    paper's wall-clock baseline.  The same picks as :func:`greedy`, up to
+    the order of tied gains.
+
+    The first bounds are one full-width gains call; each stale bound popped
+    is recomputed by a one-slot ``gains_compact`` call (the same value as
+    the full-width gain of that element) and pushed back.  Heap entries are
+    (-gain, v, stamp), so equal gains pop the lower index first.  Steps past
+    the live set record index 0 with gain 0.
+    """
+    be = resolve_backend(backend, fn.device)
+    n, dev = fn.n, fn.device
+    live = (np.arange(n) if alive is None
+            else np.flatnonzero(alive.to(torch.bool).cpu().numpy()))
+    slot = torch.arange(n, device=dev)  # views of it name one element
+    st = fn.empty_state()
+    ub = be.gains(fn, st).float().cpu().numpy()
+    heap = list(zip((-ub[live]).tolist(), live.tolist(), [0] * live.size))
+    heapq.heapify(heap)
+
+    sel, gains, stamp, evals = [], [], 0, 0
+    while heap and len(sel) < k:
+        neg_g, v, s = heapq.heappop(heap)
+        if s == stamp:                     # a current bound is the exact max
+            sel.append(v)
+            gains.append(-neg_g)
+            st = fn.add(st, slot[v])
+            stamp += 1
+        else:                              # stale: recompute, push back
+            g = float(be.gains_compact(fn, st, slot[v:v + 1])[0])
+            evals += 1
+            heapq.heappush(heap, (-g, v, stamp))
+    pad = k - len(sel)
+    return LazyGreedyResult(
+        torch.tensor(sel + [0] * pad, dtype=torch.long, device=dev),
+        torch.tensor(gains + [0.0] * pad, dtype=torch.float32, device=dev),
+        fn.value(st), st, evals,
+    )
+
+
+# ----------------------------------------------------- bidirectional greedy --
+
+def bidirectional_greedy(
+    gain_fn,
+    n: int,
+    generator: torch.Generator | None = None,
+    randomized: bool = True,
+    *,
+    noise: Tensor | None = None,
+) -> Tensor:
+    """Buchbinder et al.'s 1/2-approximation for unconstrained non-monotone
+    submodular maximization, used by the §3.4 post-reduction (Eq. 9).
+
+    ``gain_fn(lo, hi, v)`` gets the (n,) bool masks X = lo and Y = hi and
+    the step's element v (an int), and returns a = h(v | X) and
+    b = -h(v | Y - v).  Step v keeps v with probability
+    p = a+ / (a+ + b+) (1 when both are 0), in float32; the draw is
+    ``noise[v] < p``, which is ``jax.random.bernoulli`` of a uniform draw.
+    ``noise`` holds n float32 uniforms in [0, 1); without it they come from
+    ``generator``, on its device.  With neither, the masks and draws live on
+    the card, like the port's other entry points (a CPU run passes CPU noise
+    or a CPU generator).  ``randomized=False`` keeps v iff a >= b.  Returns
+    the kept mask X (n,) bool, on the draws' device.
+    """
+    if noise is not None:
+        dev = noise.device
+        noise = check_noise(noise, (n,), dev)
+    else:
+        dev = (generator.device if generator is not None
+               else resolve_device("cuda"))
+        if randomized:
+            noise = torch.rand((n,), generator=generator, device=dev)
+    lo = torch.zeros((n,), dtype=torch.bool, device=dev)
+    hi = torch.ones((n,), dtype=torch.bool, device=dev)
+    for v in range(n):
+        a, b = gain_fn(lo, hi, v)
+        a = torch.as_tensor(a, dtype=torch.float32, device=dev)
+        b = torch.as_tensor(b, dtype=torch.float32, device=dev)
+        if randomized:
+            ap, bp = torch.clamp_min(a, 0.0), torch.clamp_min(b, 0.0)
+            tot = ap + bp
+            p = torch.where(tot == 0.0, 1.0, ap / torch.where(tot == 0.0, 1.0, tot))
+            take = noise[v] < p
+        else:
+            take = a >= b
+        # v is in neither X nor Y - X yet: keeping it adds it to X, dropping
+        # it removes it from Y.
+        lo[v] = take
+        hi[v] = take
+    return lo

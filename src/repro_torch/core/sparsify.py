@@ -28,9 +28,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import graph
 from repro_torch.core.backend import Backend, resolve_backend
 from repro_torch.core.functions import NEG, SubmodularFunction
-from repro_torch.core.greedy import GreedyResult, compact_indices, greedy
+from repro_torch.core.greedy import (
+    GreedyResult,
+    bidirectional_greedy,
+    check_noise,
+    compact_indices,
+    greedy,
+    gumbel,
+)
+from repro_torch.kernels.ref import _ELEMS
 
 Tensor = torch.Tensor
 INF = -NEG  # +1e30
@@ -125,13 +134,6 @@ def ss_cost_model(
     return max(total, 1.0)
 
 
-def gumbel(n: int, generator: torch.Generator | None, device) -> Tensor:
-    """(n,) standard Gumbel draws, -log(E) with E ~ Exp(1), on ``device``."""
-    e = torch.empty((n,), dtype=torch.float32, device=device)
-    e.exponential_(generator=generator)
-    return -torch.log(e.clamp_min_(torch.finfo(torch.float32).tiny))
-
-
 def ss_sparsify(
     fn: SubmodularFunction,
     generator: torch.Generator | None = None,
@@ -198,14 +200,9 @@ def _sparsify_dense(
     shrink = np.float32(1.0 - 1.0 / math.sqrt(c))
     buckets = bucket_schedule(n, c) if compact else None
     if noise is not None:
-        if tuple(noise.shape) != (rounds_cap, n):
-            raise ValueError(f"noise must be ({rounds_cap}, {n}), got "
-                             f"{tuple(noise.shape)}")
-        noise = noise.to(device=dev, dtype=torch.float32)
         # The loop relies on every probe being live (live > m, dead slots at
-        # NEG): a non-finite draw could break that silently.
-        if not bool(torch.isfinite(noise).all()):
-            raise ValueError("noise must be finite")
+        # NEG), which a non-finite draw could break silently.
+        noise = check_noise(noise, (rounds_cap, n), dev)
 
     alive = (torch.ones((n,), dtype=torch.bool, device=dev) if alive is None
              else alive.to(device=dev, dtype=torch.bool).clone())
@@ -280,6 +277,115 @@ def preprune_mask(fn: SubmodularFunction, k: int) -> Tensor:
     singleton gain f(u) is below the k-th largest residual f(v|V\\v)."""
     kth = torch.topk(fn.residual_gains(), k).values[-1]
     return fn.singleton_gains() >= kth
+
+
+def postreduce(
+    fn: SubmodularFunction,
+    result: SSResult,
+    eps: float,
+    generator: torch.Generator | None = None,
+    max_members: "int | str | None" = None,
+    r: int = 8,
+    c: float = 8.0,
+    *,
+    noise: Tensor | None = None,
+) -> Tensor:
+    """§3.4 improvement 3: shrink V' further by solving Eq. 9 restricted to
+    V' with bidirectional greedy.  Returns the new (n,) bool vprime, a
+    subset of ``result.vprime``.
+
+    h(X) = |{v in V \\ V' : min_{x in X} w_{x->v} <= eps}|, and Eq. 9 keeps
+    X maximizing h(X) - |X|.  V''s members sit in a static block of
+    ``slots`` (ascending ground order, padded with -1, whose rows are +INF
+    and cover nothing) and the kept slots scatter back to ground indices.
+
+    ``max_members`` sets the slot count.  None derives it from SS's
+    O(log² n) bound, :func:`ss_live_bound` at ``r`` and ``c`` (pass the SS
+    run's), and raises when |V'| does not fit; "exact" reads |V'|; an int
+    is trusted unchecked (members past it are dropped).  ``noise`` is the
+    (slots,) float32 uniforms of :func:`bidirectional_greedy`, step j's
+    draw in slot j; without it they come from ``generator`` (on ``fn``'s
+    device).
+
+    The (slots, n) edge weights are computed in blocks of members (each
+    element the arithmetic of :func:`graph.edge_weights`) and kept only as
+    the bool matrix "member x covers pruned v": C[x, v] = (w_{x->v} <= eps).
+    h's counts are then kept incrementally, exactly: a running cover of X
+    for a, and per element the number of members of Y covering it for b.
+    Every a and b is the float32 arithmetic of the literal form,
+    h(X + v) - h(X) - 1 and h(Y - v) - h(Y) + 1 over float32 counts.
+    """
+    n, dev = fn.n, fn.device
+    vprime = result.vprime.to(device=dev, dtype=torch.bool)
+    derived = max_members is None
+    if max_members == "exact":
+        max_members = int(vprime.sum())  # one sizing read (opt-in)
+    elif derived:
+        max_members = ss_live_bound(n, r, c)
+    slots = max(1, min(n, int(max_members)))
+    if derived and slots < n and int(vprime.sum()) > slots:
+        # the block would silently drop members of V' and the reduction
+        # would return a wrong mask
+        raise ValueError(
+            f"postreduce slot bound {slots} < |V'|: the SS run used a "
+            "different r/c than passed here; pass matching r/c, an explicit "
+            "max_members, or max_members='exact'"
+        )
+    if noise is None:
+        noise = torch.rand((slots,), generator=generator, device=dev)
+    noise = check_noise(noise, (slots,), dev)
+    vp_idx = torch.where(torch.arange(slots, device=dev) < vprime.sum(),
+                         compact_indices(vprime, slots), -1)
+    valid = vp_idx >= 0
+    members = torch.where(valid, vp_idx, 0)
+    pruned = ~vprime
+    cover = torch.empty((slots, n), dtype=torch.bool, device=dev)
+    for lo, w in member_edges(fn, members, valid):
+        cover[lo:lo + w.shape[0]] = pruned & (w <= eps)
+
+    # The literal h takes a min over X's rows with INF for the rest, so an
+    # element is covered by X iff some member of X covers it, or INF <= eps
+    # (then every set, the empty one too, covers every pruned element).
+    base = pruned & (torch.tensor(INF, dtype=torch.float32, device=dev) <= eps)
+    cov_lo = base.clone()                         # covered by X
+    n_hi = cover.sum(0, dtype=torch.int32)        # members of Y covering v
+    h_lo, h_hi = cov_lo.sum(), (base | (n_hi > 0)).sum()
+    prev = []                                     # the last step's (v, d_lo, d_hi)
+
+    def gain_fn(lo: Tensor, hi: Tensor, v: int):
+        nonlocal cov_lo, n_hi, h_lo, h_hi
+        if prev:  # fold in the last step's decision, read from X
+            u, d_lo, d_hi = prev
+            kept = lo[u]
+            cov_lo = cov_lo | (cover[u] & kept)
+            h_lo = h_lo + d_lo * kept
+            n_hi = n_hi - (cover[u] & ~kept).to(torch.int32)
+            h_hi = h_hi - d_hi * ~kept
+        row = cover[v]
+        d_lo = (row & ~cov_lo).sum()              # newly covered by X + v
+        d_hi = (row & ~base & (n_hi == 1)).sum()  # covered by v alone in Y
+        prev[:] = (v, d_lo, d_hi)
+        a = (h_lo + d_lo).float() - h_lo.float() - 1.0
+        b = ((h_hi - d_hi).float() - h_hi.float()) + 1.0
+        # Padding slots cover nothing: a = -1 < 0 <= b = +1, never kept.
+        return a, b
+
+    keep = bidirectional_greedy(gain_fn, slots, noise=noise)
+    out = torch.zeros((n + 1,), dtype=torch.bool, device=dev)
+    out[torch.where(valid & keep, vp_idx, n)] = True  # slot n: discarded
+    return out[:n]
+
+
+def member_edges(fn: SubmodularFunction, members: Tensor, valid: Tensor):
+    """The (slots, n) edge weights w_{x->v} of the member slots ``members``
+    (ground indices; +INF rows where ``valid`` is False), as (first slot,
+    block) pairs: each block a (b, n) float32 temporary of at most 256 MiB,
+    the arithmetic of :func:`graph.edge_weights`."""
+    residual = fn.residual_gains()
+    block = max(1, _ELEMS // max(fn.n, 1))
+    for lo in range(0, members.shape[0], block):
+        w = graph.edge_weights(fn, members[lo:lo + block], residual=residual)
+        yield lo, torch.where(valid[lo:lo + block, None], w, INF)
 
 
 def summarize(

@@ -14,7 +14,9 @@ from repro_torch import (
     facility_location_from_numpy,
     feature_coverage_from_numpy,
     greedy,
+    lazy_greedy,
     ss_sparsify,
+    stochastic_greedy,
     streaming_facility_location_from_numpy,
     summarize,
 )
@@ -34,7 +36,7 @@ def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     assert len(files) >= 15
     assert {"fl_divergence.py", "fl_stream.py"} <= {f.name for f in files}
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -61,9 +63,12 @@ def _fn():
     return feature_coverage_from_numpy(news_day(0, 200, 32), device="cpu")
 
 
-@pytest.mark.parametrize("call", ["gains", "gains_compact", "divergence",
-                                  "divergence_compact", "ss_sparsify",
-                                  "greedy", "summarize"])
+CALLS = ["gains", "gains_compact", "divergence", "divergence_compact",
+         "ss_sparsify", "greedy", "summarize", "stochastic_greedy",
+         "lazy_greedy"]
+
+
+@pytest.mark.parametrize("call", CALLS)
 def test_cuda_backend_refuses_cpu_tensors(call, fn=None):
     fn = _fn() if fn is None else fn
     be = CudaBackend()
@@ -76,6 +81,8 @@ def test_cuda_backend_refuses_cpu_tensors(call, fn=None):
         "ss_sparsify": lambda: ss_sparsify(fn, backend="cuda"),
         "greedy": lambda: greedy(fn, 3, backend="cuda"),
         "summarize": lambda: summarize(fn, 3, backend=be),
+        "stochastic_greedy": lambda: stochastic_greedy(fn, 3, backend="cuda"),
+        "lazy_greedy": lambda: lazy_greedy(fn, 3, backend=be),
     }
     with pytest.raises(ValueError, match="CUDA tensors only"):
         calls[call]()
@@ -124,9 +131,7 @@ FL_OBJECTIVES = {
 
 
 @pytest.mark.parametrize("objective", list(FL_OBJECTIVES))
-@pytest.mark.parametrize("call", ["gains", "gains_compact", "divergence",
-                                  "divergence_compact", "ss_sparsify",
-                                  "greedy", "summarize"])
+@pytest.mark.parametrize("call", CALLS)
 def test_cuda_backend_refuses_cpu_facility_location(call, objective):
     test_cuda_backend_refuses_cpu_tensors(call, FL_OBJECTIVES[objective]())
 
