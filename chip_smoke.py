@@ -32,11 +32,19 @@ greedy over V and V' (every evaluation through the kernel, f(S) equal to
 greedy's); the §3.4 post-reduction runs after SS on a 2^16-sentence news
 day.  At n = 4096 the three objectives hold stochastic and lazy greedy to
 the plain backend and ``postreduce`` on the card to the host under the same
-draws, and ``examples/quickstart_torch.py`` runs on the card.  The
+draws, and ``examples/quickstart_torch.py`` runs on the card.  After each
+path's selectors the streaming baseline, sieve streaming (k = 32, the
+legacy 50 thresholds; on FeatureCoverage also eps = 0.1), runs at full size
+in exact chunks over its gain-table kernel ``sieve_gains``: the card's
+decisions are held to the plain table's (full size on FeatureCoverage,
+n = 4096 on all three, where one shot, two halves and per-element updates
+agree bit for bit; on path B at full size an element's similarity column
+is checked to have one set of bits wherever it sits in its block), and the
+row sieve runs over 2^14 rows against the index sieve.  The
 FeatureCoverage kernels sum only the terms W's nonzeros make nonzero, so
 they are also swept over sparse W and their bounds count what these inputs
 need (W read once as stored, the work of its nonzeros), printed beside the
-dense bounds; the divergence is
+dense bounds; so does ``sieve_gains``' bound; the divergence is
 also timed on a dense random W of round 1's shape.  Every time follows one
 rule, ``kernel_ms``: the median of 5 windows of back-to-back calls between
 CUDA events, each window queued behind a sleep on the card where Python's
@@ -582,7 +590,9 @@ def selectors_small() -> None:
 
 
 def quickstart_phase() -> None:
-    """``examples/quickstart_torch.py`` on the card, asserts included."""
+    """``examples/quickstart_torch.py`` on the card, asserts included, and
+    its sieve streaming relative held to [0.6, 1 + 1e-5] (0.6: the
+    reference's floor on FeatureCoverage, ``tests/test_sieve.py:41``)."""
     import runpy
 
     path = Path(__file__).resolve().parent / "examples" / "quickstart_torch.py"
@@ -590,11 +600,15 @@ def quickstart_phase() -> None:
     sys.argv = [str(path)]
     t = time.perf_counter()
     try:
-        runpy.run_path(str(path), run_name="__main__")
+        out = runpy.run_path(str(path), run_name="__main__")
     finally:
         sys.argv = argv
+    rel = out["sieve_relative"]
+    check(0.6 <= rel <= 1.0 + 1e-5,
+          f"quickstart: sieve streaming relative {rel} outside [0.6, 1 + 1e-5]")
     print(f"examples/quickstart_torch.py on the card passed its asserts in "
-          f"{time.perf_counter() - t:.2f} s", flush=True)
+          f"{time.perf_counter() - t:.2f} s; sieve streaming relative {rel:.6f}",
+          flush=True)
 
 
 def _synced(call):
@@ -1049,7 +1063,292 @@ def fc_path(errs: dict) -> list[dict]:
     records[1]["stochastic"] = stochastic_phase(
         "FeatureCoverage", fn, ss, full, wall_full, feature_gains_kernel)
     records[1]["lazy"] = lazy_phase(fn, ss, full, res)
+    # the streaming baseline on the same objective
+    SIEVE["FeatureCoverage"] = sieve_path("FeatureCoverage", fn, full, wall_full,
+                                          eps_runs=(None, 0.1), plain=True)
+    SIEVE["row_sieve"] = row_sieve_phase(fn)
     return records
+
+
+# -- sieve streaming -----------------------------------------------------------
+
+SIEVE = {"errs": [], "paths": {}}   # the sieve_gains record, filled per path
+
+
+def _sieve_reset() -> None:
+    from repro_torch import sieve_extend
+    from repro_torch.kernels import sieve_gains_kernel
+
+    sieve_extend.chunks = sieve_extend.rounds = sieve_extend.host_reads = 0
+    sieve_gains_kernel.launches = 0
+
+
+def _sieve_read() -> dict:
+    from repro_torch import sieve_extend
+    from repro_torch.kernels import sieve_gains_kernel
+
+    return {"chunks": sieve_extend.chunks, "rounds": sieve_extend.rounds,
+            "host_reads": sieve_extend.host_reads,
+            "sieve_gains_launches": sieve_gains_kernel.launches}
+
+
+def _same_bits(a, b) -> bool:
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _same_decisions(a, b, what: str) -> None:
+    """Two sieve states made every take and reset alike: the same picks in
+    the same order in every sieve (legacy sieves never reset, so their
+    picks are every decision), the same counts and guess exponents."""
+    same = (torch.equal(a.sel, b.sel) and torch.equal(a.counts, b.counts)
+            and (a.jidx is None or torch.equal(a.jidx, b.jidx)))
+    if not same:
+        rows = torch.nonzero((a.sel != b.sel).any(1) | (a.counts != b.counts)).flatten()
+        j = int(rows[0]) if rows.numel() else -1
+        fail(f"{what}: decisions differ in {rows.numel()} sieves; first sieve {j}: "
+             f"{a.sel[j].tolist() if j >= 0 else ''} vs "
+             f"{b.sel[j].tolist() if j >= 0 else ''}")
+
+
+def sieve_phase(label: str, fn, f_full: float, wall_full: float, eps=None,
+                plain: bool = False) -> dict:
+    """``sieve_streaming(fn, K)`` (legacy, 50 thresholds, or ``eps``) at
+    the path's full size, with the walk's and the kernel's counts set to 0
+    just before and read just after: the synchronised wall beside greedy on
+    V's, chunks, rounds and host reads, f(S) relative to greedy on V (never
+    above 1 + 1e-5; with eps at least 1/2 - eps), the peak above the
+    objective, device busy and idle share from a profiled rerun, which must
+    give the same bits (the sieve has no randomness).  With ``plain``, the
+    same stream also through the plain table on the card: the same
+    decisions, sieve for sieve."""
+    from repro_torch import sieve_extend, sieve_init, sieve_streaming
+
+    what = f"{label} sieve streaming" + ("" if eps is None else f" eps={eps}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _sieve_reset()
+    res, wall = _synced(lambda: sieve_streaming(fn, K, eps=eps))
+    counts = _sieve_read()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    T = res.thresholds.shape[0]
+    rel = float(res.value) / f_full
+    check(res.selected.shape == (K,) and math.isfinite(float(res.value)),
+          f"{what}: wrong shape or a non-finite value")
+    picks = res.selected[res.selected >= 0]
+    check(int(picks.unique().numel()) == int(picks.numel()), f"{what}: picked twice")
+    check(rel <= 1.0 + 1e-5, f"{what}: f(S) above greedy on V ({rel})")
+    check(eps is None or rel >= 0.5 - eps, f"{what}: below 1/2 - eps ({rel})")
+    check(counts["sieve_gains_launches"] > 0, f"{what}: never launched sieve_gains")
+    again = []
+    prof = profile_run(what, lambda: again.append(sieve_streaming(fn, K, eps=eps)),
+                       watch=("sieve_gains",), top=6)
+    check(_same_bits(again[0], res), f"{what}: a rerun gives other bits")
+    busy = prof.get("busy_ms")
+    out = {"T": T, "relative": rel, "wall_s": wall, "greedy_on_V_wall_s": wall_full,
+           "busy_ms": busy, "wall_ms_profiled": prof.get("wall_ms"),
+           "peak_above_objective_gib": peak, **counts}
+    line = (f"{what}: T = {T}, f(S) = {float(res.value):.6f}, relative to greedy "
+            f"on V {rel:.6f}; wall {wall:.4f} s (host clock, synchronised; greedy "
+            f"on V {wall_full:.4f} s); device busy "
+            + ("not measured" if busy is None else
+               f"{busy:.4f} ms, idle share {1 - busy / prof['wall_ms']:.4f}")
+            + f" (profiler, a rerun: same bits); {counts['chunks']} chunks, "
+            f"{counts['rounds']} rounds, {counts['host_reads']} host reads, "
+            f"{counts['sieve_gains_launches']} sieve_gains launches; peak "
+            f"{peak:.3f} GiB above the objective")
+    if plain:
+        stream = torch.arange(fn.n, device="cuda")
+        card = sieve_extend(fn, sieve_init(fn, K, eps=eps), stream)
+        ref, wall_p = _synced(lambda: sieve_extend(
+            fn, sieve_init(fn, K, eps=eps), stream, backend="reference"))
+        _same_decisions(card, ref, f"{what}: card vs plain route")
+        out["plain_route_wall_s"] = wall_p
+        line += (f"; the plain table on the card made the same decisions in "
+                 f"every sieve ({wall_p:.4f} s)")
+    print(line, flush=True)
+    return out
+
+
+def sieve_gains_record(label: str, fn, states) -> dict:
+    """``sieve_gains`` against its plain version at the path's shapes: the
+    empty state and T sieve states (a finished run's) against the route's
+    largest chunk and the zero element, timed by ``kernel_ms``, with its
+    bound: S, the chunk's elements and the table moved once; per (sieve,
+    element, leaf) facility location's max and add.  FeatureCoverage's
+    counts what these inputs need: the tree's add per (sieve, element,
+    leaf), and phi (sqrt: a special function) with an add and a multiply
+    only where W's entry is not 0 (a zero leaf's term is w phi(s), once per
+    sieve and leaf); the dense bound (every term's phi) beside.  Facility
+    location's table must equal the plain one bit for bit (one order, exact
+    operations); FeatureCoverage's within TOL of the table's size
+    (sqrt.approx against IEEE sqrt)."""
+    from repro_torch.core.sieve import MAX_CHUNK
+    from repro_torch.kernels import sieve_gains_kernel, sieve_gains_ref
+
+    C = min(fn.sieve_chunk() or MAX_CHUNK, MAX_CHUNK, fn.n)
+    el = fn.sieve_elements(torch.arange(C, device="cuda"))
+    rows = torch.cat([torch.zeros_like(states[:1]), states]).contiguous()
+    R_, L = rows.shape
+    cols = el.idx.shape[0]
+    fc = el.phi is not None
+    out_k, t = kernel_ms(lambda: sieve_gains_kernel(rows, el), 3)
+
+    def plain():
+        return sieve_gains_ref(rows, el.E, el.idx, cols=el.cols, phi=el.phi,
+                               feat_w=el.feat_w, cap=el.cap)
+
+    out_p, tp = kernel_ms(plain, 1, windows=1 if L > 4096 else 5)
+    err = float((out_k - out_p).abs().max())
+    scale = max(1.0, float(out_p.abs().max()))
+    bitwise = torch.equal(out_k, out_p)
+    if fc:
+        check(err <= TOL[torch.float32] * scale,
+              f"{label} sieve_gains: kernel vs plain err {err} > TOL x {scale}")
+    else:
+        check(bitwise, f"{label} sieve_gains: the table is not the plain one bit "
+              f"for bit (max err {err})")
+    terms = R_ * cols * L
+    bytes_ = (R_ * L + C * L + R_ * cols) * 4
+    sqrt = fc and el.phi == "sqrt"
+    if fc:
+        nnz = int(torch.count_nonzero(el.E[:C]))
+        b_ms, b_by, b_pipe = bound(bytes_, fp32=terms + 2 * R_ * (nnz + L),
+                                   sfu=R_ * (nnz + L) if sqrt else 0)
+        dense = bound(bytes_, fp32=3 * terms, sfu=terms if sqrt else 0)[0]
+    else:
+        nnz = None
+        b_ms, b_by, b_pipe = bound(bytes_, fp32=2 * terms)
+        dense = b_ms
+    SIEVE["errs"].append(err)
+    rec = {"sieves": R_, "columns": cols, "L": L, "nnz": nnz, "ms": t.ms,
+           "plain_ms": tp.ms, "bound_ms": b_ms, "bound_by": b_by, "pipe": b_pipe,
+           "dense_bound_ms": dense, "max_abs_err": err, "bitwise": bitwise,
+           "share_of_bound": b_ms / t.ms}
+    SIEVE["paths"][label] = rec
+    print(f"sieve_gains at {label}'s shapes ({R_} sieves x {cols} columns x {L} "
+          f"leaves" + ("" if nnz is None else f", {nnz} nonzeros in the chunk")
+          + f"): {t.ms:.4f} ms per launch ({fmt_windows(t)}), plain "
+          f"{tp.ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {b_pipe}), share "
+          f"{b_ms / t.ms:.4f}; dense bound {dense:.4f} ms, share "
+          f"{dense / t.ms:.4f}; vs plain err {err:.3g} (scale {scale:.4g}), "
+          f"bitwise {bitwise}; library none", flush=True)
+    return rec
+
+
+def columns_check(fn) -> None:
+    """Matrix-free facility location at full size: a stream element's
+    similarity column has the same bits at any position of its block of
+    SIEVE_BLOCK columns, on which the sieve's claim that the chunking
+    changes no bit rests (cuBLAS picks its algorithm by shape): elements
+    64..127 at positions 64..127 of one chunk and 0..63 of another, and
+    element 100 in a chunk of one."""
+    a = fn.sieve_elements(torch.arange(0, 128, device="cuda")).E
+    b = fn.sieve_elements(torch.arange(64, 192, device="cuda")).E
+    one = fn.sieve_elements(torch.tensor([100], device="cuda")).E
+    check(torch.equal(a[:, 64:128], b[:, :64]) and torch.equal(one[:, 0], a[:, 100]),
+          "path B: a similarity column's bits depend on its place in the chunk")
+    print(f"path B columns ({a.shape[0]} served rows): an element's column has "
+          f"the same bits at three places in its block", flush=True)
+
+
+def sieve_path(label: str, fn, full, wall_full: float, eps_runs=(None,),
+               plain: bool = False) -> dict:
+    """The sieve phases of one path: each run of ``sieve_phase``, then
+    ``sieve_gains`` at the path's shapes against the states of the legacy
+    run."""
+    from repro_torch import StreamingFacilityLocation, sieve_extend, sieve_init
+
+    out = {}
+    for eps in eps_runs:
+        key = "legacy" if eps is None else f"eps={eps}"
+        out[key] = sieve_phase(label, fn, float(full.value), wall_full, eps,
+                               plain=plain and eps is None)
+    if isinstance(fn, StreamingFacilityLocation):
+        columns_check(fn)
+    states = sieve_extend(fn, sieve_init(fn, K), torch.arange(fn.n, device="cuda")).states
+    out["sieve_gains"] = sieve_gains_record(label, fn, states)
+    SIEVE.setdefault("launches", out["legacy"]["sieve_gains_launches"])
+    return out
+
+
+def sieve_small() -> None:
+    """Sieve streaming at n = 4096 on the three objectives, legacy and
+    eps = 0.2: the card's route against the plain table on the card (the
+    same decisions in every sieve), two calls alike, and one-shot, two
+    halves and per-element updates (the first 512 elements) alike bit for
+    bit."""
+    from repro_torch import sieve_extend, sieve_init, sieve_update
+
+    n = 4096
+    for label, make in _small_objectives(n).items():
+        fn = make("cuda")
+        stream = torch.arange(n, device="cuda")
+        for eps in (None, 0.2):
+            what = f"small {label} sieve ({'legacy' if eps is None else f'eps={eps}'})"
+            _sieve_reset()
+            card = sieve_extend(fn, sieve_init(fn, K, eps=eps), stream)
+            counts = _sieve_read()
+            check(counts["sieve_gains_launches"] > 0, f"{what}: no kernel launch")
+            ref = sieve_extend(fn, sieve_init(fn, K, eps=eps), stream,
+                               backend="reference")
+            _same_decisions(card, ref, f"{what}: card vs plain route")
+            check(_same_bits(card, sieve_extend(fn, sieve_init(fn, K, eps=eps), stream)),
+                  f"{what}: two calls differ")
+            half = sieve_extend(fn, sieve_init(fn, K, eps=eps), stream[: n // 2])
+            check(_same_bits(card, sieve_extend(fn, half, stream[n // 2:])),
+                  f"{what}: two halves differ from one shot")
+            st = sieve_init(fn, K, eps=eps)
+            for v in range(512):
+                st = sieve_update(fn, st, v)
+            check(_same_bits(st, sieve_extend(fn, sieve_init(fn, K, eps=eps),
+                                              stream[:512])),
+                  f"{what}: per-element updates differ from one shot")
+            print(f"{what} (n={n}, k={K}): card == plain route decision for "
+                  f"decision; deterministic; one-shot == two halves == per-element "
+                  f"(512) bit for bit; {counts['chunks']} chunks, "
+                  f"{counts['rounds']} rounds, {counts['host_reads']} host reads",
+                  flush=True)
+        del fn
+        torch.cuda.empty_cache()
+
+
+def row_sieve_phase(fn) -> dict:
+    """The row sieve over the first 2^14 rows of FeatureCoverage's W at eps
+    = 0.2, one row per ``stream_sieve_update``: µs per update (host clock,
+    synchronised, over the whole stream), and the same picks as the index
+    sieve over the same elements."""
+    from repro_torch import (
+        sieve_best, sieve_extend, sieve_init, stream_sieve_best, stream_sieve_init,
+        stream_sieve_update,
+    )
+
+    n, eps = min(1 << 14, fn.n), 0.2
+    rows = fn.W[:n]
+
+    def run():
+        st = stream_sieve_init(K, fn.W.shape[1], eps=eps, device=fn.device)
+        took = 0
+        for i in range(n):
+            st, t_ = stream_sieve_update(st, rows[i])
+            took = took + t_
+        return st, took
+
+    (st, took), wall = _synced(run)
+    us = wall / n * 1e6
+    a = sieve_best(sieve_extend(fn, sieve_init(fn, K, eps=eps),
+                                torch.arange(n, device="cuda")))
+    b = stream_sieve_best(st)
+    check(torch.equal(a.selected, b.selected),
+          f"row sieve: picks {b.selected.tolist()} vs the index sieve's "
+          f"{a.selected.tolist()}")
+    rel = abs(float(a.value) - float(b.value)) / float(a.value)
+    check(rel <= 1e-5, f"row sieve: f(S) {float(b.value)} vs {float(a.value)}")
+    print(f"row sieve over news_day's first {n} rows (eps = {eps}, T = "
+          f"{st.jidx.shape[0]}, k = {K}): {us:.2f} us per update (host clock, "
+          f"synchronised), {int(took)} rows accepted; the same picks as the index "
+          f"sieve, f(S) {float(b.value):.6f} vs {float(a.value):.6f}", flush=True)
+    return {"rows": n, "us_per_update": us, "accepted": int(took)}
 
 
 # -- facility location --------------------------------------------------------
@@ -1448,6 +1747,7 @@ def fl_dense_path(errs: dict) -> list[dict]:
     check(rel >= 0.95, f"path A: relative quality {rel} < 0.95")
     stochastic = stochastic_phase("path A", fn, ss, full, wall_full,
                                   fl_gains_kernel, panel=True)
+    SIEVE["path A"] = sieve_path("path A", fn, full, wall_full)
     return [
         {"name": "fl_divergence", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fl_divergence.cu",
@@ -1576,6 +1876,7 @@ def fl_stream_path(errs: dict) -> list[dict]:
     profile_summarize("path B", fn, ("fl_stream_gains",))
     stochastic = stochastic_phase("path B", fn, ss, full, wall_full,
                                   fl_stream_gains_kernel)
+    SIEVE["path B"] = sieve_path("path B", fn, full, wall_full)
 
     # SS's quality at r = c = 8 falls as this data set grows, in the JAX
     # reference as in the port (they prune alike under the same draws,
@@ -2012,6 +2313,27 @@ def lm_path(errs: dict) -> dict:
     }
 
 
+def sieve_record() -> dict:
+    """The eighth record: ``sieve_gains``, timed at FeatureCoverage's shapes
+    (the quickstart's and fig1's baseline), the other paths beside it;
+    launches from the full-size legacy run on FeatureCoverage."""
+    fc = SIEVE["paths"]["FeatureCoverage"]
+    return {
+        "name": "sieve_gains", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sieve_gains.cu",
+        "replaces": "src/repro/core/sieve.py:229 (the lax.scan body of "
+                    "sieve_extend; no TPU kernel)",
+        "launches": SIEVE["launches"], "max_abs_err": max(SIEVE["errs"]),
+        "ms": fc["ms"], "plain_ms": fc["plain_ms"], "bound_ms": fc["bound_ms"],
+        "bound_by": fc["bound_by"], "library_ms": None,
+        "dense_bound_ms": fc["dense_bound_ms"], "paths": SIEVE["paths"],
+        "runs": {k: {kk: vv for kk, vv in v.items() if kk != "sieve_gains"}
+                 for k, v in SIEVE.items()
+                 if k in ("FeatureCoverage", "path A", "path B")},
+        "row_sieve": SIEVE["row_sieve"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -2062,6 +2384,7 @@ def main() -> int:
     fl_sweep(errs)
     fl_small_pipelines()
     selectors_small()
+    sieve_small()
     quickstart_phase()
 
     # 10-11. path A and path B at full size, each on a freed card
@@ -2075,11 +2398,13 @@ def main() -> int:
     flash_sweep(errs)
     torch.cuda.reset_peak_memory_stats()
     records.append(lm_path(errs))
-    check(len(records) == 7 and all(
+    records.append(sieve_record())
+    check(len(records) == 8 and all(
         math.isfinite(r_[k]) for r_ in records
         for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")),
         "a measurement is missing or not finite")
-    check(math.isfinite(records[-1]["library_ms"]), "flash: no library time")
+    flash = next(r_ for r_ in records if r_["name"] == "flash_attention")
+    check(math.isfinite(flash["library_ms"]), "flash: no library time")
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,9 @@
 Builds a synthetic news day, runs greedy on the whole ground set, then
 Submodular Sparsification (Algorithm 1) + greedy on the reduced set V', and
 prints the utility ratio, the reduction and the certificate.  Then the
-paper's other selectors on V (stochastic and lazy greedy), the one-call
-pipeline with the §3.4 improvements, and matrix-free facility location.
+paper's other selectors on V (stochastic and lazy greedy), the streaming
+baseline (sieve streaming), the one-call pipeline with the §3.4
+improvements, and matrix-free facility location.
 On the card, SS and greedy run once more through the plain backend under
 the same draws: the kernels must give the same V' and the same picks.
 
@@ -24,6 +25,7 @@ from repro_torch import (
     greedy,
     lazy_greedy,
     news_day,
+    sieve_streaming,
     ss_sparsify,
     stochastic_greedy,
     summarize,
@@ -98,6 +100,12 @@ print(f"stochastic greedy on V: f(S) = {float(sg.value):.4f}  (relative to "
 lz, wall = timed(lambda: lazy_greedy(fn, K))
 print(f"lazy greedy on V:   f(S) = {float(lz.value):.4f}  "
       f"({lz.reevaluations} re-evaluations, wall {wall:.4f} s)")
+
+# --- streaming baseline ------------------------------------------------------
+sv, wall = timed(lambda: sieve_streaming(fn, K))
+sieve_relative = float(sv.value / full.value)
+print(f"sieve-streaming:    f(S) = {float(sv.value):.4f}  "
+      f"(relative = {sieve_relative:.4f}, wall {wall:.4f} s)")
 
 # --- one-call pipeline -------------------------------------------------------
 res, _ = summarize(fn, K, seeded(0), preprune=True, importance=True)

@@ -4,7 +4,9 @@ The paper's main path, SS (Algorithm 1) then greedy on the pruned set V',
 over FeatureCoverage and over facility location (dense, and matrix-free over
 embedding rows), with their hot spots as hand-written CUDA kernels for
 Hopper; the paper's other selectors (stochastic, lazy and bidirectional
-greedy) and the §3.4 post-reduction run through the same kernels.  The JAX package ``repro`` is the reference it is tested against;
+greedy) and the §3.4 post-reduction run through the same kernels, and the
+streaming baseline, sieve streaming, through a gain-table kernel of its
+own.  The JAX package ``repro`` is the reference it is tested against;
 this package imports nothing of it.
 """
 
@@ -22,6 +24,10 @@ from repro_torch.core import (
     LazyGreedyResult,
     ReferenceBackend,
     SSResult,
+    STREAM_PHIS,
+    SieveResult,
+    SieveState,
+    StreamSieveState,
     StreamingFacilityLocation,
     auto_sample_size,
     bidirectional_greedy,
@@ -32,20 +38,32 @@ from repro_torch.core import (
     lazy_greedy,
     postreduce,
     resolve_backend,
+    sieve_best,
+    sieve_extend,
+    sieve_init,
+    sieve_streaming,
+    sieve_update,
     ss_sparsify,
     stochastic_greedy,
+    stream_sieve_best,
+    stream_sieve_init,
+    stream_sieve_update,
     summarize,
+    threshold_grid,
 )
 from repro_torch.data import clustered_embeddings, news_day, video
 
 __all__ = [
     "CudaBackend", "FacilityLocation", "FeatureCoverage", "GreedyResult",
-    "LazyGreedyResult", "ReferenceBackend", "SSResult",
+    "LazyGreedyResult", "ReferenceBackend", "SSResult", "STREAM_PHIS",
+    "SieveResult", "SieveState", "StreamSieveState",
     "StreamingFacilityLocation", "auto_sample_size", "bidirectional_greedy",
     "check_triangle_inequality", "clustered_embeddings", "divergence_update",
     "facility_location_from_features", "facility_location_from_numpy",
     "feature_coverage_from_numpy", "full_edge_matrix", "greedy", "lazy_greedy",
-    "news_day", "postreduce", "resolve_backend", "ss_sparsify",
-    "stochastic_greedy", "streaming_facility_location_from_numpy", "summarize",
-    "video",
+    "news_day", "postreduce", "resolve_backend", "sieve_best", "sieve_extend",
+    "sieve_init", "sieve_streaming", "sieve_update", "ss_sparsify",
+    "stochastic_greedy", "stream_sieve_best", "stream_sieve_init",
+    "stream_sieve_update", "streaming_facility_location_from_numpy",
+    "summarize", "threshold_grid", "video",
 ]

@@ -1,4 +1,5 @@
-"""Objectives, the submodularity graph, backends, SS and greedy."""
+"""Objectives, the submodularity graph, backends, SS, greedy and sieve
+streaming."""
 
 from repro_torch.core.backend import (
     Backend,
@@ -32,6 +33,21 @@ from repro_torch.core.greedy import (
     selection_bucket,
     stochastic_greedy,
 )
+from repro_torch.core.sieve import (
+    STREAM_PHIS,
+    SieveResult,
+    SieveState,
+    StreamSieveState,
+    sieve_best,
+    sieve_extend,
+    sieve_init,
+    sieve_streaming,
+    sieve_update,
+    stream_sieve_best,
+    stream_sieve_init,
+    stream_sieve_update,
+    threshold_grid,
+)
 from repro_torch.core.sparsify import (
     SSResult,
     bucket_schedule,
@@ -49,11 +65,15 @@ from repro_torch.core.sparsify import (
 __all__ = [
     "Backend", "CudaBackend", "FacilityLocation", "FeatureCoverage",
     "GreedyResult", "LazyGreedyResult", "NEG", "ReferenceBackend", "SSResult",
+    "STREAM_PHIS", "SieveResult", "SieveState", "StreamSieveState",
     "StreamingFacilityLocation", "SubmodularFunction", "auto_sample_size",
     "bidirectional_greedy", "bucket_schedule", "check_triangle_inequality",
     "divergence", "divergence_compact", "divergence_update", "edge_weights",
     "edge_weights_compact", "full_edge_matrix", "greedy", "lazy_greedy",
     "max_rounds", "postreduce", "predicted_live_counts", "preprune_mask",
-    "probe_count", "resolve_backend", "selection_bucket", "ss_cost_model",
-    "ss_live_bound", "ss_sparsify", "stochastic_greedy", "summarize",
+    "probe_count", "resolve_backend", "selection_bucket", "sieve_best",
+    "sieve_extend", "sieve_init", "sieve_streaming", "sieve_update",
+    "ss_cost_model", "ss_live_bound", "ss_sparsify", "stochastic_greedy",
+    "stream_sieve_best", "stream_sieve_init", "stream_sieve_update",
+    "summarize", "threshold_grid",
 ]

@@ -2,7 +2,9 @@
 
 SS and greedy evaluate four primitives: ``gains`` / ``gains_compact`` (the
 greedy step, full width or over a compacted candidate buffer) and
-``divergence`` / ``divergence_compact`` (the SS round, paper Def. 2).
+``divergence`` / ``divergence_compact`` (the SS round, paper Def. 2);
+sieve streaming a fifth, ``sieve_table`` (its states against a chunk of
+the stream).
 Greedy over a buffer first asks ``prepare_compact`` what its steps should
 read (the objective's ``cuda_prepare`` under ``cuda``: dense facility
 location gathers its candidate columns once).  This module decides how they
@@ -28,6 +30,11 @@ import torch
 
 from repro_torch.core import graph
 from repro_torch.core.functions import SubmodularFunction
+from repro_torch.kernels.sieve_gains import (
+    SieveElements,
+    sieve_gains_kernel,
+    sieve_gains_ref,
+)
 
 Tensor = torch.Tensor
 
@@ -76,6 +83,19 @@ class Backend:
         """w_{U,v} for the candidate buffer ``cand_idx`` (k,).  (k,)."""
         return graph.divergence_compact(fn, probes, cand_idx, residual, state)
 
+    def sieve_table(
+        self,
+        fn: SubmodularFunction,
+        S: Tensor,
+        el: SieveElements,
+        start: Tensor | None = None,
+    ) -> Tensor:
+        """The sieve table of the states ``S`` (R, L) against ``el``'s
+        elements (``kernels/sieve_gains.py``), (R, n_cols).  Rows may skip
+        the columns before ``start`` (R,); the plain path computes them."""
+        return sieve_gains_ref(S, el.E, el.idx, cols=el.cols, phi=el.phi,
+                               feat_w=el.feat_w, cap=el.cap)
+
 
 @dataclasses.dataclass(frozen=True)
 class ReferenceBackend(Backend):
@@ -121,6 +141,10 @@ class CudaBackend(Backend):
         if residual is None:
             residual = fn.residual_gains()
         return fn.cuda_divergence(probes, residual, state, cand_idx)
+
+    def sieve_table(self, fn, S, el, start=None):
+        self._check(fn)
+        return sieve_gains_kernel(S, el, start)
 
 
 _BACKENDS = {"reference": ReferenceBackend, "cuda": CudaBackend}

@@ -21,7 +21,9 @@ and the greedy step to the CUDA kernels (:mod:`repro_torch.core.backend`,
 ``CudaBackend``).  The base class has no kernel: its hooks raise, and the
 backend does not fall back to the plain path.  A third, ``cuda_prepare``,
 lays a greedy run's candidate buffer out for ``cuda_gains`` once, before the
-first step; by default it keeps the buffer as it is.
+first step; by default it keeps the buffer as it is.  Sieve streaming reads
+its gain table's elements through ``sieve_elements`` (and the chunk size
+that bounds, ``sieve_chunk``).
 """
 
 from __future__ import annotations
@@ -55,12 +57,18 @@ from repro_torch.kernels.ref import (
     matmul_ieee,
     sim_rows,
 )
+from repro_torch.kernels.sieve_gains import SieveElements
 from repro_torch.kernels.ss_weights import ss_divergence_kernel
 
 Tensor = torch.Tensor
 
 # Large-but-finite negative used to mask dead candidates in argmax / min.
 NEG = -1e30
+# Matrix-free facility location's sieve table: a chunk's similarity columns
+# stay under SIEVE_COLUMN_ELEMS float32 entries (1 GiB) and are computed in
+# blocks of exactly SIEVE_BLOCK columns.
+SIEVE_COLUMN_ELEMS = 1 << 28
+SIEVE_BLOCK = 128
 
 __all__ = ["NEG", "SubmodularFunction", "FeatureCoverage", "FacilityLocation",
            "StreamingFacilityLocation", "_phi"]
@@ -147,6 +155,18 @@ class SubmodularFunction(abc.ABC):
         """What :meth:`cuda_gains` reads in place of the candidate buffer
         ``cand_idx`` over a greedy run, made once: the buffer itself."""
         return cand_idx
+
+    def sieve_elements(self, vals: Tensor) -> SieveElements:
+        """The element side of sieve streaming's gain table
+        (``kernels/sieve_gains.py``) for the stream values ``vals`` (c,):
+        the c elements, then the zero element (index -1), whose entry is
+        value(S)."""
+        raise NotImplementedError(f"{type(self).__name__} has no sieve table")
+
+    def sieve_chunk(self) -> int | None:
+        """The most stream elements one :meth:`sieve_elements` takes (None:
+        no limit of the objective's own)."""
+        return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -281,6 +301,11 @@ class FeatureCoverage(SubmodularFunction):
             self.W, c, phi_c, _f32(cap), _f32(self.feat_w), cand_idx,
             phi=self.phi,
         )
+
+    def sieve_elements(self, vals: Tensor) -> SieveElements:
+        """Rows of W, the term w_l phi(s + e)."""
+        return SieveElements(_sieve_f32(self.W), _with_zero(vals), False, self.phi,
+                             _f32(self.feat_w), _f32(self._cap()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -425,6 +450,10 @@ class FacilityLocation(SubmodularFunction):
             return fl_gains_kernel(cand_idx.cols, state)
         return fl_gains_kernel(self.sim, state, cand_idx)
 
+    def sieve_elements(self, vals: Tensor) -> SieveElements:
+        """Columns of sim, the term max(s, e)."""
+        return SieveElements(_sieve_f32(self.sim), _with_zero(vals), True)
+
 
 @dataclasses.dataclass(frozen=True)
 class StreamingFacilityLocation(SubmodularFunction):
@@ -532,6 +561,31 @@ class StreamingFacilityLocation(SubmodularFunction):
     def cuda_gains(self, state: Tensor, cand_idx: Tensor | None = None) -> Tensor:
         return fl_stream_gains_kernel(self._served(), state, cand_idx, self.X)
 
+    def sieve_elements(self, vals: Tensor) -> SieveElements:
+        """The chunk's columns relu(X_served · X[v]), as the first c columns
+        of one (ni, c rounded up to SIEVE_BLOCK) buffer, made by
+        ``matmul_ieee`` in blocks of exactly SIEVE_BLOCK columns (the last
+        padded with the chunk's first element), so that each column has the
+        bits of one product shape at any position in any chunk; the term
+        max(s, e)."""
+        _sieve_f32(self.X)
+        vals = vals.long()
+        c = vals.shape[0]
+        pad = -c % SIEVE_BLOCK
+        blocks = torch.cat([vals, vals[:1].expand(pad)]) if pad else vals
+        Xs = self._served()
+        cols = torch.empty((Xs.shape[0], blocks.shape[0]), dtype=torch.float32,
+                           device=vals.device)
+        for lo in range(0, blocks.shape[0], SIEVE_BLOCK):
+            cols[:, lo:lo + SIEVE_BLOCK] = sim_rows(
+                Xs, self.X.index_select(0, blocks[lo:lo + SIEVE_BLOCK]))
+        pos = torch.arange(c, device=vals.device)
+        return SieveElements(cols, _with_zero(pos), True)
+
+    def sieve_chunk(self) -> int:
+        """A chunk's columns stay under SIEVE_COLUMN_ELEMS float32 entries."""
+        return max(1, SIEVE_COLUMN_ELEMS // self._served().shape[0])
+
 
 def _normalize(X: Tensor) -> Tensor:
     """Rows of X scaled to unit norm (rows of norm below 1e-9 by 1e-9)."""
@@ -549,3 +603,14 @@ def _by_rows(W: Tensor, row_fn) -> Tensor:
 
 def _f32(t: Tensor | None) -> Tensor | None:
     return None if t is None else t.float().contiguous()
+
+
+def _sieve_f32(t: Tensor) -> Tensor:
+    if t.dtype != torch.float32:
+        raise TypeError(f"sieve streaming runs float32 objectives; got {t.dtype}")
+    return t
+
+
+def _with_zero(vals: Tensor) -> Tensor:
+    """The stream values (int64) and the zero element, -1, last."""
+    return torch.cat([vals.long(), vals.new_full((1,), -1, dtype=torch.int64)])

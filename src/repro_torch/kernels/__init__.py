@@ -22,13 +22,16 @@ from repro_torch.kernels.ref import (
     fl_divergence_ref,
     fl_stream_divergence_ref,
     fl_stream_pair_ref,
+    sieve_gains_ref,
     split_bf16,
     ss_divergence_ref,
 )
+from repro_torch.kernels.sieve_gains import SieveElements, sieve_gains_kernel
 from repro_torch.kernels.ss_weights import ss_divergence_kernel
 
 __all__ = [
     "GainsPanel",
+    "SieveElements",
     "attention_ref",
     "attention_split_p_ref",
     "build",
@@ -46,6 +49,8 @@ __all__ = [
     "flash_attention_ref",
     "flash_route",
     "load_library",
+    "sieve_gains_kernel",
+    "sieve_gains_ref",
     "split_bf16",
     "ss_divergence_kernel",
     "ss_divergence_ref",

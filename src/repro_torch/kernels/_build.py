@@ -131,6 +131,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         p, p,            # out, stream
     ]
     lib.fl_stream_launch.restype = i
+    lib.sieve_gains_launch.argtypes = [
+        p, i, ll,        # S, sieves R, leaves L
+        p, i, ll, ll,    # E, E's elements are columns, its leading dim, elements n_e
+        p, i,            # idx (-1: the zero element), columns of the table
+        p,               # start (or NULL): row j skips columns before start[j]
+        i, i,            # facility location (max), else the phi kind
+        p, p,            # feat_w (or NULL), cap (or NULL)
+        p,               # scratch: sieve_slabs(L) x R x columns floats (NULL: 1 slab)
+        p, p,            # out, stream
+    ]
+    lib.sieve_gains_launch.restype = i
     lib.flash_attention_launch.argtypes = [
         p, p, p, p,      # q, k, v, out
         i, i, i, i, i, i,  # inputs are bf16, B, S, H, KV, head_dim

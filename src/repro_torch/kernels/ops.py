@@ -5,7 +5,8 @@ They follow the objective's device: on the card they run the CUDA kernels
 greedy reach the same code through :mod:`repro_torch.core.backend`.  The
 FeatureCoverage entries serve any objective; the ``fl_*`` entries take only
 the two facility-location objectives, whose hooks run ``fl_divergence.cu``
-(dense) or ``fl_stream.cu`` (matrix-free).
+(dense) or ``fl_stream.cu`` (matrix-free).  ``sieve_gains`` serves the three
+objectives through ``sieve_gains.cu``.
 """
 
 from __future__ import annotations
@@ -69,3 +70,15 @@ def fl_gains(fn, state: Tensor, cand_idx: Tensor | None = None) -> Tensor:
     be = _fl(fn)
     return be.gains(fn, state) if cand_idx is None else be.gains_compact(
         fn, state, cand_idx)
+
+
+def sieve_gains(fn, states: Tensor, elements: Tensor) -> Tensor:
+    """Sieve streaming's gains value(add(s, v)) - value(s), the reference's
+    literal form, for each state row s of ``states`` (R, L) and each
+    element v of ``elements`` (c,): (R, c) float32.  Both values come from
+    one table of the objective's ``sieve_elements`` (the kernel on the
+    card), value(s) as the zero element's entry."""
+    el = fn.sieve_elements(torch.as_tensor(elements, device=fn.device).long())
+    tab = resolve_backend(None, fn.device).sieve_table(
+        fn, states.float().contiguous(), el)
+    return tab[:, :-1] - tab[:, -1:]

@@ -253,6 +253,95 @@ def fl_stream_divergence_ref(
                     MU, resid)
 
 
+# -- sieve streaming ---------------------------------------------------------
+
+#: Leaves per segment, and per slab, of the sieve table's sum
+#: (``csrc/sieve_gains.cu``: LK and SLAB).
+SIEVE_SEG = 32
+SIEVE_SLAB = 128 * SIEVE_SEG
+
+
+def _slab_sum(H: Tensor) -> Tensor:
+    """One slab's sum over the last axis (at most SIEVE_SLAB leaves):
+    segments of SIEVE_SEG leaves, each a contiguous pairwise tree ((h0 + h1)
+    + (h2 + h3)) + ..., added in order to a running sum from 0; leaves past
+    the end are 0."""
+    pad = -H.shape[-1] % SIEVE_SEG
+    if pad:
+        H = torch.nn.functional.pad(H, (0, pad))
+    x = H.reshape(*H.shape[:-1], -1, SIEVE_SEG)
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    x = x[..., 0]
+    acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=H.device)
+    for s in range(x.shape[-1]):
+        acc = acc + x[..., s]
+    return acc
+
+
+def sieve_tree_sum(H: Tensor) -> Tensor:
+    """Sum over the last axis in the sieve table's fixed order: each slab of
+    SIEVE_SLAB leaves by :func:`_slab_sum`, the slabs' sums added in order
+    to a running sum from 0.  Every step is one float32 add, so each
+    output's bits depend only on its own leaves."""
+    acc = None
+    for l0 in range(0, H.shape[-1], SIEVE_SLAB):
+        part = _slab_sum(H[..., l0:l0 + SIEVE_SLAB])
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def sieve_elements(E: Tensor, idx: Tensor, cols: bool, lo: int, hi: int) -> Tensor:
+    """Elements ``idx[lo:hi]`` as rows (hi - lo, L) in float32: rows of E
+    (cols False: E is (n_e, L)) or columns (cols True: E is (L, n_e)); the
+    index -1 is the zero element."""
+    ix = idx[lo:hi]
+    safe = ix.clamp_min(0)
+    rows = (E[:, safe].T if cols else E[safe]).float()
+    return torch.where((ix == -1)[:, None], 0.0, rows)
+
+
+def sieve_gains_ref(
+    S: Tensor,            # (R, L) sieve states
+    E: Tensor,            # (n_e, L) rows, or (L, n_e) with cols
+    idx: Tensor,          # (n_cols,) int64 elements; -1 is the zero element
+    *,
+    cols: bool,
+    phi: str | None = None,            # None: facility location, h = max(s, e)
+    feat_w: Tensor | None = None,      # (L,) FeatureCoverage feature weights
+    cap: Tensor | None = None,         # (L,) satcov caps
+) -> Tensor:
+    """The sieve table out[j, c] = sum_l h(S[j, l], E(c, l)): h = w_l phi(s +
+    e) for FeatureCoverage, max(s, e) for facility location.  (R, n_cols)
+    float32, each sum in :func:`sieve_tree_sum`'s order, a slab at a time
+    over blocks of columns of at most 256 MiB."""
+    R, L = S.shape
+    n_cols = idx.shape[0]
+    Sf = S.float()
+    fw = None if feat_w is None else feat_w.float()
+    capf = None if cap is None else cap.float()
+    out = torch.empty((R, n_cols), dtype=torch.float32, device=S.device)
+    slab = min(-(-L // SIEVE_SEG) * SIEVE_SEG, SIEVE_SLAB)
+    step = max(1, _ELEMS // max(1, R * slab))
+    for lo in range(0, n_cols, step):
+        hi = min(n_cols, lo + step)
+        Ec = sieve_elements(E, idx, cols, lo, hi)
+        acc = None
+        for l0 in range(0, L, SIEVE_SLAB):
+            l1 = min(L, l0 + SIEVE_SLAB)
+            s_, e_ = Sf[:, None, l0:l1], Ec[None, :, l0:l1]
+            if phi is None:
+                H = torch.maximum(s_, e_)
+            else:
+                H = _phi(phi, s_ + e_, None if capf is None else capf[l0:l1])
+                if fw is not None:
+                    H = H * fw[l0:l1]
+            part = _slab_sum(H)
+            acc = part if acc is None else acc + part
+        out[:, lo:hi] = acc
+    return out
+
+
 # -- attention ---------------------------------------------------------------
 
 

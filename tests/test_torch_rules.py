@@ -15,8 +15,13 @@ from repro_torch import (
     feature_coverage_from_numpy,
     greedy,
     lazy_greedy,
+    sieve_extend,
+    sieve_init,
+    sieve_streaming,
+    sieve_update,
     ss_sparsify,
     stochastic_greedy,
+    stream_sieve_init,
     streaming_facility_location_from_numpy,
     summarize,
 )
@@ -35,7 +40,8 @@ FORBIDDEN = {"jax", "jaxlib", "repro"}
 def _port_files():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     assert len(files) >= 15
-    assert {"fl_divergence.py", "fl_stream.py"} <= {f.name for f in files}
+    assert {"fl_divergence.py", "fl_stream.py", "sieve.py",
+            "sieve_gains.py"} <= {f.name for f in files}
     return files + [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
 
 
@@ -65,7 +71,8 @@ def _fn():
 
 CALLS = ["gains", "gains_compact", "divergence", "divergence_compact",
          "ss_sparsify", "greedy", "summarize", "stochastic_greedy",
-         "lazy_greedy"]
+         "lazy_greedy", "sieve_table", "sieve_streaming", "sieve_extend",
+         "sieve_update"]
 
 
 @pytest.mark.parametrize("call", CALLS)
@@ -83,6 +90,12 @@ def test_cuda_backend_refuses_cpu_tensors(call, fn=None):
         "summarize": lambda: summarize(fn, 3, backend=be),
         "stochastic_greedy": lambda: stochastic_greedy(fn, 3, backend="cuda"),
         "lazy_greedy": lambda: lazy_greedy(fn, 3, backend=be),
+        "sieve_table": lambda: be.sieve_table(fn, fn.empty_state()[None], None),
+        "sieve_streaming": lambda: sieve_streaming(fn, 3, backend="cuda"),
+        "sieve_extend": lambda: sieve_extend(fn, sieve_init(fn, 3), cand,
+                                             backend=be),
+        "sieve_update": lambda: sieve_update(fn, sieve_init(fn, 3, eps=0.2), 1,
+                                             backend="cuda"),
     }
     with pytest.raises(ValueError, match="CUDA tensors only"):
         calls[call]()
@@ -120,6 +133,22 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         feature_coverage_from_numpy(W)
     assert feature_coverage_from_numpy(W, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stream_sieve_init(3, 8)
+    assert stream_sieve_init(3, 8, device="cpu").cov.device.type == "cpu"
+
+
+def test_every_kernel_source_is_built():
+    """The build compiles every ``csrc/*.cu``, the sieve's table included,
+    and each source has a wrapper that counts its launches."""
+    from repro_torch.kernels import _build
+
+    built = {p.name for p in _build.CSRC.glob("*.cu")}
+    assert {"ss_divergence.cu", "feature_gains.cu", "fl_divergence.cu",
+            "fl_stream.cu", "flash_attention.cu", "flash_attention_tc.cu",
+            "sieve_gains.cu"} == built
+    text = Path(_build.__file__).read_text()
+    assert "lib.sieve_gains_launch.argtypes" in text
 
 
 FL_OBJECTIVES = {
