@@ -40,7 +40,18 @@ decisions are held to the plain table's (full size on FeatureCoverage,
 n = 4096 on all three, where one shot, two halves and per-element updates
 agree bit for bit; on path B at full size an element's similarity column
 is checked to have one set of bits wherever it sits in its block), and the
-row sieve runs over 2^14 rows against the index sieve.  The
+row sieve runs over 2^14 rows against the index sieve.  Batched
+execution runs as the summarization service's lanes: the first 2^19
+sentences of the news day as 8 queries of 2^16 (a view, no new bytes) and
+4 queries of 2^13 frames of path A's video (cosine, 1 GiB of stacked
+similarities), each through ``summarize_batch`` (one kernel launch a row a
+round or step), its rows held bit for bit to the card's single-query
+``summarize``, its stochastic selector to per-row stochastic greedy, its
+streamed selection to the unstreamed one, its wall to the single queries'.
+After the LM path, a fresh prefill's KV cache is pruned to 256 positions
+(``Engine.prune_kv``, coverage and fl objectives, the kernel route held to
+the plain one under the same draws) and 32 tokens are decoded from it,
+held to the plain attention at every step.  The
 FeatureCoverage kernels sum only the terms W's nonzeros make nonzero, so
 they are also swept over sparse W and their bounds count what these inputs
 need (W read once as stored, the work of its nonzeros), printed beside the
@@ -1067,6 +1078,8 @@ def fc_path(errs: dict) -> list[dict]:
     SIEVE["FeatureCoverage"] = sieve_path("FeatureCoverage", fn, full, wall_full,
                                           eps_runs=(None, 0.1), plain=True)
     SIEVE["row_sieve"] = row_sieve_phase(fn)
+    # the service's coverage lane: the same news day as 8 queries of 2^16
+    records[0]["lane"] = coverage_lane(fn)
     return records
 
 
@@ -1748,6 +1761,8 @@ def fl_dense_path(errs: dict) -> list[dict]:
     stochastic = stochastic_phase("path A", fn, ss, full, wall_full,
                                   fl_gains_kernel, panel=True)
     SIEVE["path A"] = sieve_path("path A", fn, full, wall_full)
+    # the service's FL lane: 4 queries of 2^13 frames of the same video
+    lane = fl_lane(X)
     return [
         {"name": "fl_divergence", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fl_divergence.cu",
@@ -1755,7 +1770,7 @@ def fl_dense_path(errs: dict) -> list[dict]:
          "launches": counts["summarize"]["fl_divergence"],
          "max_abs_err": errs["fl_divergence"], "ms": ms, "plain_ms": plain_ms,
          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-         "round2_sized": {"cands": mid, "ms": ms_mid}, "tile": tile},
+         "round2_sized": {"cands": mid, "ms": ms_mid}, "tile": tile, "lane": lane},
         {"name": "fl_gains", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fl_divergence.cu",
          "replaces": "src/repro/kernels/fl_divergence.py:175",
@@ -2291,6 +2306,9 @@ def lm_path(errs: dict) -> dict:
           f"{lib_long:.4f} ms; vs plain err {err_plain:.3g}, vs the library "
           f"{err_long:.3g}; bfloat16 checks at most {FLASH_WORST[0]:.4f} of "
           "their tolerance", flush=True)
+    # SS pruning of the KV cache after a fresh prefill, then decode from it
+    del q1, k1, v1, out_long, lib_out, qx, kx, vx
+    kv_prune = kv_prune_phase(cfg, eng, prompts, sc)
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
@@ -2309,8 +2327,428 @@ def lm_path(errs: dict) -> dict:
         "lm_path": {"arch": cfg.name, "batch": B, "prompt": S, "new": NEW,
                     "prefill_ms": prefill_ms, "ttft_ms": ttft_ms,
                     "decode_ms_per_step": ms_tok, "peak_gib": peak,
-                    "profile": prof},
+                    "profile": prof, "kv_prune": kv_prune},
     }
+
+
+# -- batched execution: the service's lanes and SS pruning of the KV cache ----
+
+LANE_B, LANE_N = 8, 1 << 16        # coverage lane: 8 queries of 2^16 sentences
+FL_LANE_B, FL_LANE_N = 4, 1 << 13  # FL lane: 4 queries of 2^13 frames
+KV_BUDGET = 256                    # the reference's KVSelectConfig default
+
+
+def _lane_gens(B: int, base: int) -> list:
+    return [torch.Generator(device="cuda").manual_seed(base + b) for b in range(B)]
+
+
+def _median_wall(call, reps: int = 3) -> float:
+    """The median synchronised host-clock wall of ``reps`` calls."""
+    return statistics.median(_synced(call)[1] for _ in range(reps))
+
+
+def _rows_equal(res, ss, singles, what: str) -> None:
+    """Row b of a batched summarize equals the b-th single-query summarize
+    bit for bit: V', eps_hat, rounds, alive_trace, picks, gains, f(S)."""
+    for b, (r1, s1) in enumerate(singles):
+        for name, got, want in (
+                ("vprime", ss.vprime[b], s1.vprime), ("eps_hat", ss.eps_hat[b], s1.eps_hat),
+                ("alive_trace", ss.alive_trace[b], s1.alive_trace),
+                ("selected", res.selected[b], r1.selected),
+                ("gains", res.gains[b], r1.gains), ("value", res.value[b], r1.value)):
+            check(torch.equal(got, want), f"{what}: row {b}'s {name} differs from "
+                  "the single-query run on the card")
+        check(ss.rounds[b] == s1.rounds, f"{what}: row {b}'s rounds differ")
+
+
+def _lane(label: str, fn, kernels: dict, base_seed: int) -> dict:
+    """One service lane through ``summarize_batch`` on the card: the kernels'
+    launches (counts set to 0 just before, read just after), rows against
+    the single-query ``summarize`` of each query bit for bit, the stochastic
+    selector against per-row ``stochastic_greedy`` under the same plan and
+    draws, the streamed call against the unstreamed, and the batched wall
+    against the sum of the B single-query walls, host reads and a profile."""
+    from repro_torch import (
+        FacilityLocation, auto_sample_size, stochastic_greedy, summarize,
+    )
+    from repro_torch.core.greedy import _batched_compact_plan, selection_bucket
+    from repro_torch.core.sparsify import _sparsify_batched, ss_live_bound
+    from repro_torch.kernels import fl_gains_panel, takes_panel
+    from repro_torch.serve import summarize_batch
+    from repro_torch.serve.summarize_service import fold_generators
+
+    B, n = fn.batch, fn.row(0).n
+
+    def batched(**kw):
+        return summarize_batch(fn, K, _lane_gens(B, base_seed), r=R, c=C, **kw)
+
+    def sequential():
+        return [summarize(fn.row(b), K, g, r=R, c=C)
+                for b, g in enumerate(_lane_gens(B, base_seed))]
+
+    for kern in kernels.values():
+        kern.launches = 0
+    fl_gains_panel.gathers = 0
+    _sparsify_batched.host_reads = 0
+    (res, ss), wall_first = _synced(batched)
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    gathers, ss_reads = fl_gains_panel.gathers, _sparsify_batched.host_reads
+    div_name, gains_name = list(kernels)
+    check(launches[div_name] == sum(ss.rounds),
+          f"{label}: {launches[div_name]} {div_name} launches, not one a row a round "
+          f"({sum(ss.rounds)})")
+    check(launches[gains_name] == B * K,
+          f"{label}: {launches[gains_name]} {gains_name} launches, not one a row a "
+          f"step ({B * K})")
+    size, live = _batched_compact_plan(n, ss.vprime, ss_live_bound(n, R, C))
+    want = B if isinstance(fn, FacilityLocation) and takes_panel(size or n, n) else 0
+    check(gathers == want, f"{label}: {gathers} panel gathers, not {want} (one a row "
+          "per greedy run where the bucket takes a panel)")
+    check(ss_reads == max(ss.rounds) + 1,
+          f"{label}: {ss_reads} host reads in SS, not one a round and one more")
+    singles = sequential()
+    _rows_equal(res, ss, singles, label)
+    vp = [int(x) for x in ss.vprime.sum(1).tolist()]
+
+    # the stochastic selector: per-row stochastic greedy under the same plan
+    s = auto_sample_size(n, K, 0.1, live)
+    sto, _ = batched(selector="stochastic")
+    same_plan = [b for b in range(B) if selection_bucket(n, vp[b]) == size]
+    for b, g in zip(same_plan, [fold_generators(_lane_gens(B, base_seed), 1)[b]
+                                for b in same_plan]):
+        one = stochastic_greedy(fn.row(b), K, g, s=s, alive=ss.vprime[b])
+        check(torch.equal(one.selected, sto.selected[b])
+              and torch.equal(one.gains, sto.gains[b]),
+              f"{label}: stochastic row {b} differs from per-row stochastic greedy")
+    check(same_plan, f"{label}: no row shares the batch's bucket")
+
+    # the streamed selection equals the unstreamed one
+    steps = []
+    streamed, _ = batched(on_step=lambda i, v, g_, ok: steps.append(v))
+    check(torch.equal(streamed.selected, res.selected)
+          and torch.equal(streamed.gains, res.gains)
+          and torch.equal(torch.stack(steps, 1), res.selected),
+          f"{label}: the streamed selection differs from the unstreamed one")
+
+    # walls: the batch against B single queries, each synchronised, median
+    wall_b = _median_wall(batched)
+    wall_s = _median_wall(sequential)
+    reads_b, reads_s = host_syncs(batched), host_syncs(sequential)
+    prof = profile_run(f"{label} summarize_batch", batched,
+                       watch=(div_name, gains_name), top=6)
+    print(f"{label}: B = {B} x n = {n}, k = {K}: rounds {ss.rounds}, |V'| {vp} "
+          f"(shared bucket {size}), eps_hat {[round(float(x), 6) for x in ss.eps_hat]}; "
+          f"rows equal the single-query summarize bit for bit; stochastic rows "
+          f"{same_plan} equal per-row stochastic greedy (s = {s}); streamed == "
+          f"unstreamed; launches {launches}, panel gathers {gathers}; batched wall "
+          f"{wall_b:.4f} s against {wall_s:.4f} s for {B} single queries (host "
+          f"clock, synchronised, median of 3; first batched call {wall_first:.4f} "
+          f"s); host syncs {reads_b} batched against {reads_s} sequential",
+          flush=True)
+    return {"B": B, "n": n, "k": K, "rounds": ss.rounds, "vprime": vp,
+            "bucket": size, "launches": launches, "panel_gathers": gathers,
+            "ss_host_reads": ss_reads, "wall_s": wall_b, "sequential_wall_s": wall_s,
+            "host_syncs": reads_b, "sequential_host_syncs": reads_s,
+            "busy_ms": prof.get("busy_ms"), "profiled_wall_ms": prof.get("wall_ms")}
+
+
+def coverage_lane(fn) -> dict:
+    """The coverage lane: the first 2^19 sentences of FeatureCoverage's news
+    day (2^20 x 1024) viewed as the service's max_batch = 8 queries of 2^16
+    sentences, a stacked (8, 2^16, 1024) W that costs no new bytes."""
+    from repro_torch import FeatureCoverage
+    from repro_torch.kernels import feature_gains_kernel, ss_divergence_kernel
+
+    W = fn.W[:LANE_B * LANE_N].view(LANE_B, LANE_N, fn.W.shape[1])
+    check(W.data_ptr() == fn.W.data_ptr(), "coverage lane: W was copied")
+    fnb = FeatureCoverage(W=W, phi=fn.phi)
+    return _lane("coverage lane", fnb, {"ss_divergence": ss_divergence_kernel,
+                                        "feature_gains": feature_gains_kernel}, 100)
+
+
+def fl_lane(X) -> dict:
+    """The FL lane: 4 queries of 2^13 frames cut from path A's video, each
+    through ``build_batch_objective`` (cosine similarity on the card, 1 GiB
+    stacked)."""
+    from repro_torch.kernels import fl_divergence_kernel, fl_gains_kernel
+    from repro_torch.serve import SummarizeRequest, build_batch_objective
+
+    reqs = [SummarizeRequest(k=K, seed=b, objective="fl", kernel="cosine",
+                             features=X[b * FL_LANE_N:(b + 1) * FL_LANE_N])
+            for b in range(FL_LANE_B)]
+    fnb, alive = build_batch_objective(reqs, None)
+    check(alive is None and tuple(fnb.sim.shape) == (FL_LANE_B, FL_LANE_N, FL_LANE_N),
+          "FL lane: wrong stacked objective")
+    return _lane("FL lane", fnb, {"fl_divergence": fl_divergence_kernel,
+                                  "fl_gains": fl_gains_kernel}, 200)
+
+
+def _f64_bound(terms: torch.Tensor) -> torch.Tensor:
+    """The rounding bound of a float32 sum of ``terms`` (..., N) in any order,
+    each term itself rounded a few times: 2 (N + 4) 2^-24 sum |t|."""
+    return 2.0 * (terms.shape[-1] + 4) * 2.0 ** -24 * terms.abs().sum(-1)
+
+
+def _f64_pair(fn, mu, cands):
+    """float64 terms of f(v | mu) for the candidates, (r, k, N), and the
+    magnitudes that the float32 routes' sums round against: FeatureCoverage's
+    phi(mu + W_v) - phi(mu) (the plain divergence sums phi(mu + W_v) and
+    subtracts sum phi(mu): both count), facility location's hinge
+    max(sim_iv - mu_i, 0)."""
+    from repro_torch import FeatureCoverage
+
+    if isinstance(fn, FeatureCoverage):
+        hi = torch.sqrt((mu[:, None, :] + fn.W.double()[cands][None]).clamp_min(0))
+        lo = torch.sqrt(mu.clamp_min(0))[:, None, :]
+        return hi - lo, hi + lo
+    t = (fn.sim.double()[:, cands].T[None] - mu[:, None, :]).clamp_min(0)
+    return t, t
+
+
+def _f64_mu(fn, probes, state):
+    """float64 probe coverage: state + W_u, or max(state, sim[:, u])."""
+    from repro_torch import FeatureCoverage
+
+    if isinstance(fn, FeatureCoverage):
+        return state.double()[None] + fn.W.double()[probes]
+    return torch.maximum(state.double()[None], fn.sim.double()[:, probes].T)
+
+
+def _explain_kv(label: str, fn, gen_seed: int, k: int) -> str:
+    """One row whose kept positions differ between the kernel route and the
+    plain route: step both routes in lockstep (the kernel route's state,
+    the same draws) to the first decision they take differently, and show
+    in float64 that it lies within float32 rounding: the two elements'
+    float64 values differ by less than their sums' rounding bounds.  Raises
+    where it does not."""
+    from repro_torch.core import CudaBackend, ReferenceBackend
+    from repro_torch.core.greedy import NEG, gumbel
+    from repro_torch.core.sparsify import INF, max_rounds, probe_count
+
+    kb, pb = CudaBackend(), ReferenceBackend()
+    n = fn.n
+    gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+    m, shrink = min(probe_count(n, R), n), 1.0 - 1.0 / math.sqrt(C)
+    resid = fn.residual_gains()
+    alive = torch.ones(n, dtype=torch.bool, device="cuda")
+    vprime = torch.zeros_like(alive)
+    div_k = torch.full((n,), INF, device="cuda")
+    div_p = div_k.clone()
+    zero = fn.empty_state()
+
+    def margin(a: int, b: int, va, vb, what: str) -> str:
+        gap = abs(float(va[0] - vb[0]))
+        bound = float(va[1] + vb[1])
+        check(gap <= bound, f"{label}: {what}: elements {a} and {b} differ by "
+              f"{gap:.3g} in float64, above the float32 rounding bound {bound:.3g}")
+        return (f"{what}: elements {a} and {b} differ by {gap:.3g} in float64, "
+                f"within the float32 rounding bound {bound:.3g}")
+
+    def div64(probes, v):
+        t, mag = _f64_pair(fn, _f64_mu(fn, probes, zero),
+                           torch.tensor([v], device="cuda"))
+        w = t.sum(-1)[:, 0] - resid.double()[probes]
+        u = int(torch.argmin(w))
+        return float(w[u]), float(_f64_bound(mag[u, 0]))
+
+    probes_all = []
+    for rnd in range(max_rounds(n, R, C)):
+        live = int(alive.sum())
+        if live <= m:
+            break
+        g = gumbel(n, gen, "cuda") + torch.where(alive, 0.0, NEG)
+        probes = torch.topk(g, m).indices
+        probes_all.append(probes)
+        vprime[probes] = True
+        alive[probes] = False
+        live -= m
+        cand = torch.nonzero(alive).flatten()
+        div_k[cand] = torch.minimum(div_k[cand], kb.divergence_compact(fn, probes, cand, resid))
+        div_p[cand] = torch.minimum(div_p[cand], pb.divergence_compact(fn, probes, cand, resid))
+        # float32 live * shrink, as the SS loop sets the count
+        n_remove = int(torch.floor(torch.tensor(float(live)) * torch.tensor(shrink)))
+        rk = cand[torch.argsort(div_k[cand], stable=True)[:n_remove]]
+        rp = cand[torch.argsort(div_p[cand], stable=True)[:n_remove]]
+        if set(rk.tolist()) != set(rp.tolist()):
+            a = sorted(set(rk.tolist()) - set(rp.tolist()))[0]
+            b = sorted(set(rp.tolist()) - set(rk.tolist()))[0]
+            allp = torch.cat(probes_all)
+            return margin(a, b, div64(allp, a), div64(allp, b),
+                          f"SS round {rnd}, the prune cut")
+        alive[rk] = False
+    vprime |= alive
+    # greedy over V' in lockstep
+    cand = torch.nonzero(vprime).flatten()
+    st = zero
+    avail = torch.ones(cand.shape[0], dtype=torch.bool, device="cuda")
+    for i in range(k):
+        gk = torch.where(avail, kb.gains_compact(fn, st, cand), NEG)
+        gp = torch.where(avail, pb.gains_compact(fn, st, cand), NEG)
+        a, b = int(torch.argmax(gk)), int(torch.argmax(gp))
+        if a != b:
+            t, mag = _f64_pair(fn, st.double()[None], cand[[a, b]])
+            vals = t[0].sum(-1)
+            return margin(int(cand[a]), int(cand[b]),
+                          (float(vals[0]), float(_f64_bound(mag[0, 0]))),
+                          (float(vals[1]), float(_f64_bound(mag[0, 1]))),
+                          f"greedy step {i}, the argmax")
+        st = fn.add(st, cand[a])
+        avail[a] = False
+    fail(f"{label}: the routes keep other positions, but no decision differs in "
+         "lockstep")
+    return ""
+
+
+def kv_prune_phase(cfg, eng, prompts, sc) -> dict:
+    """SS pruning of the KV cache on the LM path: a fresh prefill (flash in
+    every layer), ``Engine.prune_kv`` to the reference's budget with the
+    coverage and the fl objective (counts set to 0 just before, read just
+    after), the kernel route against the plain route (backend "reference"
+    on the card's tensors) under the same draws, then 32 tokens decoded from
+    the pruned cache at the true position, held to the plain attention at
+    every step; walls, peak memory and the fidelity of the first step's
+    logits against a randomly pruned cache."""
+    from repro_torch.kernels import (
+        feature_gains_kernel, fl_divergence_kernel, fl_gains_kernel,
+        flash_attention_kernel, ss_divergence_kernel,
+    )
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serve import KVSelectConfig, RunConfig, summarize_batch
+    from repro_torch.serve.engine import _sample
+    from repro_torch.serve.kv_select import (
+        _batch_objective, compact_cache, pooled_keys, row_generators,
+    )
+
+    B, S, NEW = prompts.shape[0], prompts.shape[1], LM_NEW
+    kernels = {"flash_attention": flash_attention_kernel,
+               "ss_divergence": ss_divergence_kernel,
+               "feature_gains": feature_gains_kernel,
+               "fl_divergence": fl_divergence_kernel, "fl_gains": fl_gains_kernel}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    out = {"budget": KV_BUDGET}
+    seed = 5
+    with plain_attention():          # the plain route's cache, for both objectives
+        _, p_cache = prefill(cfg, eng.params, prompts, max_len=sc.max_len)
+
+    def decode(cache, n0, pos0, tok, steps, plain=False):
+        logits_all, toks = [], []
+        for i in range(steps):
+            if plain:
+                with plain_attention():
+                    logits, cache = decode_step(cfg, eng.params, tok, cache, n0 + i,
+                                                pos0 + i)
+            else:
+                logits, cache = eng.decode_with_cache(tok, cache, n0 + i, pos=pos0 + i)
+            logits_all.append(logits)
+            tok = _sample(logits, None, sc)
+            toks.append(tok)
+        return logits_all, toks
+
+    for objective in ("coverage", "fl"):
+        kv = KVSelectConfig(budget=KV_BUDGET, objective=objective)
+        for kern in kernels.values():
+            kern.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = eng.prefill(prompts)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t
+        (pruned, n_kv, kept), wall_prune = _synced(lambda: eng.prune_kv(cache, S, seed, kv))
+        counts = {name: kern.launches for name, kern in kernels.items()}
+        div_name, gains_name = (("ss_divergence", "feature_gains") if objective == "coverage"
+                                else ("fl_divergence", "fl_gains"))
+        other = {"ss_divergence", "feature_gains", "fl_divergence", "fl_gains"} - {
+            div_name, gains_name}
+        check(counts["flash_attention"] == cfg.num_layers,
+              f"KV {objective}: {counts['flash_attention']} flash launches in the "
+              f"prefill, not one a layer")
+        check(counts[div_name] > 0 and counts[gains_name] == B * KV_BUDGET
+              and all(counts[o] == 0 for o in other),
+              f"KV {objective}: launches {counts} (want {div_name} each round of each "
+              f"row and {gains_name} once a row a step, {B * KV_BUDGET})")
+        check(n_kv == KV_BUDGET and tuple(kept.shape) == (B, KV_BUDGET)
+              and bool((kept.diff(dim=1) > 0).all()) and int(kept.min()) >= 0
+              and int(kept.max()) < S, f"KV {objective}: bad kept positions")
+
+        # the plain route under the same draws, and each row's |V'|
+        feats = pooled_keys(cache, S)
+        fnb = _batch_objective(feats, kv)
+        gens = row_generators(seed, B, "cuda")
+        res_k, ss_k = summarize_batch(fnb, KV_BUDGET, gens, r=R, c=C)
+        check(torch.equal(torch.sort(res_k.selected, 1).values, kept),
+              f"KV {objective}: summarize_batch keeps other positions than prune_kv")
+        plain = KVSelectConfig(budget=KV_BUDGET, objective=objective,
+                               run=RunConfig(backend="reference"))
+        _, _, kept_p = eng.prune_kv(cache, S, seed, plain)
+        explained = []
+        for b in range(B):
+            if not torch.equal(kept[b], kept_p[b]):
+                explained.append(_explain_kv(f"KV {objective} row {b}", fnb.row(b),
+                                             gens[b].initial_seed(), KV_BUDGET))
+        vp = [int(x) for x in ss_k.vprime.sum(1).tolist()]
+
+        # decode from the pruned cache at the true position, both routes
+        tok = _sample(logits, None, sc)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg_k, toks_k = decode(pruned, n_kv, S, tok, NEW - 1)
+        torch.cuda.synchronize()
+        ms_pruned = (time.perf_counter() - t) * 1e3 / (NEW - 1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        p_pruned = compact_cache(p_cache, kept)
+        rel = 0.0
+        tok_p = tok
+        for i in range(NEW - 1):
+            with plain_attention():
+                lp, p_pruned = decode_step(cfg, eng.params, tok_p, p_pruned, n_kv + i,
+                                           S + i)
+            rel = max(rel, _logits_close(lg_k[i], lp, f"KV {objective} decode step "
+                                         f"{i + 1}, kernel vs plain"))
+            tok_p = toks_k[i]
+        del p_pruned
+
+        # fidelity: first-step logits of the pruned and of a randomly pruned
+        # cache against the full cache (the reference test's measure)
+        g = torch.Generator(device="cuda").manual_seed(11)
+        rand_kept = torch.sort(torch.stack([torch.randperm(S, generator=g, device="cuda")
+                                            [:KV_BUDGET] for _ in range(B)]), 1).values
+        rand_cache = compact_cache(cache, rand_kept)
+        lr, _ = eng.decode_with_cache(tok, rand_cache, n_kv, pos=S)
+        del rand_cache
+        t = time.perf_counter()
+        lg_full, _ = decode(cache, S, S, tok, NEW - 1)
+        torch.cuda.synchronize()
+        ms_full = (time.perf_counter() - t) * 1e3 / (NEW - 1)
+        full0 = lg_full[0].float().flatten()
+        corr = float(torch.corrcoef(torch.stack([full0, lg_k[0].float().flatten()]))[0, 1])
+        corr_r = float(torch.corrcoef(torch.stack([full0, lr.float().flatten()]))[0, 1])
+        check(math.isfinite(corr) and math.isfinite(corr_r),
+              f"KV {objective}: non-finite logit correlation")
+        del pruned, cache, lg_full
+        print(f"KV pruning ({objective}) on {cfg.name}: {B} x {S} -> {KV_BUDGET} "
+              f"positions; |V'| {vp}, rounds {ss_k.rounds}; launches {counts}; "
+              f"kernel route == plain route: "
+              + ("yes" if not explained else "; ".join(explained))
+              + f"; prefill {t_prefill * 1e3:.4f} ms, prune {wall_prune * 1e3:.4f} ms "
+              f"(host clock, synchronised, first call); decode {ms_pruned:.4f} ms a "
+              f"step from the pruned cache against {ms_full:.4f} ms from the full "
+              f"one; decode logits held to the plain attention at every step "
+              f"(max err {rel:.4g} of max|logits|); peak device memory {peak:.2f} "
+              f"GiB ({peak - base:.2f} above what the phase found allocated: the "
+              f"parameters and the LM path's cache); first-step logits' "
+              f"correlation with the full cache {corr:.6f}, a random {KV_BUDGET}-"
+              f"position cache {corr_r:.6f}", flush=True)
+        out[objective] = {"vprime": vp, "rounds": ss_k.rounds, "launches": counts,
+                          "routes_equal": not explained, "explained": explained,
+                          "prefill_ms": t_prefill * 1e3, "prune_ms": wall_prune * 1e3,
+                          "decode_ms_per_step": ms_pruned,
+                          "full_decode_ms_per_step": ms_full, "peak_gib": peak,
+                          "corr_pruned": corr, "corr_random": corr_r,
+                          "max_rel_err_plain": rel}
+    del p_cache
+    return out
 
 
 def sieve_record() -> dict:

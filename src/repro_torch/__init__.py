@@ -6,7 +6,9 @@ embedding rows), with their hot spots as hand-written CUDA kernels for
 Hopper; the paper's other selectors (stochastic, lazy and bidirectional
 greedy) and the §3.4 post-reduction run through the same kernels, and the
 streaming baseline, sieve streaming, through a gain-table kernel of its
-own.  The JAX package ``repro`` is the reference it is tested against;
+own.  Batched SS and greedy run B same-shape queries in one loop
+(``repro_torch.serve.summarize_batch``), which also prunes an LM's KV
+cache (``repro_torch.serve.kv_select``).  The JAX package ``repro`` is the reference it is tested against;
 this package imports nothing of it.
 """
 
@@ -35,6 +37,7 @@ from repro_torch.core import (
     divergence_update,
     full_edge_matrix,
     greedy,
+    greedy_batched,
     lazy_greedy,
     postreduce,
     resolve_backend,
@@ -44,7 +47,9 @@ from repro_torch.core import (
     sieve_streaming,
     sieve_update,
     ss_sparsify,
+    ss_sparsify_batched,
     stochastic_greedy,
+    stochastic_greedy_batched,
     stream_sieve_best,
     stream_sieve_init,
     stream_sieve_update,
@@ -60,10 +65,11 @@ __all__ = [
     "StreamingFacilityLocation", "auto_sample_size", "bidirectional_greedy",
     "check_triangle_inequality", "clustered_embeddings", "divergence_update",
     "facility_location_from_features", "facility_location_from_numpy",
-    "feature_coverage_from_numpy", "full_edge_matrix", "greedy", "lazy_greedy",
+    "feature_coverage_from_numpy", "full_edge_matrix", "greedy", "greedy_batched",
+    "lazy_greedy",
     "news_day", "postreduce", "resolve_backend", "sieve_best", "sieve_extend",
     "sieve_init", "sieve_streaming", "sieve_update", "ss_sparsify",
-    "stochastic_greedy", "stream_sieve_best", "stream_sieve_init",
+    "ss_sparsify_batched", "stochastic_greedy", "stochastic_greedy_batched", "stream_sieve_best", "stream_sieve_init",
     "stream_sieve_update", "streaming_facility_location_from_numpy",
     "summarize", "threshold_grid", "video",
 ]

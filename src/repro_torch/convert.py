@@ -34,11 +34,16 @@ def feature_coverage_from_numpy(
 ) -> FeatureCoverage:
     """FeatureCoverage over ``W`` (n, F) on ``device`` (the card by default).
 
-    ``dtype`` casts W (e.g. ``torch.bfloat16``); None keeps W's dtype.
-    ``feat_w`` stays float32.
+    ``dtype`` casts W (e.g. ``torch.bfloat16``); None keeps a float32 or
+    bfloat16 W as it is and makes any other W float32, as its siblings do
+    (a float64 W would make the objective's state and gains float64, where
+    the JAX package keeps float32).  ``feat_w`` is float32.
     """
     dev = _device(device)
-    Wt = torch.as_tensor(np.ascontiguousarray(W)).to(dev)
+    Wt = torch.as_tensor(np.ascontiguousarray(W))
+    if dtype is None and Wt.dtype not in (torch.float32, torch.bfloat16):
+        dtype = torch.float32
+    Wt = Wt.to(dev)
     if dtype is not None:
         Wt = Wt.to(dtype)
     fw = None

@@ -1,5 +1,5 @@
-"""Objectives, the submodularity graph, backends, SS, greedy and sieve
-streaming."""
+"""Objectives, the submodularity graph, backends, SS, greedy (single-query
+and batched) and sieve streaming."""
 
 from repro_torch.core.backend import (
     Backend,
@@ -17,6 +17,7 @@ from repro_torch.core.functions import (
 from repro_torch.core.graph import (
     check_triangle_inequality,
     divergence,
+    divergence_batched,
     divergence_compact,
     divergence_update,
     edge_weights,
@@ -29,9 +30,11 @@ from repro_torch.core.greedy import (
     auto_sample_size,
     bidirectional_greedy,
     greedy,
+    greedy_batched,
     lazy_greedy,
     selection_bucket,
     stochastic_greedy,
+    stochastic_greedy_batched,
 )
 from repro_torch.core.sieve import (
     STREAM_PHIS,
@@ -59,6 +62,7 @@ from repro_torch.core.sparsify import (
     ss_cost_model,
     ss_live_bound,
     ss_sparsify,
+    ss_sparsify_batched,
     summarize,
 )
 
@@ -68,12 +72,13 @@ __all__ = [
     "STREAM_PHIS", "SieveResult", "SieveState", "StreamSieveState",
     "StreamingFacilityLocation", "SubmodularFunction", "auto_sample_size",
     "bidirectional_greedy", "bucket_schedule", "check_triangle_inequality",
-    "divergence", "divergence_compact", "divergence_update", "edge_weights",
-    "edge_weights_compact", "full_edge_matrix", "greedy", "lazy_greedy",
+    "divergence", "divergence_batched", "divergence_compact", "divergence_update", "edge_weights",
+    "edge_weights_compact", "full_edge_matrix", "greedy", "greedy_batched", "lazy_greedy",
     "max_rounds", "postreduce", "predicted_live_counts", "preprune_mask",
     "probe_count", "resolve_backend", "selection_bucket", "sieve_best",
     "sieve_extend", "sieve_init", "sieve_streaming", "sieve_update",
-    "ss_cost_model", "ss_live_bound", "ss_sparsify", "stochastic_greedy",
+    "ss_cost_model", "ss_live_bound", "ss_sparsify", "ss_sparsify_batched",
+    "stochastic_greedy", "stochastic_greedy_batched",
     "stream_sieve_best", "stream_sieve_init", "stream_sieve_update",
     "summarize", "threshold_grid",
 ]

@@ -12,6 +12,11 @@ Stochastic greedy masks the gains to a sample drawn from injected Gumbel
 noise or a ``torch.Generator``, so a test can replay the JAX reference's own
 draws.
 
+``greedy_batched`` and ``stochastic_greedy_batched`` run B same-shape
+queries (a stacked objective) in one loop: one ``gains_batched`` call a
+step, each row's pick committed as the single-query loop commits it, so row
+b selects exactly what the single-query call does.
+
 Compact selection: after SS the live set is |V'| = O(log² n) ≪ n.  When
 ``alive`` is sparse, ``greedy`` gathers it once into a buffer of the
 smallest :func:`repro_torch.core.sparsify.bucket_schedule` size that holds
@@ -260,6 +265,188 @@ def stochastic_greedy(
     if size is None:
         return _greedy(fn, k, alive, state, be, sample)
     return _greedy_compact(fn, k, size, alive, state, be, sample)
+
+
+# ---------------------------------------------------------- batched greedy --
+
+def greedy_batched(
+    fn: SubmodularFunction,
+    k: int,
+    alive: Tensor | None = None,
+    backend: "str | Backend | None" = None,
+    state: Tensor | None = None,
+    compact: "bool | int | None" = None,
+    on_step=None,
+) -> GreedyResult:
+    """Greedy for B same-shape queries in one loop.
+
+    ``fn`` is a stacked objective, ``alive`` a (B, n) mask (None: all live)
+    and ``state`` a stacked start.  Returns a GreedyResult with a leading B
+    axis on every field.  Row b selects exactly as ``greedy(fn.row(b), k,
+    alive=alive[b], ...)``.  ``compact``: None / True compact every row into
+    one buffer whose bucket holds the batch's largest live count (one host
+    read); False runs full width; an int is a bound on that count, which
+    raises when a row's live count exceeds it.
+
+    ``on_step(step, selected (B,), gains (B,), ok (B,))`` is called after
+    each step commits (a row that is exhausted reports index 0, gain 0 and
+    ``ok`` False), with the step's tensors; the loop is the same with and
+    without it.  No step reads a value back to the host.
+    """
+    be = resolve_backend(backend, fn.device)
+    _check_batched_alive("greedy_batched", alive)
+    size, _ = _batched_compact_plan(fn.row(0).n, alive, compact)
+    cand_idx, avail, st = _batched_frame(fn, size, alive, state)
+    cands = None if cand_idx is None else be.prepare_batched(fn, cand_idx)
+
+    def step(i, st, avail):
+        g = torch.where(avail, be.gains_batched(fn, st, cands), NEG)
+        return _batched_commit(fn, st, avail, cand_idx, g, torch.argmax(g, dim=1))
+
+    return _batched_loop(fn, k, st, avail, step, on_step)
+
+
+def _check_batched_alive(what: str, alive: Tensor | None) -> None:
+    if alive is not None and alive.dim() != 2:
+        raise ValueError(f"{what} needs a (B, n) alive mask; got shape "
+                         f"{tuple(alive.shape)}")
+
+
+def _batched_compact_plan(
+    n: int, alive: Tensor | None, compact: "bool | int | None"
+) -> tuple[int | None, int | None]:
+    """(shared bucket size or None for full width, the batch's largest live
+    count or None): the batched :func:`_compact_plan`, one host read.  An
+    int ``compact`` is a bound on every row's live count; a row above it
+    raises."""
+    if alive is None or compact is False:
+        return None, None
+    live_max = int(alive.sum(dim=1).max())
+    if not isinstance(compact, bool) and compact is not None:
+        bound = int(compact)
+        if not 0 <= bound <= n:
+            raise ValueError(f"compact live bound must be in [0, n={n}]; got {bound}")
+        if live_max > bound:
+            raise ValueError(
+                f"compact live bound {bound} < max row |alive| = {live_max}; pass "
+                "a correct bound (or compact=True to derive it from the mask)")
+    return selection_bucket(n, live_max), live_max
+
+
+def _batched_frame(
+    fn: SubmodularFunction, size: int | None, alive: Tensor | None,
+    state: Tensor | None,
+) -> tuple[Tensor | None, Tensor, Tensor]:
+    """(the (B, size) buffers of live ground indices or None for full width,
+    the (B, slots) availability, the stacked start state)."""
+    B, dev = fn.batch, fn.device
+    n = fn.row(0).n
+    cand_idx = None
+    if alive is None:
+        avail = torch.ones((B, n), dtype=torch.bool, device=dev)
+    else:
+        alive = alive.to(device=dev, dtype=torch.bool)
+        if size is None:
+            avail = alive.clone()
+        else:
+            cand_idx = torch.stack([compact_indices(a, size) for a in alive])
+            avail = (torch.arange(size, device=dev)[None, :]
+                     < alive.sum(dim=1)[:, None])
+    st = (torch.stack([fn.row(b).empty_state() for b in range(B)])
+          if state is None else state.clone())
+    return cand_idx, avail, st
+
+
+def _batched_commit(fn, st, avail, cand_idx, g, vs, slot=None, idx=None):
+    """Commit each row's pick ``vs`` (B,), a position in ``g`` (B, width):
+    ``slot`` maps it to the frame slot and ``idx`` to the ground index (the
+    frame itself, or ``cand_idx``, when None).  Returns (state, avail,
+    selected, gains, ok), exhausted rows at index 0 / gain 0."""
+    vs1 = vs[:, None]
+    vc = vs1 if slot is None else slot.gather(1, vs1)
+    idx = cand_idx if idx is None else idx
+    v = (vc if idx is None else idx.gather(1, vs1))[:, 0]
+    ok = avail.gather(1, vc)[:, 0]
+    new = torch.stack([fn.row(b).add(st[b], v[b]) for b in range(st.shape[0])])
+    st = torch.where(ok.reshape((-1,) + (1,) * (st.dim() - 1)), new, st)
+    avail = avail.scatter(1, vc, False)
+    return (st, avail, torch.where(ok, v, 0),
+            torch.where(ok, g.gather(1, vs1)[:, 0], 0.0), ok)
+
+
+def _batched_loop(fn, k, st, avail, step, on_step) -> GreedyResult:
+    """k calls of ``step(i, state, avail)``, each streamed to ``on_step``."""
+    sel, gains = [], []
+    for i in range(k):
+        st, avail, v, g, ok = step(i, st, avail)
+        if on_step is not None:
+            on_step(i, v, g, ok)
+        sel.append(v)
+        gains.append(g)
+    value = torch.stack([fn.row(b).value(st[b]) for b in range(st.shape[0])])
+    return GreedyResult(torch.stack(sel, dim=1), torch.stack(gains, dim=1), value, st)
+
+
+def stochastic_greedy_batched(
+    fn: SubmodularFunction,
+    k: int,
+    generators: "list[torch.Generator] | None" = None,
+    s: int | None = None,
+    alive: Tensor | None = None,
+    backend: "str | Backend | None" = None,
+    state: Tensor | None = None,
+    compact: "bool | int | None" = None,
+    eps: float = 0.1,
+    on_step=None,
+    *,
+    noise: Tensor | None = None,
+) -> GreedyResult:
+    """Stochastic greedy for B same-shape queries in one loop, in the frame
+    of :func:`greedy_batched` (one shared bucket).  Each step draws each
+    row's sample of ``s`` available slots (Gumbel top-s, the lower slot
+    first on ties), evaluates the gains of the sample only, and takes the
+    first maximum over the sample sorted ascending, which is the dense
+    loop's lowest-slot tie rule.
+
+    Row b selects exactly as ``stochastic_greedy(fn.row(b), k,
+    generators[b], s=s, alive=alive[b], ...)`` under the same plan: the
+    bucket is the batch's, so the dense call needs the same bucket and the
+    same effective ``s``.  ``s=None`` derives it from the batch's largest
+    live count.  Draws come from ``generators`` (one per row; None: the
+    device's default generator) or ``noise`` (k, B, slots), ``noise[i, b]``
+    row b's draw at step i.  ``on_step`` as in :func:`greedy_batched`.
+    """
+    be = resolve_backend(backend, fn.device)
+    _check_batched_alive("stochastic_greedy_batched", alive)
+    B, n, dev = fn.batch, fn.row(0).n, fn.device
+    size, live = _batched_compact_plan(n, alive, compact)
+    if s is None:
+        s = auto_sample_size(n, k, eps, live=live)
+    width = n if size is None else size
+    s = int(min(s, width))
+    if s < 1:
+        raise ValueError(f"sample size must be >= 1; got {s}")
+    if noise is not None:
+        noise = check_noise(noise, (k, B, width), dev)
+    if generators is not None and len(generators) != B:
+        raise ValueError(f"stochastic_greedy_batched needs {B} generators, one a "
+                         f"row; got {len(generators)}")
+    cand_idx, avail, st = _batched_frame(fn, size, alive, state)
+
+    def step(i, st, avail):
+        g = noise[i] if noise is not None else torch.stack([
+            gumbel(width, None if generators is None else generators[b], dev)
+            for b in range(B)])
+        g = g + torch.where(avail, 0.0, NEG)
+        top = torch.sort(g, dim=1, descending=True, stable=True).indices[:, :s]
+        cand = torch.sort(top, dim=1).values                          # (B, s)
+        sub_avail = avail.gather(1, cand)
+        sub_idx = cand if cand_idx is None else cand_idx.gather(1, cand)
+        gains = torch.where(sub_avail, be.gains_batched(fn, st, sub_idx), NEG)
+        return _batched_commit(fn, st, avail, cand_idx, gains,
+                               torch.argmax(gains, dim=1), slot=cand, idx=sub_idx)
+
+    return _batched_loop(fn, k, st, avail, step, on_step)
 
 
 # ------------------------------------------------------------- lazy greedy --

@@ -465,6 +465,10 @@ def stream_sieve_update(state: StreamSieveState, w, phi: str = "sqrt"
         raise ValueError(f"stream sieve supports phi in {STREAM_PHIS}; got {phi!r}")
     k = state.sel.shape[1]
     w = torch.as_tensor(w, device=state.cov.device)
+    if w.dtype == torch.float64:
+        # jnp.asarray with x64 off: a float64 row becomes float32, and the
+        # state stays float32
+        w = w.float()
     g1 = _phi(phi, w, None).sum()
     m = torch.maximum(state.m, g1)
     jidx, thr, reset = _slide_window(state.jidx, state.lg, state.m, m)

@@ -272,6 +272,164 @@ def _sparsify_dense(
                     torch.tensor(trace, dtype=torch.int32))
 
 
+def ss_sparsify_batched(
+    fn: SubmodularFunction,
+    generators: "list[torch.Generator] | None" = None,
+    r: int = 8,
+    c: float = 8.0,
+    alive: Tensor | None = None,
+    state: Tensor | None = None,
+    importance: bool = False,
+    backend: "str | Backend | None" = None,
+    compact: bool = True,
+    *,
+    noise: Tensor | None = None,
+) -> SSResult:
+    """Algorithm 1 for B same-shape queries in one loop.
+
+    ``fn`` is a stacked objective (a leading B axis on every tensor),
+    ``alive`` an optional (B, n) mask and ``state`` an optional stacked
+    (B, ·) conditional state.  Returns an SSResult with a leading B axis on
+    every field (``rounds`` a list of B ints).  Row b is identical to
+    ``ss_sparsify(fn.row(b), generators[b], ...)``: the same ``vprime``,
+    ``eps_hat``, ``rounds`` and ``alive_trace``.
+
+    Randomness: ``generators`` holds one ``torch.Generator`` per row (None:
+    the device's default generator for every row, in row order), or
+    ``noise`` (B, max_rounds, n) holds the draws, ``noise[b, j]`` row b's
+    draw in its round j.  A row that has finished draws nothing, so row b
+    consumes its stream exactly as the single-query loop does.  As in the
+    single-query compact loop, ``divergence`` entries of probe and dead
+    slots are stale, and here the shared bucket may leave others than the
+    single-query run's: never read them off the live set.
+    """
+    be = resolve_backend(backend, fn.device)
+    return _sparsify_batched(fn, generators, r, c, alive, state, importance, be,
+                             compact, noise)
+
+
+def _sparsify_batched(
+    fn: SubmodularFunction,
+    generators: "list[torch.Generator] | None",
+    r: int,
+    c: float,
+    alive: Tensor | None,
+    state: Tensor | None,
+    importance: bool,
+    backend: Backend,
+    compact: bool,
+    noise: Tensor | None,
+) -> SSResult:
+    """The batched SS loop: one Python loop over rounds for the whole batch.
+
+    Each round works on the *active* rows (live > m and rounds left): one
+    host read gives every row's live count, the rows that finished keep
+    their whole carry (bit for bit what the single-query loop returns), and
+    the active rows share one compact bucket, the smallest that holds the
+    largest live count among them.  Each row's results do not depend on the
+    bucket (the compaction contract), so sharing it keeps row parity.  The
+    divergence is one ``divergence_batched`` call over the active rows; the
+    draws, the probe top-k, the float32 ``live * shrink`` and the stable
+    argsort are each row's own, as in :func:`_sparsify_dense`.
+    """
+    be = backend
+    fn0 = fn.row(0)
+    B, n, dev = fn.batch, fn0.n, fn.device
+    m = min(probe_count(n, r), n)
+    rounds_cap = max_rounds(n, r, c)
+    shrink = np.float32(1.0 - 1.0 / math.sqrt(c))
+    buckets = bucket_schedule(n, c) if compact else None
+    if noise is not None:
+        noise = check_noise(noise, (B, rounds_cap, n), dev)
+    if generators is not None and len(generators) != B:
+        raise ValueError(f"ss_sparsify_batched needs {B} generators, one a row; "
+                         f"got {len(generators)}")
+    if alive is not None and tuple(alive.shape) != (B, n):
+        raise ValueError(f"ss_sparsify_batched needs a ({B}, {n}) alive mask; "
+                         f"got {tuple(alive.shape)}")
+
+    alive = (torch.ones((B, n), dtype=torch.bool, device=dev) if alive is None
+             else alive.to(device=dev, dtype=torch.bool).clone())
+    rows = [fn.row(b) for b in range(B)]
+    residual = torch.stack([f.residual_gains() for f in rows])      # (B, n)
+    if importance:
+        score = torch.stack([f.singleton_gains() for f in rows]) + residual
+        logits = torch.log(torch.clamp_min(score.float(), 1e-12))
+    else:
+        logits = torch.zeros((B, n), dtype=torch.float32, device=dev)
+
+    vprime = torch.zeros((B, n), dtype=torch.bool, device=dev)
+    div = torch.full((B, n), INF, dtype=torch.float32, device=dev)
+    eps_hat = torch.full((B,), NEG, dtype=torch.float32, device=dev)
+    slots = torch.arange(n, device=dev)
+    trace = [[-1] * rounds_cap for _ in range(B)]
+    rounds = [0] * B
+    live = alive.sum(dim=1).tolist()                # the first host read
+    _sparsify_batched.host_reads += 1
+    rnd = 0
+    while True:
+        act = [b for b in range(B) if live[b] > m and rnd < rounds_cap]
+        if not act:
+            break
+        # (1)-(2) each active row's m probes leave its live set.
+        probes = []
+        for b in act:
+            g = noise[b, rnd] if noise is not None else gumbel(
+                n, None if generators is None else generators[b], dev)
+            g = g + logits[b] + torch.where(alive[b], 0.0, NEG)
+            pr = torch.topk(g, m).indices
+            hot = torch.zeros((n,), dtype=torch.bool, device=dev)
+            hot[pr] = True
+            hot &= alive[b]
+            vprime[b] |= hot
+            alive[b] &= ~hot
+            live[b] -= m
+            probes.append(pr)
+        probes = torch.stack(probes)                                  # (A, m)
+        st = None if state is None else state[act]
+
+        # (3) the running divergence over the bucket shared by the active rows
+        size = min(b for b in buckets if b >= max(live[b] for b in act)) \
+            if compact else n
+        if size >= n:
+            w = be.divergence_batched(fn, probes, None, residual, st, act)
+            for i, b in enumerate(act):
+                div[b] = torch.minimum(div[b], w[i])
+        else:
+            cand = torch.stack([compact_indices(alive[b], size) for b in act])
+            w = be.divergence_batched(fn, probes, cand, residual, st, act)
+            for i, b in enumerate(act):
+                # padding slots repeat index 0; at +INF their scatter-min is
+                # a no-op
+                wb = torch.where(slots[:size] < live[b], w[i], INF)
+                div[b] = div[b].scatter_reduce(0, cand[i], wb, reduce="amin")
+
+        # (4) each active row drops its (1 - 1/sqrt(c)) fraction
+        for b in act:
+            n_remove = int(np.floor(np.float32(live[b]) * shrink))
+            keyed = torch.where(alive[b], div[b], INF)
+            order = torch.argsort(keyed, stable=True)
+            pos = torch.empty((n,), dtype=torch.long, device=dev)
+            pos[order] = slots
+            removed = alive[b] & (pos < n_remove)
+            eps_hat[b] = torch.maximum(eps_hat[b], torch.where(removed, div[b], NEG).max())
+            alive[b] &= ~removed
+        counts = alive.sum(dim=1).tolist()          # one host read a round
+        _sparsify_batched.host_reads += 1
+        for b in act:
+            live[b] = counts[b]
+            trace[b][rnd] = counts[b]
+            rounds[b] += 1
+        rnd += 1
+
+    vprime |= alive
+    return SSResult(vprime, div, torch.clamp_min(eps_hat, 0.0), rounds,
+                    torch.tensor(trace, dtype=torch.int32))
+
+
+_sparsify_batched.host_reads = 0
+
+
 def preprune_mask(fn: SubmodularFunction, k: int) -> Tensor:
     """Pre-pruning after Wei et al. (§3.4 improvement 1): drop u whose
     singleton gain f(u) is below the k-th largest residual f(v|V\\v)."""

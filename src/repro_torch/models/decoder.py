@@ -16,7 +16,8 @@ groups; here a Python loop walks them, taking group g's parameters as views
 
 Entry points: ``forward``, ``prefill``, ``init_cache``, ``decode_step``.
 The block types ``attn_moe``, ``mamba2`` and ``rglru`` raise
-``NotImplementedError``: they are ROADMAP §1 item 12's next modules.
+``NotImplementedError``: they wait for ROADMAP §1 item 6, the rest of the
+LM stack.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def _require_ported(cfg: ModelConfig) -> None:
         if btype not in _PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: block type {btype!r} is not ported yet (ROADMAP "
-                "§1 item 12: experts, SSM and RG-LRU mixers come later); the "
+                "§1 item 6: experts, SSM and RG-LRU mixers come later); the "
                 f"port runs {_PORTED}")
 
 

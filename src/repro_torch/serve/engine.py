@@ -6,7 +6,8 @@ full-sequence forward that emits the first sampled token and the populated
 cache (its attention is the flash kernel on the card), ``decode_step`` one
 token against the cache.  Sampling is greedy (argmax, the first maximum) or
 temperature / top-k from a ``torch.Generator``.  Requests are a fixed batch
-of equal-length prompts.
+of equal-length prompts.  ``prune_kv`` compacts a prefilled cache to the
+positions SS and greedy keep (:mod:`repro_torch.serve.kv_select`).
 """
 
 from __future__ import annotations
@@ -87,4 +88,15 @@ class Engine:
         """One raw decode step; the cache is updated in place."""
         return decode_step(self.cfg, self.params, tok, cache, cache_len,
                            cache_len if pos is None else pos)
+
+    def prune_kv(self, cache: dict, seq_len: int, seed=0, kv=None, *, noise=None):
+        """Compact the KV cache to ``kv.budget`` positions by SS and greedy
+        (:func:`repro_torch.serve.kv_select.prune_cache`; ``kv`` defaults to
+        ``KVSelectConfig()``).  Returns (a new cache, its length, the kept
+        positions); decoding goes on with ``decode_with_cache(tok, new,
+        length, pos=seq_len)``, and ``cache`` is left as it was."""
+        from repro_torch.serve.kv_select import KVSelectConfig, prune_cache
+
+        return prune_cache(self.cfg, cache, seq_len, kv or KVSelectConfig(), seed,
+                           noise=noise)
 
