@@ -1079,7 +1079,7 @@ def fc_path(errs: dict) -> list[dict]:
                                           eps_runs=(None, 0.1), plain=True)
     SIEVE["row_sieve"] = row_sieve_phase(fn)
     # the service's coverage lane: the same news day as 8 queries of 2^16
-    records[0]["lane"] = coverage_lane(fn)
+    records[0]["lane"] = coverage_lane(fn, errs)
     return records
 
 
@@ -1762,7 +1762,7 @@ def fl_dense_path(errs: dict) -> list[dict]:
                                   fl_gains_kernel, panel=True)
     SIEVE["path A"] = sieve_path("path A", fn, full, wall_full)
     # the service's FL lane: 4 queries of 2^13 frames of the same video
-    lane = fl_lane(X)
+    lane = fl_lane(X, errs)
     return [
         {"name": "fl_divergence", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fl_divergence.cu",
@@ -2308,7 +2308,7 @@ def lm_path(errs: dict) -> dict:
           "their tolerance", flush=True)
     # SS pruning of the KV cache after a fresh prefill, then decode from it
     del q1, k1, v1, out_long, lib_out, qx, kx, vx
-    kv_prune = kv_prune_phase(cfg, eng, prompts, sc)
+    kv_prune = kv_prune_phase(cfg, eng, prompts, sc, errs)
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_tc.cu",
@@ -2361,15 +2361,73 @@ def _rows_equal(res, ss, singles, what: str) -> None:
         check(ss.rounds[b] == s1.rounds, f"{what}: row {b}'s rounds differ")
 
 
-def _lane(label: str, fn, kernels: dict, base_seed: int) -> dict:
+def _hooks_vs_plain(label: str, f, names: tuple, alive_sel, state, errs: dict,
+                    seed: int) -> str:
+    """The kernels of one query at the shapes its batched run gives them,
+    held to their plain versions on the same inputs at TOL (of the sums'
+    size, as ``_fl_close``): the divergence of a draw of round 1's probes
+    over the other elements (all, and a buffer of half of n), and the gains at
+    the empty state over all n and at the run's final ``state`` over the
+    selection's buffer of ``alive_sel`` (V'), through ``prepare_compact``
+    (dense FL's V' panel where it takes one).  The errors go into
+    ``errs``."""
+    from repro_torch.core import CudaBackend, ReferenceBackend
+    from repro_torch.core.greedy import compact_indices, gumbel, selection_bucket
+    from repro_torch.core.sparsify import probe_count
+
+    kb, pb = CudaBackend(), ReferenceBackend()
+    n, tol = f.n, TOL[torch.float32]
+    div_name, gains_name = names
+    resid = f.residual_gains()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    probes = torch.topk(gumbel(n, g, "cuda"), min(probe_count(n, R), n)).indices
+    # the probes' own slots: the plain version takes f(u | S + u) = 0, the
+    # kernel counts W_u twice, and SS never reads them (they leave the live
+    # set first), so both cases hold the other elements
+    rest = torch.ones(n, dtype=torch.bool, device="cuda").index_fill_(0, probes, False)
+    others = torch.nonzero(rest).flatten()
+    half = torch.sort(others[torch.randperm(others.shape[0], generator=g,
+                                            device="cuda")[: n // 2]]).values
+    size = selection_bucket(n, int(alive_sel.sum()))
+    cand = (compact_indices(alive_sel, size) if size is not None
+            else torch.arange(n, device="cuda"))
+    empty = f.empty_state()
+    cases = (
+        (div_name, "the non-probes", kb.divergence(f, probes, resid)[rest],
+         pb.divergence(f, probes, resid)[rest], float(resid[probes].abs().max())),
+        (div_name, "half of n", kb.divergence_compact(f, probes, half, resid),
+         pb.divergence_compact(f, probes, half, resid), float(resid[probes].abs().max())),
+        (gains_name, "all n, empty state", kb.gains(f, empty), pb.gains(f, empty), 0.0),
+        (gains_name, f"V' buffer of {cand.shape[0]}, final state",
+         kb.gains_compact(f, state, kb.prepare_compact(f, cand)),
+         pb.gains_compact(f, state, cand), abs(float(f.value(state)))),
+    )
+    worst = {div_name: 0.0, gains_name: 0.0}
+    for name, what, got, want, extra in cases:
+        err = float((got - want).abs().max())
+        lim = tol * max(1.0, float(want.abs().max()) + extra)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all())
+              and err <= lim, f"{label}: {name} ({what}) kernel vs plain err {err} "
+              f"> {lim}")
+        errs[name] = max(errs[name], err)
+        worst[name] = max(worst[name], err)
+    return (f"{div_name} and {gains_name} against their plain versions at this "
+            f"path's shapes (r = {probes.shape[0]}; the non-probes, half of n, V' buffer): max "
+            f"abs err {worst[div_name]:.3g} and {worst[gains_name]:.3g}, within TOL")
+
+
+def _lane(label: str, fn, kernels: dict, base_seed: int, errs: dict) -> dict:
     """One service lane through ``summarize_batch`` on the card: the kernels'
     launches (counts set to 0 just before, read just after), rows against
     the single-query ``summarize`` of each query bit for bit, the stochastic
     selector against per-row ``stochastic_greedy`` under the same plan and
-    draws, the streamed call against the unstreamed, and the batched wall
-    against the sum of the B single-query walls, host reads and a profile."""
+    draws, the streamed call against the unstreamed, row 0's kernels against
+    their plain versions at the lane's shapes (``_hooks_vs_plain``), the
+    batched wall against the sum of the B single-query walls, host syncs
+    (batched SS: its explicit reads only) and a profile."""
     from repro_torch import (
-        FacilityLocation, auto_sample_size, stochastic_greedy, summarize,
+        FacilityLocation, auto_sample_size, ss_sparsify_batched, stochastic_greedy,
+        summarize,
     )
     from repro_torch.core.greedy import _batched_compact_plan, selection_bucket
     from repro_torch.core.sparsify import _sparsify_batched, ss_live_bound
@@ -2409,6 +2467,8 @@ def _lane(label: str, fn, kernels: dict, base_seed: int) -> dict:
     singles = sequential()
     _rows_equal(res, ss, singles, label)
     vp = [int(x) for x in ss.vprime.sum(1).tolist()]
+    held = _hooks_vs_plain(label, fn.row(0), (div_name, gains_name), ss.vprime[0],
+                           res.state[0], errs, base_seed)
 
     # the stochastic selector: per-row stochastic greedy under the same plan
     s = auto_sample_size(n, K, 0.1, live)
@@ -2434,6 +2494,13 @@ def _lane(label: str, fn, kernels: dict, base_seed: int) -> dict:
     wall_b = _median_wall(batched)
     wall_s = _median_wall(sequential)
     reads_b, reads_s = host_syncs(batched), host_syncs(sequential)
+    # the batched SS loop synchronises only where it reads the live counts
+    _sparsify_batched.host_reads = 0
+    ss_syncs = host_syncs(lambda: ss_sparsify_batched(fn, _lane_gens(B, base_seed),
+                                                      r=R, c=C))
+    check(ss_syncs == _sparsify_batched.host_reads == max(ss.rounds) + 1,
+          f"{label}: batched SS made {ss_syncs} host syncs, not its "
+          f"{_sparsify_batched.host_reads} explicit reads ({max(ss.rounds) + 1})")
     prof = profile_run(f"{label} summarize_batch", batched,
                        watch=(div_name, gains_name), top=6)
     print(f"{label}: B = {B} x n = {n}, k = {K}: rounds {ss.rounds}, |V'| {vp} "
@@ -2443,16 +2510,18 @@ def _lane(label: str, fn, kernels: dict, base_seed: int) -> dict:
           f"unstreamed; launches {launches}, panel gathers {gathers}; batched wall "
           f"{wall_b:.4f} s against {wall_s:.4f} s for {B} single queries (host "
           f"clock, synchronised, median of 3; first batched call {wall_first:.4f} "
-          f"s); host syncs {reads_b} batched against {reads_s} sequential",
-          flush=True)
+          f"s); host syncs {reads_b} batched against {reads_s} sequential, batched "
+          f"SS alone {ss_syncs} (its explicit reads); row 0: "
+          f"{held}", flush=True)
     return {"B": B, "n": n, "k": K, "rounds": ss.rounds, "vprime": vp,
             "bucket": size, "launches": launches, "panel_gathers": gathers,
             "ss_host_reads": ss_reads, "wall_s": wall_b, "sequential_wall_s": wall_s,
             "host_syncs": reads_b, "sequential_host_syncs": reads_s,
+            "ss_host_syncs": ss_syncs,
             "busy_ms": prof.get("busy_ms"), "profiled_wall_ms": prof.get("wall_ms")}
 
 
-def coverage_lane(fn) -> dict:
+def coverage_lane(fn, errs: dict) -> dict:
     """The coverage lane: the first 2^19 sentences of FeatureCoverage's news
     day (2^20 x 1024) viewed as the service's max_batch = 8 queries of 2^16
     sentences, a stacked (8, 2^16, 1024) W that costs no new bytes."""
@@ -2463,10 +2532,10 @@ def coverage_lane(fn) -> dict:
     check(W.data_ptr() == fn.W.data_ptr(), "coverage lane: W was copied")
     fnb = FeatureCoverage(W=W, phi=fn.phi)
     return _lane("coverage lane", fnb, {"ss_divergence": ss_divergence_kernel,
-                                        "feature_gains": feature_gains_kernel}, 100)
+                                        "feature_gains": feature_gains_kernel}, 100, errs)
 
 
-def fl_lane(X) -> dict:
+def fl_lane(X, errs: dict) -> dict:
     """The FL lane: 4 queries of 2^13 frames cut from path A's video, each
     through ``build_batch_objective`` (cosine similarity on the card, 1 GiB
     stacked)."""
@@ -2480,7 +2549,7 @@ def fl_lane(X) -> dict:
     check(alive is None and tuple(fnb.sim.shape) == (FL_LANE_B, FL_LANE_N, FL_LANE_N),
           "FL lane: wrong stacked objective")
     return _lane("FL lane", fnb, {"fl_divergence": fl_divergence_kernel,
-                                  "fl_gains": fl_gains_kernel}, 200)
+                                  "fl_gains": fl_gains_kernel}, 200, errs)
 
 
 def _f64_bound(terms: torch.Tensor) -> torch.Tensor:
@@ -2599,12 +2668,15 @@ def _explain_kv(label: str, fn, gen_seed: int, k: int) -> str:
     return ""
 
 
-def kv_prune_phase(cfg, eng, prompts, sc) -> dict:
+def kv_prune_phase(cfg, eng, prompts, sc, errs: dict) -> dict:
     """SS pruning of the KV cache on the LM path: a fresh prefill (flash in
     every layer), ``Engine.prune_kv`` to the reference's budget with the
     coverage and the fl objective (counts set to 0 just before, read just
     after), the kernel route against the plain route (backend "reference"
-    on the card's tensors) under the same draws, then 32 tokens decoded from
+    on the card's tensors) under the same draws (the same V' and picks, or a
+    differing decision explained in float64; eps_hat, the gains before the
+    first differing pick and f(S) of an equal kept set within TOL), row 0's kernels against their plain versions at this path's shapes
+    (``_hooks_vs_plain``), then 32 tokens decoded from
     the pruned cache at the true position, held to the plain attention at
     every step; walls, peak memory and the fidelity of the first step's
     logits against a randomly pruned cache."""
@@ -2613,7 +2685,7 @@ def kv_prune_phase(cfg, eng, prompts, sc) -> dict:
         flash_attention_kernel, ss_divergence_kernel,
     )
     from repro_torch.models import decode_step, prefill
-    from repro_torch.serve import KVSelectConfig, RunConfig, summarize_batch
+    from repro_torch.serve import KVSelectConfig, summarize_batch
     from repro_torch.serve.engine import _sample
     from repro_torch.serve.kv_select import (
         _batch_objective, compact_cache, pooled_keys, row_generators,
@@ -2679,14 +2751,41 @@ def kv_prune_phase(cfg, eng, prompts, sc) -> dict:
         res_k, ss_k = summarize_batch(fnb, KV_BUDGET, gens, r=R, c=C)
         check(torch.equal(torch.sort(res_k.selected, 1).values, kept),
               f"KV {objective}: summarize_batch keeps other positions than prune_kv")
-        plain = KVSelectConfig(budget=KV_BUDGET, objective=objective,
-                               run=RunConfig(backend="reference"))
-        _, _, kept_p = eng.prune_kv(cache, S, seed, plain)
-        explained = []
+        res_p, ss_p = summarize_batch(fnb, KV_BUDGET, row_generators(seed, B, "cuda"),
+                                      r=R, c=C, backend="reference")
+        explained, route_err = [], {"eps_hat": 0.0, "gains": 0.0, "value": 0.0}
+        tol = TOL[torch.float32]
+        kept_p = torch.sort(res_p.selected, 1).values
         for b in range(B):
-            if not torch.equal(kept[b], kept_p[b]):
-                explained.append(_explain_kv(f"KV {objective} row {b}", fnb.row(b),
+            f = fnb.row(b)
+            same_ss = torch.equal(ss_k.vprime[b], ss_p.vprime[b])
+            differ = torch.nonzero(res_k.selected[b] != res_p.selected[b]).flatten()
+            upto = int(differ[0]) if differ.numel() else KV_BUDGET
+            if not same_ss or upto < KV_BUDGET:
+                explained.append(_explain_kv(f"KV {objective} row {b}", f,
                                              gens[b].initial_seed(), KV_BUDGET))
+            if not same_ss:
+                continue
+            # Over the same V', the steps before the first differing pick
+            # start from the same state, and a kept set equal to the plain
+            # route's has its f(S).  eps_hat is a divergence: its sums are of
+            # the size of a singleton and a residual; the gains and f(S) of
+            # the size of f(S).
+            div_size = float(f.singleton_gains().max() + f.residual_gains().abs().max())
+            val_size = abs(float(res_p.value[b]))
+            cases = [("eps_hat", ss_k.eps_hat[b], ss_p.eps_hat[b], div_size),
+                     ("gains", res_k.gains[b, :upto], res_p.gains[b, :upto], val_size)]
+            if torch.equal(kept[b], kept_p[b]):
+                cases.append(("value", res_k.value[b], res_p.value[b], val_size))
+            for name, got, want, size in cases:
+                err = float((got - want).abs().max()) if got.numel() else 0.0
+                check(err <= tol * max(1.0, size), f"KV {objective} row {b}: {name} "
+                      f"of the kernel route vs the plain route err {err} > "
+                      f"{tol * max(1.0, size)}")
+                route_err[name] = max(route_err[name], err)
+        same_kept = torch.equal(kept, kept_p)
+        held = _hooks_vs_plain(f"KV {objective}", fnb.row(0), (div_name, gains_name),
+                               ss_k.vprime[0], res_k.state[0], errs, seed)
         vp = [int(x) for x in ss_k.vprime.sum(1).tolist()]
 
         # decode from the pruned cache at the true position, both routes
@@ -2731,7 +2830,11 @@ def kv_prune_phase(cfg, eng, prompts, sc) -> dict:
               f"positions; |V'| {vp}, rounds {ss_k.rounds}; launches {counts}; "
               f"kernel route == plain route: "
               + ("yes" if not explained else "; ".join(explained))
-              + f"; prefill {t_prefill * 1e3:.4f} ms, prune {wall_prune * 1e3:.4f} ms "
+              + f" (kept positions equal: {'yes' if same_kept else 'no'}; eps_hat, "
+              f"gains before the first differing pick and f(S) of an equal kept "
+              f"set: max abs err {route_err['eps_hat']:.3g}, "
+              f"{route_err['gains']:.3g}, {route_err['value']:.3g}, within TOL); "
+              f"row 0: {held}; prefill {t_prefill * 1e3:.4f} ms, prune {wall_prune * 1e3:.4f} ms "
               f"(host clock, synchronised, first call); decode {ms_pruned:.4f} ms a "
               f"step from the pruned cache against {ms_full:.4f} ms from the full "
               f"one; decode logits held to the plain attention at every step "
@@ -2742,6 +2845,7 @@ def kv_prune_phase(cfg, eng, prompts, sc) -> dict:
               f"position cache {corr_r:.6f}", flush=True)
         out[objective] = {"vprime": vp, "rounds": ss_k.rounds, "launches": counts,
                           "routes_equal": not explained, "explained": explained,
+                          "route_max_abs_err": route_err, "kept_equal": same_kept,
                           "prefill_ms": t_prefill * 1e3, "prune_ms": wall_prune * 1e3,
                           "decode_ms_per_step": ms_pruned,
                           "full_decode_ms_per_step": ms_full, "peak_gib": peak,
@@ -2837,6 +2941,10 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     records.append(lm_path(errs))
     records.append(sieve_record())
+    # the lanes and the KV path held the kernels to their plain versions
+    # after the records were made
+    for r_ in records:
+        r_["max_abs_err"] = max(r_["max_abs_err"], errs.get(r_["name"], 0.0))
     check(len(records) == 8 and all(
         math.isfinite(r_[k]) for r_ in records
         for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")),

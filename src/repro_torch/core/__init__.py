@@ -17,7 +17,6 @@ from repro_torch.core.functions import (
 from repro_torch.core.graph import (
     check_triangle_inequality,
     divergence,
-    divergence_batched,
     divergence_compact,
     divergence_update,
     edge_weights,
@@ -72,7 +71,7 @@ __all__ = [
     "STREAM_PHIS", "SieveResult", "SieveState", "StreamSieveState",
     "StreamingFacilityLocation", "SubmodularFunction", "auto_sample_size",
     "bidirectional_greedy", "bucket_schedule", "check_triangle_inequality",
-    "divergence", "divergence_batched", "divergence_compact", "divergence_update", "edge_weights",
+    "divergence", "divergence_compact", "divergence_update", "edge_weights",
     "edge_weights_compact", "full_edge_matrix", "greedy", "greedy_batched", "lazy_greedy",
     "max_rounds", "postreduce", "predicted_live_counts", "preprune_mask",
     "probe_count", "resolve_backend", "selection_bucket", "sieve_best",

@@ -6,9 +6,9 @@ greedy step, full width or over a compacted candidate buffer) and
 sieve streaming a fifth, ``sieve_table`` (its states against a chunk of
 the stream).
 The batched SS and greedy of a stacked objective (B same-shape queries)
-evaluate two more, ``divergence_batched`` and ``gains_batched``, one row of
-the batch at a time (after ``prepare_batched``, the batched
-``prepare_compact``).
+evaluate two more, ``divergence_batched`` and ``gains_batched`` (after
+``prepare_batched``, the batched ``prepare_compact``): the base class maps
+its single-query primitives over the rows, for both backends.
 Greedy over a buffer first asks ``prepare_compact`` what its steps should
 read (the objective's ``cuda_prepare`` under ``cuda``: dense facility
 location gathers its candidate columns once).  This module decides how they
@@ -89,6 +89,11 @@ class Backend:
         """w_{U,v} for the candidate buffer ``cand_idx`` (k,).  (k,)."""
         return graph.divergence_compact(fn, probes, cand_idx, residual, state)
 
+    # The batched primitives of a stacked objective: row b's views
+    # (``fn.row(b)``), then this backend's single-query primitive, so each
+    # row equals its single-query call bit for bit (one kernel launch a row
+    # under ``cuda``).
+
     def divergence_batched(
         self,
         fn: SubmodularFunction,
@@ -101,10 +106,17 @@ class Backend:
         """w_{U_b,v} of a stacked objective, one position per row of
         ``rows`` (all B when None): probes (R, r), cand_idx (R, k) or None
         (all n), ``residual`` the stacked (B, n) block, ``state`` the
-        per-position states or None.  (R, k); position i equals
+        per-position states or None.  (R, k); position i is
         :meth:`divergence_compact` (:meth:`divergence` when cand_idx is
-        None) of ``fn.row(rows[i])`` element for element."""
-        return graph.divergence_batched(fn, probes, cand_idx, residual, state, rows)
+        None) of ``fn.row(rows[i])``."""
+        rows = range(fn.batch) if rows is None else rows
+        out = []
+        for i, b in enumerate(rows):
+            f, st = fn.row(b), None if state is None else state[i]
+            res = None if residual is None else residual[b]
+            out.append(self.divergence(f, probes[i], res, st) if cand_idx is None
+                       else self.divergence_compact(f, probes[i], cand_idx[i], res, st))
+        return torch.stack(out)
 
     def gains_batched(
         self,
@@ -116,13 +128,19 @@ class Backend:
         """f(v|S_b) of a stacked objective, one position per row of
         ``rows`` (all B when None): ``state`` (R, ·), ``cand_idx`` (R, k),
         None (all n), or what :meth:`prepare_batched` made of it.  (R, k);
-        position i equals :meth:`gains_compact` of ``fn.row(rows[i])``."""
-        return fn.gains_batched(state, cand_idx, rows)
+        position i is :meth:`gains_compact` (:meth:`gains` when None) of
+        ``fn.row(rows[i])``."""
+        rows = range(fn.batch) if rows is None else rows
+        return torch.stack([
+            self.gains(fn.row(b), state[i]) if cand_idx is None
+            else self.gains_compact(fn.row(b), state[i], cand_idx[i])
+            for i, b in enumerate(rows)])
 
-    def prepare_batched(self, fn: SubmodularFunction, cand_idx: Tensor):
-        """:meth:`prepare_compact` for the (B, k) buffers of a stacked
-        objective, once per batched greedy run: ``cand_idx`` itself here."""
-        return cand_idx
+    def prepare_batched(self, fn: SubmodularFunction, cand_idx: Tensor) -> list:
+        """:meth:`prepare_compact` of each row's buffer of the (B, k)
+        ``cand_idx``, once per batched greedy run (dense facility location's
+        V' panel under ``cuda``), as a list of B."""
+        return [self.prepare_compact(fn.row(b), c) for b, c in enumerate(cand_idx)]
 
     def sieve_table(
         self,
@@ -186,35 +204,6 @@ class CudaBackend(Backend):
     def sieve_table(self, fn, S, el, start=None):
         self._check(fn)
         return sieve_gains_kernel(S, el, start)
-
-    # The batched primitives: row b's views, then the single-query hook, so
-    # each row launches the kernel the single-query path runs, once.
-
-    def divergence_batched(self, fn, probes, cand_idx=None, residual=None,
-                           state=None, rows=None):
-        self._check(fn)
-        rows = range(fn.batch) if rows is None else rows
-        out = []
-        for i, b in enumerate(rows):
-            f = fn.row(b)
-            resid = f.residual_gains() if residual is None else residual[b]
-            out.append(f.cuda_divergence(
-                probes[i], resid, None if state is None else state[i],
-                None if cand_idx is None else cand_idx[i]))
-        return torch.stack(out)
-
-    def gains_batched(self, fn, state, cand_idx, rows=None):
-        self._check(fn)
-        rows = range(fn.batch) if rows is None else rows
-        return torch.stack([
-            fn.row(b).cuda_gains(state[i], None if cand_idx is None else cand_idx[i])
-            for i, b in enumerate(rows)])
-
-    def prepare_batched(self, fn, cand_idx):
-        """Each row's ``cuda_prepare`` (dense facility location's V' panel,
-        say), as a list of B."""
-        self._check(fn)
-        return [fn.row(b).cuda_prepare(cand_idx[b]) for b in range(fn.batch)]
 
 
 _BACKENDS = {"reference": ReferenceBackend, "cuda": CudaBackend}

@@ -18,10 +18,11 @@ operation.
 
 A *stacked* objective runs B same-shape queries at once (the batched SS and
 greedy of :mod:`repro_torch.core.sparsify` / ``greedy``): the same class with
-a leading B axis on every tensor, as in the JAX package.  Only the
-``*_batched`` hooks and :meth:`SubmodularFunction.row` are valid on it (``n``
-and the others read the wrong axis); ``row(b)`` is query b as a plain
-objective made of views.
+a leading B axis on every tensor, as in the JAX package.  Only ``batch`` and
+:meth:`SubmodularFunction.row` are valid on it (``n`` and the others read
+the wrong axis); ``row(b)`` is query b as a plain objective made of views,
+and the backends' batched primitives map the single-query hooks over the
+rows (:mod:`repro_torch.core.backend`).
 
 Two kernel hooks, ``cuda_divergence`` and ``cuda_gains``, carry the SS round
 and the greedy step to the CUDA kernels (:mod:`repro_torch.core.backend`,
@@ -154,40 +155,6 @@ class SubmodularFunction(abc.ABC):
         return dataclasses.replace(self, **{
             k: None if t is None else t[b] for k, t in self._tensors().items()})
 
-    def pairwise_gains_batched(
-        self, probes: Tensor, cand_idx: Tensor | None, state: Tensor | None = None,
-        rows: "list[int] | None" = None,
-    ) -> Tensor:
-        """f(v | S_b + u) for the probes u (R, r) and the candidates
-        v = cand_idx (R, k) (all n when None) of each row b of ``rows`` (all
-        B rows when None; position i of every argument belongs to row
-        rows[i]).  (R, r, k).  ``self`` is stacked; position i is exactly
-        ``row(b).pairwise_gains_compact(probes[i], cand_idx[i], state[i])``,
-        one row at a time, so peak memory is the sequential path's."""
-        return self._map_rows(rows, probes, cand_idx, state, lambda f, p, ci, st: (
-            f.pairwise_gains(p, st) if ci is None
-            else f.pairwise_gains_compact(p, ci, st)))
-
-    def gains_batched(
-        self, state: Tensor, cand_idx: Tensor | None, rows: "list[int] | None" = None
-    ) -> Tensor:
-        """f(v | S_b) for v = cand_idx (R, k) (all n when None) of each row
-        b of ``rows`` (as in :meth:`pairwise_gains_batched`).  (R, k);
-        position i is exactly ``row(b).gains_compact(state[i], cand_idx[i])``
-        (``gains`` when None)."""
-        return self._map_rows(rows, None, cand_idx, state, lambda f, _, ci, st: (
-            f.gains(st) if ci is None else f.gains_compact(st, ci)))
-
-    def _map_rows(self, rows, probes, cand_idx, state, row_call) -> Tensor:
-        """``row_call(row(b), probes[i], cand_idx[i] or None, state[i] or
-        None)`` for each position i, b = rows[i], stacked."""
-        rows = range(self.batch) if rows is None else rows
-        return torch.stack([
-            row_call(self.row(b), None if probes is None else probes[i],
-                     None if cand_idx is None else cand_idx[i],
-                     None if state is None else state[i])
-            for i, b in enumerate(rows)])
-
     # -- kernel hooks ------------------------------------------------------
     def cuda_divergence(
         self,
@@ -306,47 +273,21 @@ class FeatureCoverage(SubmodularFunction):
         return self._pairwise_rows(probes, self.W[cand_idx], cand_idx, state)
 
     def _pairwise_rows(
-        self, probes: Tensor, rows: Tensor, cand: Tensor, state: Tensor | None,
-        probe_chunk: int | None = None,
+        self, probes: Tensor, rows: Tensor, cand: Tensor, state: Tensor | None
     ) -> Tensor:
         base = self.empty_state() if state is None else state
         cap = self._cap()
         cu = base[None, :] + self.W[probes]                      # (r, F)
         phi_cu = self._wsum(_phi(self.phi, cu, cap))             # (r,)
         # (r, chunk, F) blocks of at most 256 MiB: the whole (r, k, F) block
-        # is 480 GB for 1792 probes over 2^16 rows of 1024 features.  Each
-        # element's sum runs over F alone, so the blocks' shapes (and the
-        # probe chunks) change no bits.
-        pc = cu.shape[0] if probe_chunk is None else probe_chunk
-        out = []
-        for lo in range(0, cu.shape[0], pc):
-            cu_j = cu[lo:lo + pc]
-            step = max(1, _ELEMS // max(1, cu_j.numel()))
-            out.append(torch.cat([
-                self._wsum(_phi(self.phi, cu_j[:, None, :] + chunk[None, :, :], cap))
-                for chunk in rows.split(step)], dim=1))
-        out = torch.cat(out) - phi_cu[:, None]
+        # is 480 GB for 1792 probes over 2^16 rows of 1024 features.
+        step = max(1, _ELEMS // max(1, cu.numel()))
+        pair = [self._wsum(_phi(self.phi, cu[:, None, :] + chunk[None, :, :], cap))
+                for chunk in rows.split(step)]
+        out = torch.cat(pair, dim=1) - phi_cu[:, None]
         # Set semantics: f(u | S + u) = 0 (the coverage state is a sum, so
         # v == probe would otherwise count W[u] twice).
         return torch.where(probes[:, None] == cand[None, :], 0.0, out)
-
-    def _pairwise_gains_chunked(
-        self, probes: Tensor, cand_idx: Tensor | None, state: Tensor | None = None,
-        probe_chunk: int = 8,
-    ) -> Tensor:
-        """The batched engine's row: :meth:`pairwise_gains_compact`'s
-        arithmetic per element, in chunks of ``probe_chunk`` probes, so no
-        more than a (chunk, k, F) slab is live at once."""
-        if cand_idx is None:
-            cand = torch.arange(self.n, device=self.W.device)
-            return self._pairwise_rows(probes, self.W, cand, state, probe_chunk)
-        return self._pairwise_rows(probes, self.W[cand_idx], cand_idx, state,
-                                   probe_chunk)
-
-    def pairwise_gains_batched(self, probes, cand_idx, state=None, rows=None):
-        """(R, r, k) through the probe-chunked rows."""
-        return self._map_rows(rows, probes, cand_idx, state,
-                              lambda f, p, ci, st: f._pairwise_gains_chunked(p, ci, st))
 
     def residual_gains(self) -> Tensor:
         """f(v | V \\ v) = sum_f [phi(C) - phi(C - W_v)] for all v.  (n,)."""
@@ -505,23 +446,6 @@ class FacilityLocation(SubmodularFunction):
         """f(V) - f(V \\ v) for all v, with the top-2 tie rule."""
         return fl_residuals(self._row_blocks(), self.sim.shape[1], self.sim.device)
 
-    def _pairwise_gains_chunked(
-        self, probes: Tensor, cand_idx: Tensor | None, state: Tensor | None = None,
-        probe_chunk: int = 8,
-    ) -> Tensor:
-        """The batched engine's row: the hinge sums of
-        :meth:`pairwise_gains_compact` (each (probe, candidate) sum is the
-        plain walk's, whatever the other probes), ``probe_chunk`` probes at
-        a time."""
-        mu = self._probe_mu(probes, state)
-        return torch.cat([fl_pair_ref(self.sim, mu[lo:lo + probe_chunk], cand_idx)
-                          for lo in range(0, mu.shape[0], probe_chunk)])
-
-    def pairwise_gains_batched(self, probes, cand_idx, state=None, rows=None):
-        """(R, r, k) through the probe-chunked rows."""
-        return self._map_rows(rows, probes, cand_idx, state,
-                              lambda f, p, ci, st: f._pairwise_gains_chunked(p, ci, st))
-
     # -- kernel hooks ------------------------------------------------------
     def cuda_divergence(
         self,
@@ -564,9 +488,6 @@ class StreamingFacilityLocation(SubmodularFunction):
     every pass computes similarity blocks (plain path) or tiles (the CUDA
     kernel) on the fly, so the (n, n) matrix never exists.  Cosine is dot
     after one row normalization at construction.
-
-    Stacked, it takes the base class's row map for its ``*_batched`` hooks:
-    each row is already a walk over blocks.
 
     ``X`` holds the *candidate* rows.  ``Xs`` (None for the global objective,
     where served == candidates) holds the *served* rows, so that compacted

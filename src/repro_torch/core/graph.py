@@ -75,31 +75,6 @@ def divergence_compact(
     return w.min(dim=0).values
 
 
-def divergence_batched(
-    fn: SubmodularFunction,
-    probes: Tensor,
-    cand_idx: Tensor | None = None,
-    residual: Tensor | None = None,
-    state: Tensor | None = None,
-    rows: "list[int] | None" = None,
-) -> Tensor:
-    """w_{U_b, v} of a stacked objective: for each row b of ``rows`` (all B
-    when None), the probes (R, r) and the candidates cand_idx (R, k) (all n
-    when None) at its position.  Shape (R, k).
-
-    ``residual`` is the stacked (B, n) residual block (computed row by row
-    when None) and ``state`` the per-position states.  Position i equals
-    ``divergence_compact(fn.row(rows[i]), probes[i], cand_idx[i], ...)``
-    element for element.
-    """
-    rows = list(range(fn.batch)) if rows is None else list(rows)
-    if residual is None:
-        residual = torch.stack([fn.row(b).residual_gains() for b in range(fn.batch)])
-    pair = fn.pairwise_gains_batched(probes, cand_idx, state, rows)  # (R, r, k)
-    resid_p = residual[rows].gather(1, probes)                       # (R, r)
-    return (pair - resid_p[:, :, None]).min(dim=1).values
-
-
 def divergence_update(
     fn: SubmodularFunction,
     current: Tensor,

@@ -221,19 +221,9 @@ def _sparsify_dense(
     live = int(alive.sum())
     rnd = 0
     while live > m and rnd < rounds_cap:
-        # (1) m probes from the live set: Gumbel top-k is sampling without
-        # replacement (uniform, or importance-weighted via the logits).
-        g = noise[rnd] if noise is not None else gumbel(n, generator, dev)
-        g = g + logits + torch.where(alive, 0.0, NEG)
-        probes = torch.topk(g, m).indices
-
-        # (2) U moves from V to V'.  Every probe is live (live > m and dead
-        # slots sit at NEG), so exactly m leave the live set.
-        probe_hot = torch.zeros((n,), dtype=torch.bool, device=dev)
-        probe_hot[probes] = True
-        probe_hot &= alive
-        vprime |= probe_hot
-        alive &= ~probe_hot
+        # (1)-(2) m probes leave the live set for V'.
+        draw = noise[rnd] if noise is not None else gumbel(n, generator, dev)
+        probes = _take_probes(draw, logits, alive, vprime, m)
         live -= m
 
         # (3) running divergence against the union of all probes so far.
@@ -246,22 +236,10 @@ def _sparsify_dense(
             cand_idx = compact_indices(alive, size)
             w = be.divergence_compact(fn, probes, cand_idx, residual=residual,
                                       state=state)
-            # Padding slots repeat index 0; at +INF their scatter-min is a
-            # no-op.
-            w = torch.where(slots[:size] < live, w, INF)
-            div = div.scatter_reduce(0, cand_idx, w, reduce="amin")
+            div = _scatter_min(div, w, cand_idx, live, slots)
 
-        # (4) drop the (1 - 1/sqrt(c)) fraction of live items with the
-        # smallest divergence; a stable sort ranks them (dead at +INF last),
-        # and float32 arithmetic sets the count, as in the reference.
-        n_remove = int(np.floor(np.float32(live) * shrink))
-        keyed = torch.where(alive, div, INF)
-        order = torch.argsort(keyed, stable=True)
-        pos = torch.empty((n,), dtype=torch.long, device=dev)
-        pos[order] = slots
-        removed = alive & (pos < n_remove)
-        eps_hat = torch.maximum(eps_hat, torch.where(removed, div, NEG).max())
-        alive &= ~removed
+        # (4) drop the (1 - 1/sqrt(c)) fraction with the smallest divergence.
+        eps_hat = _drop(div, alive, live, shrink, slots, eps_hat)
         live = int(alive.sum())
         trace[rnd] = live
         rnd += 1
@@ -270,6 +248,45 @@ def _sparsify_dense(
     vprime |= alive
     return SSResult(vprime, div, torch.clamp_min(eps_hat, 0.0), rnd,
                     torch.tensor(trace, dtype=torch.int32))
+
+
+def _take_probes(draw: Tensor, logits: Tensor, alive: Tensor, vprime: Tensor,
+                 m: int) -> Tensor:
+    """(1)-(2) of one query's round: its m probes, moved from ``alive`` to
+    ``vprime`` (both (n,), updated in place).  Gumbel top-k of the
+    ``draw`` is sampling without replacement (uniform, or
+    importance-weighted by the ``logits``); dead slots sit at NEG and the
+    live set holds more than m, so every probe is live and exactly m
+    leave."""
+    probes = torch.topk(draw + logits + torch.where(alive, 0.0, NEG), m).indices
+    hot = torch.zeros_like(alive).index_fill_(0, probes, True) & alive
+    vprime |= hot
+    alive &= ~hot
+    return probes
+
+
+def _scatter_min(div: Tensor, w: Tensor, cand_idx: Tensor, live: int,
+                 slots: Tensor) -> Tensor:
+    """(3) of a compact round: the buffer's divergence ``w`` scatter-mins
+    into ``div``.  Padding slots (past ``live``) repeat index 0; at +INF
+    their scatter-min is a no-op."""
+    w = torch.where(slots[:w.shape[0]] < live, w, INF)
+    return div.scatter_reduce(0, cand_idx, w, reduce="amin")
+
+
+def _drop(div: Tensor, alive: Tensor, live: int, shrink, slots: Tensor,
+          eps_hat: Tensor) -> Tensor:
+    """(4) of one query's round: drop the (1 - 1/sqrt(c)) fraction of the
+    ``live`` items with the smallest divergence from ``alive`` (in place).
+    A stable sort ranks them (dead at +INF last) and float32 arithmetic
+    sets the count, as in the reference.  Returns the new eps_hat."""
+    n_remove = int(np.floor(np.float32(live) * shrink))
+    order = torch.argsort(torch.where(alive, div, INF), stable=True)
+    pos = torch.empty_like(order)
+    pos[order] = slots
+    removed = alive & (pos < n_remove)
+    alive &= ~removed
+    return torch.maximum(eps_hat, torch.where(removed, div, NEG).max())
 
 
 def ss_sparsify_batched(
@@ -323,14 +340,17 @@ def _sparsify_batched(
     """The batched SS loop: one Python loop over rounds for the whole batch.
 
     Each round works on the *active* rows (live > m and rounds left): one
-    host read gives every row's live count, the rows that finished keep
-    their whole carry (bit for bit what the single-query loop returns), and
-    the active rows share one compact bucket, the smallest that holds the
-    largest live count among them.  Each row's results do not depend on the
-    bucket (the compaction contract), so sharing it keeps row parity.  The
-    divergence is one ``divergence_batched`` call over the active rows; the
-    draws, the probe top-k, the float32 ``live * shrink`` and the stable
-    argsort are each row's own, as in :func:`_sparsify_dense`.
+    explicit host read gives every row's live count (``host_reads`` counts
+    them), the rows that finished keep their whole carry (bit for bit what
+    the single-query loop returns), and the active rows share one compact
+    bucket, the smallest that holds the largest live count among them.
+    Each row's results do not depend on the bucket (the compaction
+    contract), so sharing it keeps row parity.  The divergence is one
+    ``divergence_batched`` call over the active rows; the draws, the probes
+    and the prune are each row's own, through the single-query loop's
+    helpers (:func:`_take_probes`, :func:`_scatter_min`, :func:`_drop`).
+    Only the shared bucket and the host read differ from
+    :func:`_sparsify_dense`.
     """
     be = backend
     fn0 = fn.row(0)
@@ -371,20 +391,14 @@ def _sparsify_batched(
         act = [b for b in range(B) if live[b] > m and rnd < rounds_cap]
         if not act:
             break
-        # (1)-(2) each active row's m probes leave its live set.
+        # (1)-(2) each active row's m probes leave its live set (the rows'
+        # views are updated in place).
         probes = []
         for b in act:
-            g = noise[b, rnd] if noise is not None else gumbel(
+            draw = noise[b, rnd] if noise is not None else gumbel(
                 n, None if generators is None else generators[b], dev)
-            g = g + logits[b] + torch.where(alive[b], 0.0, NEG)
-            pr = torch.topk(g, m).indices
-            hot = torch.zeros((n,), dtype=torch.bool, device=dev)
-            hot[pr] = True
-            hot &= alive[b]
-            vprime[b] |= hot
-            alive[b] &= ~hot
+            probes.append(_take_probes(draw, logits[b], alive[b], vprime[b], m))
             live[b] -= m
-            probes.append(pr)
         probes = torch.stack(probes)                                  # (A, m)
         st = None if state is None else state[act]
 
@@ -399,22 +413,12 @@ def _sparsify_batched(
             cand = torch.stack([compact_indices(alive[b], size) for b in act])
             w = be.divergence_batched(fn, probes, cand, residual, st, act)
             for i, b in enumerate(act):
-                # padding slots repeat index 0; at +INF their scatter-min is
-                # a no-op
-                wb = torch.where(slots[:size] < live[b], w[i], INF)
-                div[b] = div[b].scatter_reduce(0, cand[i], wb, reduce="amin")
+                div[b] = _scatter_min(div[b], w[i], cand[i], live[b], slots)
 
         # (4) each active row drops its (1 - 1/sqrt(c)) fraction
         for b in act:
-            n_remove = int(np.floor(np.float32(live[b]) * shrink))
-            keyed = torch.where(alive[b], div[b], INF)
-            order = torch.argsort(keyed, stable=True)
-            pos = torch.empty((n,), dtype=torch.long, device=dev)
-            pos[order] = slots
-            removed = alive[b] & (pos < n_remove)
-            eps_hat[b] = torch.maximum(eps_hat[b], torch.where(removed, div[b], NEG).max())
-            alive[b] &= ~removed
-        counts = alive.sum(dim=1).tolist()          # one host read a round
+            eps_hat[b] = _drop(div[b], alive[b], live[b], shrink, slots, eps_hat[b])
+        counts = alive.sum(dim=1).tolist()          # one explicit read a round
         _sparsify_batched.host_reads += 1
         for b in act:
             live[b] = counts[b]

@@ -42,9 +42,6 @@ from repro_torch.device import resolve_device
 
 Tensor = torch.Tensor
 
-#: Valid degradation-ladder steps, in the order the reference documents them.
-LADDER_STEPS = ("stochastic_greedy", "bump_c", "shrink_r")
-
 _MASK64 = (1 << 64) - 1
 
 
@@ -78,58 +75,20 @@ def fold_generators(generators: "list[torch.Generator]", data: int
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """The end-to-end execution config (the reference's ``RunConfig``).
+    """The execution config of a batched run: the fields of the reference's
+    ``RunConfig`` that :func:`summarize_batch`'s callers read.
 
-    Execution: ``backend`` ("reference", "cuda", a Backend, or None: by the
-    objective's device); ``compact`` the compact-selection policy of
-    ``greedy_batched`` (None: the static SS live bound).  SS: probe
-    multiplier ``r``, accuracy/speed ``c``; ``eps`` the stochastic-greedy
-    sample-size parameter.  The other fields configure the service, which is
-    not ported yet (batching, scheduling, fault tolerance, degradation);
-    they keep the reference's defaults and checks, with the port's backend
-    names (``failover_backend`` defaults to "reference").
+    ``backend`` ("reference", "cuda", a Backend, or None: by the objective's
+    device); ``compact`` the compact-selection policy of ``greedy_batched``
+    (None: the static SS live bound); SS's probe multiplier ``r`` and
+    accuracy/speed ``c``.  The service's fields (batching, scheduling, fault
+    tolerance, degradation) come with the service, which is not ported yet.
     """
 
     backend: Any = None
     r: int = 8
     c: float = 8.0
-    eps: float = 0.1
     compact: "bool | int | None" = None
-    max_batch: int = 8
-    batch_c: float = 4.0
-    n_buckets: tuple[int, ...] | None = None
-    scheduler: str = "sync"
-    max_wait_s: float = 0.05
-    slack_s: float = 0.0
-    max_pending: int | None = None
-    stream_steps: bool = False
-    max_retries: int = 2
-    retry_backoff_s: float = 0.02
-    failover_backend: Any = "reference"
-    isolate_on_failure: bool = True
-    chunk_timeout_s: float | None = None
-    validate_payloads: bool = True
-    ladder: tuple[str, ...] = ()
-    ladder_pressure: float = 0.8
-    ladder_force: int | None = None
-
-    def __post_init__(self):
-        if self.scheduler not in ("sync", "async"):
-            raise ValueError(
-                f"scheduler must be 'sync' or 'async'; got {self.scheduler!r}")
-        if self.max_retries < 0:
-            raise ValueError(f"max_retries must be >= 0; got {self.max_retries}")
-        if self.chunk_timeout_s is not None and self.chunk_timeout_s <= 0:
-            raise ValueError(
-                f"chunk_timeout_s must be positive; got {self.chunk_timeout_s}")
-        object.__setattr__(self, "ladder", tuple(self.ladder))
-        bad = [s for s in self.ladder if s not in LADDER_STEPS]
-        if bad:
-            raise ValueError(
-                f"unknown ladder step(s) {bad}; valid steps: {LADDER_STEPS}")
-        if not 0.0 < self.ladder_pressure <= 1.0:
-            raise ValueError(
-                f"ladder_pressure must be in (0, 1]; got {self.ladder_pressure}")
 
 
 def batch_buckets(max_batch: int, c: float = 4.0) -> tuple[int, ...]:
@@ -159,7 +118,6 @@ class SummarizeRequest:
     phi: str = "sqrt"               # FeatureCoverage's concave transform
     kernel: str = "cosine"          # FacilityLocation's feature kernel
     use_ss: bool = True
-    deadline_s: float | None = None
 
     def generator(self, device) -> torch.Generator:
         """The query's generator on ``device``."""
