@@ -48,6 +48,12 @@ similarities), each through ``summarize_batch`` (one kernel launch a row a
 round or step), its rows held bit for bit to the card's single-query
 ``summarize``, its stochastic selector to per-row stochastic greedy, its
 streamed selection to the unstreamed one, its wall to the single queries'.
+The summarization service then serves those lanes (``service_phase``): one
+sync flush of three lanes and an async run, every response held bit for bit
+to the core's run, with no recovery, no degradation and the kernels'
+launches counted; seeded faults (retries bit-identical, a failover to the
+plain route on the card within TOL, the watchdog, a crash); and a traced
+run that changes no bit.
 After the LM path, a fresh prefill's KV cache is pruned to 256 positions
 (``Engine.prune_kv``, coverage and fl objectives, the kernel route held to
 the plain one under the same draws) and 32 tokens are decoded from it,
@@ -64,6 +70,11 @@ enqueue takes at least half of it, so that the events time the card alone.
 The last two lines of its output are JSON: the kernels' records, then
 ``{"ok": true, "device": {...}}``.  Any failure raises before them, and the
 script exits non-zero without a CUDA device or outside a checkout.
+
+    python3 chip_smoke.py --first-chunk cold|warmed
+
+runs only the service's first coverage chunk in a fresh process
+(``first_chunk_probe``) and prints its numbers, the last line as JSON.
 """
 
 from __future__ import annotations
@@ -76,6 +87,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -1080,6 +1092,8 @@ def fc_path(errs: dict) -> list[dict]:
     SIEVE["row_sieve"] = row_sieve_phase(fn)
     # the service's coverage lane: the same news day as 8 queries of 2^16
     records[0]["lane"] = coverage_lane(fn, errs)
+    # the summarization service over the lanes, on the same news day
+    records[0]["service"] = service_phase(fn)
     return records
 
 
@@ -2855,6 +2869,435 @@ def kv_prune_phase(cfg, eng, prompts, sc, errs: dict) -> dict:
     return out
 
 
+# -- the summarization service -------------------------------------------------
+
+SVC_FAULT_N = 1 << 14              # the fault phase: 2 queries of 2^14 x 1024
+CARD = [""]                        # nvidia-smi's name and power limit, set in main
+
+
+def _svc_kernels() -> dict:
+    from repro_torch.kernels import (
+        feature_gains_kernel, fl_divergence_kernel, fl_gains_kernel,
+        ss_divergence_kernel,
+    )
+
+    return {"ss_divergence": ss_divergence_kernel, "feature_gains": feature_gains_kernel,
+            "fl_divergence": fl_divergence_kernel, "fl_gains": fl_gains_kernel}
+
+
+def _same_response(a, b, what: str) -> None:
+    check(torch.equal(a.selected, b.selected) and torch.equal(a.gains, b.gains)
+          and (a.value, a.vprime_size, a.eps_hat, a.rounds)
+          == (b.value, b.vprime_size, b.eps_hat, b.rounds),
+          f"service: {what} differs bit for bit")
+
+
+def _same_as_row(resp, res, ss, b: int, what: str) -> None:
+    """A response equals row b of a batched (or single, b = None) run."""
+    sel, gains, value = ((res.selected, res.gains, res.value) if b is None
+                         else (res.selected[b], res.gains[b], res.value[b]))
+    check(torch.equal(resp.selected, sel) and torch.equal(resp.gains, gains)
+          and resp.value == float(value), f"service: {what}: picks, gains or f(S) "
+          "differ from the core's run")
+    if ss is None:
+        check(resp.vprime_size is None and resp.rounds is None,
+              f"service: {what}: SS metadata without SS")
+        return
+    vp, eps, rounds = ((ss.vprime, ss.eps_hat, ss.rounds) if b is None
+                       else (ss.vprime[b], ss.eps_hat[b], ss.rounds[b]))
+    check(resp.vprime_size == int(vp.sum()) and resp.eps_hat == float(eps)
+          and resp.rounds == rounds, f"service: {what}: |V'|, eps_hat or rounds "
+          "differ from the core's run")
+
+
+def _chunks(responses) -> list:
+    """The chunks the responses rode in, one response each (a chunk's
+    responses share its exec_s)."""
+    seen = {}
+    for r in responses:
+        seen.setdefault((r.lane, r.exec_s), r)
+    return list(seen.values())
+
+
+def _want_launches(responses) -> dict:
+    """The kernel launches a fault-free service run makes: each chunk runs
+    its batch bucket's rows (padding included, each row with row 0's
+    rounds), one divergence launch a row a round and one gains launch a row
+    a step; ``use_ss=False`` lanes only the gains."""
+    want = {"ss_divergence": 0, "feature_gains": 0, "fl_divergence": 0, "fl_gains": 0}
+    by_chunk = {}
+    for r in responses:
+        by_chunk.setdefault((r.lane, r.exec_s), []).append(r)
+    for (lane, _), rs in by_chunk.items():
+        div, gains = (("ss_divergence", "feature_gains") if lane[0] == "coverage"
+                      else ("fl_divergence", "fl_gains"))
+        bucket = rs[0].batch_bucket
+        want[gains] += bucket * lane[3]
+        if lane[6]:
+            rounds = [r.rounds for r in rs]
+            check(len(set(rounds)) == 1, f"service: rows of one n with other "
+                  f"rounds {rounds}")
+            want[div] += bucket * rounds[0]
+    return want
+
+
+def _fault_free(label: str, svc, responses, launches: dict) -> None:
+    """Tentpole's fault-free checks: no recovery or degradation record, no
+    retry, failover, isolation or timeout, and the kernels' launches are the
+    ones the chunks need (a failover to the plain route would leave them
+    short)."""
+    st = svc.stats()
+    check(all(r.recovery is None and r.degradation is None for r in responses),
+          f"{label}: a response carries a recovery or degradation record")
+    bad = {k: st[k] for k in ("retries", "failovers", "isolated_queries",
+                              "chunk_timeouts", "failed", "degraded") if st[k]}
+    check(not bad, f"{label}: fault counters {bad} in a fault-free run")
+    want = _want_launches(responses)
+    check(launches == want, f"{label}: kernel launches {launches}, want {want}")
+
+
+def _event_ms(call) -> tuple:
+    """(result, ms) of one call between CUDA events."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = call()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def service_phase(fn) -> dict:
+    """The summarization service on the card, at the lanes' sizes: (a) one
+    sync flush of 8 coverage queries (2^16 x 1024 views of the news day), 3
+    FL queries (2^13 frames of path A's video, cosine; bucket 4, one pad
+    row) and 2 ``use_ss=False`` coverage queries, each response held bit
+    for bit to the core's run; (b) the async scheduler over 32 coverage
+    queries (16 slices x 2 seeds) and the 4 FL queries, some with
+    deadlines, held to the sync engine; (c) faults at 2 x 2^14 x 1024:
+    retries bit-identical, failover to the plain route on the card within
+    TOL (or a differing decision explained in float64), the watchdog, a
+    crash; (d) tracing changes no bit and its spans and metrics agree with
+    the service."""
+    from repro_torch import api, greedy, obs, summarize, video
+    from repro_torch.serve import (
+        Fault, FaultPlan, RunConfig, ServiceRestarted, SummarizeRequest,
+        build_batch_objective, summarize_batch,
+    )
+
+    kernels = _svc_kernels()
+    out = {"card": CARD[0]}
+    W = fn.W
+    t = time.perf_counter()
+    X = video(0, N_A, F_A)[:FL_LANE_B * FL_LANE_N]
+    t_video = time.perf_counter() - t
+
+    def cov(b, seed, n=LANE_N, **kw):
+        return SummarizeRequest(k=K, seed=seed, features=W[b * n:(b + 1) * n], **kw)
+
+    def flq(b, seed, **kw):
+        return SummarizeRequest(k=K, seed=seed, objective="fl", kernel="cosine",
+                                features=X[b * FL_LANE_N:(b + 1) * FL_LANE_N], **kw)
+
+    def gens(reqs):
+        return [torch.Generator(device="cuda").manual_seed(r.seed) for r in reqs]
+
+    def counted(call):
+        for kern in kernels.values():
+            kern.launches = 0
+        res = call()
+        return res, {name: kern.launches for name, kern in kernels.items()}
+
+    # (a) one sync flush of three lanes
+    cov_reqs = [cov(b, 100 + b) for b in range(LANE_B)]
+    fl_reqs = [flq(b, 200 + b) for b in range(3)]
+    noss_reqs = [cov(b, 300 + b, use_ss=False) for b in range(2)]
+    svc = api.serve(RunConfig(max_batch=LANE_B), device="cuda")
+    obs.reset()
+    reqs_a = cov_reqs + fl_reqs + noss_reqs
+    resp_a, launches_a = counted(lambda: svc.run(reqs_a))
+    _fault_free("service (a)", svc, resp_a, launches_a)
+    ra_cov, ra_fl, ra_noss = resp_a[:8], resp_a[8:11], resp_a[11:]
+    check([r.batch_bucket for r in (ra_cov[0], ra_fl[0], ra_noss[0])] == [8, 4, 2]
+          and ra_fl[0].batch_size == 3, "service (a): wrong batch buckets")
+    fnb, _ = build_batch_objective(cov_reqs, None, device="cuda")
+    (res_b, ss_b), ev_ms = _event_ms(lambda: summarize_batch(fnb, K, gens(cov_reqs),
+                                                              r=R, c=C))
+    for b, resp in enumerate(ra_cov):
+        _same_as_row(resp, res_b, ss_b, b, f"(a) coverage row {b}")
+    for i, (q, resp) in enumerate(zip(fl_reqs, ra_fl)):
+        f1, _ = build_batch_objective([q], None, device="cuda")
+        res1, ss1 = summarize(f1.row(0), K, gens([q])[0], r=R, c=C)
+        _same_as_row(resp, res1, ss1, None, f"(a) FL query {i} (single-query run)")
+    for i, resp in enumerate(ra_noss):
+        f1, _ = build_batch_objective([noss_reqs[i]], None, device="cuda")
+        _same_as_row(resp, greedy(f1.row(0), K), None, None,
+                     f"(a) use_ss=False query {i} (greedy on V)")
+    check(ra_cov[0].exec_s >= 0.9 * ev_ms / 1e3,
+          f"service (a): exec_s {ra_cov[0].exec_s} s below 0.9 of the chunk's "
+          f"summarize_batch between events ({ev_ms:.4f} ms): not synchronised")
+    # the lanes ran first, so this first chunk of a fresh service is warm
+    # (a cold process's first chunk pays one-time costs: first_chunk_probe)
+    check(ra_cov[0].exec_s <= 3 * ev_ms / 1e3,
+          f"service (a): exec_s {ra_cov[0].exec_s} s above 3 times the chunk's "
+          f"summarize_batch between events ({ev_ms:.4f} ms)")
+
+    # host reads a chunk adds to summarize_batch's, at B = 8 and B = 2
+    reads = {}
+    for B_ in (LANE_B, 2):
+        s2 = api.serve(RunConfig(max_batch=LANE_B), device="cuda")
+        for q in cov_reqs[:B_]:
+            s2.submit(q)
+        f2, _ = build_batch_objective(cov_reqs[:B_], None, device="cuda")
+        g2 = gens(cov_reqs[:B_])
+        reads[B_] = (host_syncs(s2.flush),
+                     host_syncs(lambda: summarize_batch(f2, K, g2, r=R, c=C)))
+    extra = {b: s - c for b, (s, c) in reads.items()}
+    check(len(set(extra.values())) == 1 and 0 < extra[LANE_B] <= 2,
+          f"service (a): a chunk's host syncs above summarize_batch's {extra} "
+          "(want one synchronise and one transfer at every B)")
+    wall_svc = _median_wall(lambda: svc.run(cov_reqs))
+    wall_core = _median_wall(lambda: summarize_batch(fnb, K, gens(cov_reqs), r=R, c=C))
+    del fnb, res_b, ss_b
+    prof = profile_run("service (a) run of the 8 coverage queries",
+                       lambda: svc.run(cov_reqs), watch=("ss_divergence",
+                                                         "feature_gains"), top=6)
+    print(f"[{CARD[0]}] service (a), one sync flush: 8 coverage queries (8 x 2^16 "
+          f"x 1024, bucket 8), 3 FL queries (2^13 frames, cosine, bucket 4, one pad "
+          f"row; video set-up {t_video:.2f} s), 2 use_ss=False queries (bucket 2): "
+          f"every response equals summarize_batch's row / the single-query run bit "
+          f"for bit; no recovery or degradation; launches {launches_a}; host syncs "
+          f"a chunk adds to summarize_batch's: {extra[LANE_B]} at B = 8, {extra[2]} "
+          f"at B = 2 ({reads}); coverage chunk exec_s {ra_cov[0].exec_s:.4f} s "
+          f"against summarize_batch between events {ev_ms / 1e3:.4f} s; "
+          f"service.run of the 8 coverage queries {wall_svc:.4f} s against "
+          f"summarize_batch alone {wall_core:.4f} s (host clock, synchronised, "
+          f"median of 3)", flush=True)
+    out["a"] = {"launches": launches_a, "host_syncs_above_core": extra,
+                "exec_s": ra_cov[0].exec_s, "event_s": ev_ms / 1e3,
+                "run_wall_s": wall_svc, "summarize_batch_wall_s": wall_core,
+                "busy_ms": prof.get("busy_ms"), "profiled_wall_ms": prof.get("wall_ms"),
+                "stats": svc.stats()}
+
+    # (b) the async scheduler: 32 coverage queries and 4 FL queries
+    reqs_b = [cov(b % 16, 400 + b, deadline_s=30.0 if b % 4 == 0 else None)
+              for b in range(32)] + [flq(b, 500 + b, deadline_s=30.0 if b == 0 else None)
+                                     for b in range(FL_LANE_B)]
+    ref_b = api.serve(RunConfig(max_batch=LANE_B), device="cuda").run(reqs_b)
+    svc_b = api.serve(RunConfig(max_batch=LANE_B, scheduler="async"), device="cuda")
+    with svc_b:
+        def run_b():
+            tickets = [svc_b.submit(q) for q in reqs_b]
+            svc_b.drain(timeout=300)
+            return [tk.result(timeout=0) for tk in tickets]
+
+        resp_b, launches_b = counted(run_b)
+    for i, (a, b) in enumerate(zip(resp_b, ref_b)):
+        _same_response(a, b, f"(b) async query {i} against the sync engine")
+    _fault_free("service (b)", svc_b, resp_b, launches_b)
+    delays = sorted(r.queue_delay_s for r in resp_b)
+    p50 = delays[len(delays) // 2]
+    p99 = delays[min(len(delays) - 1, math.ceil(0.99 * len(delays)) - 1)]
+    st_b = svc_b.stats()
+    check(st_b["deadlines_missed"] == 0, "service (b): a 30 s deadline was missed")
+    print(f"[{CARD[0]}] service (b), async: 32 coverage queries (16 slices x 2 "
+          f"seeds) + 4 FL queries, 9 with 30 s deadlines: responses equal the sync "
+          f"engine's bit for bit; triggers {st_b['triggers']} over "
+          f"{len(_chunks(resp_b))} chunks; queue delay p50 {p50:.4f} s, p99 "
+          f"{p99:.4f} s; launches {launches_b}; stats {st_b}", flush=True)
+    out["b"] = {"triggers": st_b["triggers"], "queue_delay_p50_s": p50,
+                "queue_delay_p99_s": p99, "launches": launches_b, "stats": st_b}
+
+    # (c) faults at 2 x 2^14 x 1024
+    reqs_c = [cov(b, 600 + b, n=SVC_FAULT_N) for b in range(2)]
+    clean = api.serve(RunConfig(max_batch=2), device="cuda").run(reqs_c)
+    plan = FaultPlan({0: Fault("exec_error"), 1: Fault("malformed")})
+    s_c = api.serve(RunConfig(max_batch=2, retry_backoff_s=0.002), faults=plan,
+                    device="cuda")
+    retried = s_c.run(reqs_c)
+    for i, (a, b) in enumerate(zip(retried, clean)):
+        _same_response(a, b, f"(c) query {i} after two retries")
+        check(a.recovery == {"retries": 2, "stage": "primary", "backends": ("cuda",),
+                             "isolated": False}, f"(c): recovery {a.recovery}")
+    check(s_c.stats()["retries"] == 2, "service (c): retries not counted")
+
+    s_f = api.serve(RunConfig(max_batch=2, max_retries=0),
+                    faults=FaultPlan({0: Fault("exec_error")}), device="cuda")
+    failed_over = s_f.run(reqs_c)
+    check(s_f.stats()["failovers"] == 1 and all(
+        r.recovery == {"retries": 1, "stage": "failover",
+                       "backends": ("cuda", "reference"), "isolated": False}
+        for r in failed_over), f"service (c): failover records "
+        f"{[r.recovery for r in failed_over]}")
+    route = []
+    tol = TOL[torch.float32]
+    for i, (q, k_resp, p_resp) in enumerate(zip(reqs_c, clean, failed_over)):
+        f1, _ = build_batch_objective([q], None, device="cuda")
+        f = f1.row(0)
+        ss_k = summarize(f, K, gens([q])[0], r=R, c=C)[1]
+        ss_p = summarize(f, K, gens([q])[0], r=R, c=C, backend="reference")[1]
+        check(p_resp.vprime_size == int(ss_p.vprime.sum())
+              and p_resp.eps_hat == float(ss_p.eps_hat),
+              f"service (c): failed-over query {i} is not the plain route's run")
+        differ = torch.nonzero(k_resp.selected != p_resp.selected).flatten()
+        same_ss = torch.equal(ss_k.vprime, ss_p.vprime)
+        note = "same V' and picks"
+        if not same_ss or differ.numel():
+            note = _explain_kv(f"service (c) query {i}", f, q.seed, K)
+        if same_ss:
+            upto = int(differ[0]) if differ.numel() else K
+            div_size = float(f.singleton_gains().max() + f.residual_gains().abs().max())
+            val_size = abs(p_resp.value)
+            cases = [("eps_hat", abs(k_resp.eps_hat - p_resp.eps_hat), div_size),
+                     ("gains", float((k_resp.gains[:upto] - p_resp.gains[:upto])
+                                     .abs().max()) if upto else 0.0, val_size)]
+            if not differ.numel():
+                cases.append(("value", abs(k_resp.value - p_resp.value), val_size))
+            for name, err, size in cases:
+                check(err <= tol * max(1.0, size), f"service (c) query {i}: {name} "
+                      f"of the failover (plain route) vs the kernel route err {err} "
+                      f"> {tol * max(1.0, size)}")
+                note += f"; {name} err {err:.3g}"
+        route.append(note)
+
+    hang = FaultPlan({0: Fault("hang", delay_s=4.0)})
+    s_h = api.serve(RunConfig(max_batch=2, chunk_timeout_s=1.0), faults=hang,
+                    device="cuda")
+    t = time.perf_counter()
+    hung = s_h.run(reqs_c)
+    t_hang = time.perf_counter() - t
+    check(all(r.recovery is not None and r.recovery["stage"] == "failover"
+              for r in hung) and s_h.stats()["chunk_timeouts"] == 1,
+          f"service (c): the hung chunk was not abandoned and failed over "
+          f"({[r.recovery for r in hung]})")
+    deadline = time.perf_counter() + 60
+    while any(th.name == "summarize-chunk" and th.is_alive()
+              for th in threading.enumerate()):
+        check(time.perf_counter() < deadline, "service (c): the abandoned attempt "
+              "did not end")
+        time.sleep(0.1)
+    check(s_h.stats()["queries"] == 2 and s_h.stats()["batches"] == 1 and all(
+        r.recovery["stage"] == "failover" for r in hung),
+        "service (c): the abandoned attempt's late result was not discarded")
+
+    s_x = api.serve(RunConfig(max_batch=2), faults=FaultPlan({0: Fault("crash")}),
+                    device="cuda")
+    tickets = [s_x.submit(q) for q in reqs_c]
+    s_x.flush()
+    late = s_x.submit(reqs_c[0])
+    check(all(tk.done() and isinstance(tk.exception(timeout=0), ServiceRestarted)
+              for tk in tickets + [late]), "service (c): a crash left a ticket "
+          "unsettled or settled it otherwise")
+    print(f"[{CARD[0]}] service (c), faults at 2 x 2^14 x 1024: exec_error then "
+          f"malformed retried, bit-identical to the fault-free run; max_retries=0 + "
+          f"exec_error failed over to the plain route on the card (backends cuda, "
+          f"reference): {route}; a hang under chunk_timeout_s = 1 s abandoned and "
+          f"failed over in {t_hang:.2f} s, its late result discarded; a crash "
+          f"settled every ticket with ServiceRestarted", flush=True)
+    out["c"] = {"failover": route, "hang_run_s": t_hang}
+
+    # (d) tracing on the coverage lane
+    obs.reset()
+    obs.configure(trace=True)
+    try:
+        s_d = api.serve(RunConfig(max_batch=LANE_B), device="cuda")
+        traced, launches_d = counted(lambda: s_d.run(cov_reqs))
+    finally:
+        obs.configure(trace=False)
+    for i, (a, b) in enumerate(zip(traced, ra_cov)):
+        _same_response(a, b, f"(d) traced coverage query {i} against (a)")
+    _fault_free("service (d)", s_d, traced, launches_d)
+    tr = obs.get_tracer()
+    for i in range(LANE_B):
+        names = {sp.name for sp in tr.spans_for_request(i)}
+        want = {"request.admit", "queue.wait", "chunk.exec", "ss.sparsify_batched",
+                "greedy.select_batched"}
+        check(want <= names, f"service (d): request {i}'s spans {names} miss "
+              f"{want - names}")
+    counted_q = obs.get_registry().get("repro_service_queries_total").value()
+    check(counted_q == s_d.stats()["queries"] == LANE_B,
+          f"service (d): metrics count {counted_q} queries, stats "
+          f"{s_d.stats()['queries']}")
+    (ss_span,) = tr.spans(name="ss.sparsify_batched")
+    check(ss_span.attrs["rounds"] == [r.rounds for r in traced],
+          "service (d): the SS span's rounds differ from the responses'")
+    print(f"[{CARD[0]}] service (d), traced: the 8 coverage responses equal "
+          f"untraced (a) bit for bit; every request's spans hold request.admit, "
+          f"queue.wait, chunk.exec, ss.sparsify_batched, greedy.select_batched; "
+          f"metrics count {counted_q:g} queries as stats does; ss.sparsify_batched "
+          f"wall {ss_span.attrs['wall_s']:.4f} s, chunk exec_s "
+          f"{traced[0].exec_s:.4f} s", flush=True)
+    obs.reset()
+    out["d"] = {"launches": launches_d, "exec_s": traced[0].exec_s,
+                "ss_wall_s": ss_span.attrs["wall_s"]}
+    return out
+
+
+def first_chunk_probe(warm_first: bool) -> dict:
+    """The service phase's first coverage chunk in a fresh process, alone
+    (``python3 chip_smoke.py --first-chunk cold|warmed``): a fresh service's
+    first chunk (8 x 2^16 x 1024 views of a news day already on the card),
+    its ``exec_s`` against the same chunk's ``summarize_batch`` between
+    events just after, the lane's EWMA estimate after each of two chunks,
+    and a second fresh service's first chunk.  ``warmed`` first pays, one
+    at a time and timed to a synchronised card, what a process's first
+    call pays once: the CUDA context, the caching allocator's 2 GiB segment
+    for the stacked W, and the first use of each kernel and PyTorch
+    operation (the same lane at 2^12 sentences a query, run twice)."""
+    from repro_torch import api, news_day
+    from repro_torch.serve import RunConfig, SummarizeRequest, build_batch_objective
+    from repro_torch.serve import summarize_batch
+
+    out = {"card": CARD[0], "mode": "warmed" if warm_first else "cold"}
+
+    def synced(call):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    if warm_first:
+        out["context_s"] = synced(lambda: torch.zeros(1, device="cuda"))
+    W = torch.from_numpy(news_day(0, LANE_B * LANE_N, F)).to("cuda")
+    torch.cuda.synchronize()
+
+    def cov(n):
+        return [SummarizeRequest(k=K, seed=100 + b, features=W[b * n:(b + 1) * n])
+                for b in range(LANE_B)]
+
+    def core(reqs):
+        fnb, _ = build_batch_objective(reqs, None, device="cuda")
+        gens = [torch.Generator(device="cuda").manual_seed(q.seed) for q in reqs]
+        return summarize_batch(fnb, K, gens, r=R, c=C)
+
+    reqs = cov(LANE_N)
+    if warm_first:
+        out["stack_alloc_s"] = synced(lambda: torch.empty(
+            (LANE_B, LANE_N, F), device="cuda").fill_(0.0))
+        small = cov(1 << 12)
+        out["small_first_s"] = synced(lambda: core(small))
+        out["small_second_s"] = synced(lambda: core(small))
+    svc = api.serve(RunConfig(max_batch=LANE_B), device="cuda")
+    lane = svc._lane(reqs[0])
+    first = svc.run(reqs)[0]
+    est_first = svc._exec_est[(lane, 0)]
+    _, ev_ms = _event_ms(lambda: core(reqs))
+    second = svc.run(reqs)[0]
+    est_second = svc._exec_est[(lane, 0)]
+    fresh = api.serve(RunConfig(max_batch=LANE_B), device="cuda").run(reqs)[0]
+    check(all(r.recovery is None and r.degradation is None
+              for r in (first, second, fresh)), "first chunk probe: a recovery "
+          "or degradation record")
+    out.update(first_exec_s=first.exec_s, event_s=ev_ms / 1e3,
+               ewma_after_first_s=est_first, second_exec_s=second.exec_s,
+               ewma_after_second_s=est_second, fresh_service_exec_s=fresh.exec_s)
+    print(f"[{CARD[0]}] first chunk probe ({out['mode']}): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out.items()
+                      if isinstance(v, float)), flush=True)
+    return out
+
+
 def sieve_record() -> dict:
     """The eighth record: ``sieve_gains``, timed at FeatureCoverage's shapes
     (the quickstart's and fig1's baseline), the other paths beside it;
@@ -2890,6 +3333,16 @@ def main() -> int:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi)
+    CARD[0] = smi
+    if "--first-chunk" in sys.argv:
+        # the service's first chunk in a fresh process, alone: no kernel
+        # records and no result line
+        mode = sys.argv[sys.argv.index("--first-chunk") + 1]
+        check(mode in ("cold", "warmed"), f"--first-chunk {mode}: cold or warmed")
+        build()
+        load_library()
+        print(json.dumps(first_chunk_probe(mode == "warmed")))
+        return 0
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}",
           flush=True)

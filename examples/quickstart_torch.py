@@ -5,7 +5,8 @@ Submodular Sparsification (Algorithm 1) + greedy on the reduced set V', and
 prints the utility ratio, the reduction and the certificate.  Then the
 paper's other selectors on V (stochastic and lazy greedy), the streaming
 baseline (sieve streaming), the one-call pipeline with the §3.4
-improvements, and matrix-free facility location.
+improvements, one request through the summarization service's facade
+(``repro_torch.api.summarize``, traced), and matrix-free facility location.
 On the card, SS and greedy run once more through the plain backend under
 the same draws: the kernels must give the same V' and the same picks.
 
@@ -20,11 +21,13 @@ import torch
 
 from repro_torch import (
     StreamingFacilityLocation,
+    api,
     clustered_embeddings,
     feature_coverage_from_numpy,
     greedy,
     lazy_greedy,
     news_day,
+    obs,
     sieve_streaming,
     ss_sparsify,
     stochastic_greedy,
@@ -110,6 +113,24 @@ print(f"sieve-streaming:    f(S) = {float(sv.value):.4f}  "
 # --- one-call pipeline -------------------------------------------------------
 res, _ = summarize(fn, K, seeded(0), preprune=True, importance=True)
 print(f"summarize(+§3.4):   f(S) = {float(res.value):.4f}")
+
+# --- one-call facade: the summarization service (repro_torch.api) -----------
+# The service micro-batches requests into lanes (sync or async scheduler,
+# per-request deadline_s, Ticket futures), retries, fails over to the plain
+# route and isolates poisoned queries, walks a degradation ladder under
+# deadline pressure (RunConfig.ladder), and takes a FaultPlan for chaos
+# tests.  Tracing is on for this one request: the service records
+# request.admit / queue.wait / chunk.exec spans and the core its
+# ss.sparsify_batched / greedy.select_batched spans under them; results
+# stay bit-identical (telemetry only observes outputs).
+obs.configure(trace=True)
+resp = api.summarize(fn.W, k=K, seed=0, device=dev)
+obs.configure(trace=False)
+assert torch.equal(resp.selected, reduced.selected)   # same seed, same picks
+print(f"api.summarize:      f(S) = {resp.value:.4f}  "
+      f"(|V'| = {resp.vprime_size}, batch {resp.batch_size}/"
+      f"{resp.batch_bucket}, queue {resp.queue_delay_s * 1e3:.1f} ms)")
+print(obs.trace_summary())               # the request's span tree
 
 # --- matrix-free facility location round-trip --------------------------------
 # StreamingFacilityLocation stores only (n, d) embeddings and computes

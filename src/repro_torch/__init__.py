@@ -8,10 +8,16 @@ greedy) and the §3.4 post-reduction run through the same kernels, and the
 streaming baseline, sieve streaming, through a gain-table kernel of its
 own.  Batched SS and greedy run B same-shape queries in one loop
 (``repro_torch.serve.summarize_batch``), which also prunes an LM's KV
-cache (``repro_torch.serve.kv_select``).  The JAX package ``repro`` is the reference it is tested against;
-this package imports nothing of it.
+cache (``repro_torch.serve.kv_select``).  The summarization service
+(``repro_torch.serve.SummarizeService``: lanes, the sync and async
+schedulers, retry, failover, isolation, the watchdog and the degradation
+ladder) serves queries through that core, behind the facade
+``repro_torch.api``, with its own telemetry (``repro_torch.obs``).  The
+JAX package ``repro`` is the reference it is tested against; this package
+imports nothing of it.
 """
 
+from repro_torch import api, obs
 from repro_torch.convert import (
     facility_location_from_features,
     facility_location_from_numpy,
@@ -62,12 +68,12 @@ __all__ = [
     "CudaBackend", "FacilityLocation", "FeatureCoverage", "GreedyResult",
     "LazyGreedyResult", "ReferenceBackend", "SSResult", "STREAM_PHIS",
     "SieveResult", "SieveState", "StreamSieveState",
-    "StreamingFacilityLocation", "auto_sample_size", "bidirectional_greedy",
+    "StreamingFacilityLocation", "api", "auto_sample_size", "bidirectional_greedy",
     "check_triangle_inequality", "clustered_embeddings", "divergence_update",
     "facility_location_from_features", "facility_location_from_numpy",
     "feature_coverage_from_numpy", "full_edge_matrix", "greedy", "greedy_batched",
     "lazy_greedy",
-    "news_day", "postreduce", "resolve_backend", "sieve_best", "sieve_extend",
+    "news_day", "obs", "postreduce", "resolve_backend", "sieve_best", "sieve_extend",
     "sieve_init", "sieve_streaming", "sieve_update", "ss_sparsify",
     "ss_sparsify_batched", "stochastic_greedy", "stochastic_greedy_batched", "stream_sieve_best", "stream_sieve_init",
     "stream_sieve_update", "streaming_facility_location_from_numpy",

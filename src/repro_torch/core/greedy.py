@@ -26,22 +26,81 @@ before the first step (``prepare_compact``: dense facility location on the
 card copies its columns into a panel, freed when greedy returns).  Compact
 and full-width runs pick the same elements, because both argmaxes take the
 first maximum in ground order.
+
+Telemetry (``repro_torch.obs``): ``greedy``, ``greedy_batched`` and
+``stochastic_greedy_batched`` open a span (``greedy.select``,
+``greedy.select_batched``, ``greedy.stochastic_batched``) only while
+tracing is on and the device is not capturing a CUDA graph
+(:func:`_traceable`).  Then the call synchronises the device before it
+reads the wall clock and reads the gains and values to the host after the
+loop; with tracing off it adds no op and no host read.
 """
 
 from __future__ import annotations
 
 import heapq
 import math
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.backend import Backend, resolve_backend
 from repro_torch.core.functions import NEG, SubmodularFunction
 from repro_torch.device import resolve_device
 
 Tensor = torch.Tensor
+
+
+def _traceable(device) -> bool:
+    """Telemetry eligibility: tracing is on and ``device`` is not capturing
+    a CUDA graph (a host read or a synchronisation there would break the
+    capture).  The counterpart of the reference's "no tracers" gate."""
+    if not obs.trace_enabled():
+        return False
+    dev = torch.device(device)
+    return not (dev.type == "cuda" and torch.cuda.is_current_stream_capturing())
+
+
+def _observed(name: str, device, run, record, **attrs):
+    """``run()``, inside span ``name`` when :func:`_traceable`: the device is
+    synchronised before the wall clock is read (the reference's
+    ``block_until_ready``), then ``record(span, result, wall_s)`` reads the
+    results on the host.  Untraced, ``run()`` alone."""
+    if not _traceable(device):
+        return run()
+    with obs.span(name, **attrs) as sp:
+        t0 = time.perf_counter()
+        out = run()
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        record(sp, out, time.perf_counter() - t0)
+    return out
+
+
+def _record_greedy(sp, res: "GreedyResult", k: int, backend: str,
+                   wall_s: float, *, selector: str, batched: bool) -> None:
+    """Fill a selection span and the metrics from a finished result.  The
+    gain trajectory is read from ``GreedyResult.gains`` after the loop
+    returns, never inside it."""
+    gains = res.gains.cpu().numpy()
+    value = res.value.cpu().numpy()
+    if batched:
+        sp.set(
+            B=int(gains.shape[0]),
+            value=[float(v) for v in value],
+            gains=[[float(g) for g in row] for row in gains],
+        )
+    else:
+        sp.set(value=float(value), gains=[float(g) for g in gains])
+    sp.set(k=k, backend=backend, selector=selector)
+    obs.get_registry().histogram(
+        "repro_greedy_wall_seconds", "greedy selection wall time per call",
+        labels=("backend", "selector"),
+    ).observe(wall_s, backend=backend, selector=selector)
 
 
 class GreedyResult(NamedTuple):
@@ -141,7 +200,11 @@ def greedy(
     "reference", "cuda", a Backend, or None (by ``fn``'s device).
     """
     be = resolve_backend(backend, fn.device)
-    return _greedy_dense(fn, k, alive, state, compact, be)
+    return _observed(
+        "greedy.select", fn.device,
+        lambda: _greedy_dense(fn, k, alive, state, compact, be),
+        lambda sp, res, wall: _record_greedy(sp, res, k, be.name, wall,
+                                             selector="greedy", batched=False))
 
 
 def _greedy_dense(
@@ -295,15 +358,25 @@ def greedy_batched(
     """
     be = resolve_backend(backend, fn.device)
     _check_batched_alive("greedy_batched", alive)
-    size, _ = _batched_compact_plan(fn.row(0).n, alive, compact)
-    cand_idx, avail, st = _batched_frame(fn, size, alive, state)
-    cands = None if cand_idx is None else be.prepare_batched(fn, cand_idx)
+    n = fn.row(0).n
+    size, _ = _batched_compact_plan(n, alive, compact)
 
-    def step(i, st, avail):
-        g = torch.where(avail, be.gains_batched(fn, st, cands), NEG)
-        return _batched_commit(fn, st, avail, cand_idx, g, torch.argmax(g, dim=1))
+    def run():
+        cand_idx, avail, st = _batched_frame(fn, size, alive, state)
+        cands = None if cand_idx is None else be.prepare_batched(fn, cand_idx)
 
-    return _batched_loop(fn, k, st, avail, step, on_step)
+        def step(i, st, avail):
+            g = torch.where(avail, be.gains_batched(fn, st, cands), NEG)
+            return _batched_commit(fn, st, avail, cand_idx, g,
+                                   torch.argmax(g, dim=1))
+
+        return _batched_loop(fn, k, st, avail, step, on_step)
+
+    return _observed(
+        "greedy.select_batched", fn.device, run,
+        lambda sp, res, wall: _record_greedy(sp, res, k, be.name, wall,
+                                             selector="greedy", batched=True),
+        n=n, bucket=size)
 
 
 def _check_batched_alive(what: str, alive: Tensor | None) -> None:
@@ -431,22 +504,31 @@ def stochastic_greedy_batched(
     if generators is not None and len(generators) != B:
         raise ValueError(f"stochastic_greedy_batched needs {B} generators, one a "
                          f"row; got {len(generators)}")
-    cand_idx, avail, st = _batched_frame(fn, size, alive, state)
 
-    def step(i, st, avail):
-        g = noise[i] if noise is not None else torch.stack([
-            gumbel(width, None if generators is None else generators[b], dev)
-            for b in range(B)])
-        g = g + torch.where(avail, 0.0, NEG)
-        top = torch.sort(g, dim=1, descending=True, stable=True).indices[:, :s]
-        cand = torch.sort(top, dim=1).values                          # (B, s)
-        sub_avail = avail.gather(1, cand)
-        sub_idx = cand if cand_idx is None else cand_idx.gather(1, cand)
-        gains = torch.where(sub_avail, be.gains_batched(fn, st, sub_idx), NEG)
-        return _batched_commit(fn, st, avail, cand_idx, gains,
-                               torch.argmax(gains, dim=1), slot=cand, idx=sub_idx)
+    def run():
+        cand_idx, avail, st = _batched_frame(fn, size, alive, state)
 
-    return _batched_loop(fn, k, st, avail, step, on_step)
+        def step(i, st, avail):
+            g = noise[i] if noise is not None else torch.stack([
+                gumbel(width, None if generators is None else generators[b], dev)
+                for b in range(B)])
+            g = g + torch.where(avail, 0.0, NEG)
+            top = torch.sort(g, dim=1, descending=True, stable=True).indices[:, :s]
+            cand = torch.sort(top, dim=1).values                      # (B, s)
+            sub_avail = avail.gather(1, cand)
+            sub_idx = cand if cand_idx is None else cand_idx.gather(1, cand)
+            gains = torch.where(sub_avail, be.gains_batched(fn, st, sub_idx), NEG)
+            return _batched_commit(fn, st, avail, cand_idx, gains,
+                                   torch.argmax(gains, dim=1), slot=cand,
+                                   idx=sub_idx)
+
+        return _batched_loop(fn, k, st, avail, step, on_step)
+
+    return _observed(
+        "greedy.stochastic_batched", dev, run,
+        lambda sp, res, wall: _record_greedy(sp, res, k, be.name, wall,
+                                             selector="stochastic", batched=True),
+        n=n, bucket=size, s=s)
 
 
 # ------------------------------------------------------------- lazy greedy --

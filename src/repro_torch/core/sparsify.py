@@ -18,6 +18,12 @@ draws.
 
 ``eps_hat`` is max_{v pruned} w_{U,v} at prune time, the certificate of the
 paper's Theorem 1: f(greedy on V') >= (1 - 1/e)(f(S*) - k * eps_hat).
+
+Telemetry: ``ss_sparsify`` and ``ss_sparsify_batched`` open an
+``ss.sparsify`` / ``ss.sparsify_batched`` span only while tracing is on
+(``repro_torch.core.greedy._traceable``); per-round records are derived
+from ``alive_trace`` after the loop.  With tracing off they add no op and
+no host read.
 """
 
 from __future__ import annotations
@@ -28,11 +34,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import graph
 from repro_torch.core.backend import Backend, resolve_backend
 from repro_torch.core.functions import NEG, SubmodularFunction
 from repro_torch.core.greedy import (
     GreedyResult,
+    _observed,
     bidirectional_greedy,
     check_noise,
     compact_indices,
@@ -134,6 +142,74 @@ def ss_cost_model(
     return max(total, 1.0)
 
 
+def _round_detail(
+    trace, n: int, r: int, c: float, live0: int, wall_s: float,
+) -> list[dict]:
+    """Per-round records derived after the loop from a row of
+    ``SSResult.alive_trace``: the live count after the round, the compact
+    bucket the round ran over, and a model-apportioned share of the
+    measured wall (``wall_est_s``, weighted by probe rows x bucket slots;
+    timing each round would take a synchronisation inside the loop)."""
+    m = min(probe_count(n, r), n)
+    buckets = bucket_schedule(n, c)
+    lives = [int(v) for v in trace if v >= 0]
+    detail, weights, live_before = [], [], live0
+    for live_after in lives:
+        bucket = min((b for b in buckets if b >= live_before), default=n)
+        weights.append(float(m * bucket))
+        detail.append({"live": live_after, "bucket": bucket})
+        live_before = live_after
+    total_w = sum(weights) or 1.0
+    for j, d in enumerate(detail):
+        d["round"] = j
+        d["wall_est_s"] = wall_s * weights[j] / total_w
+    return detail
+
+
+def _record_ss(sp, ss: "SSResult", n: int, r: int, c: float, backend: str,
+               wall_s: float, alive: Tensor | None, *, batched: bool) -> None:
+    """Fill an SS span and the metrics from a finished result (its values
+    read to the host here, after the loop)."""
+    reg = obs.get_registry()
+    trace = ss.alive_trace.numpy()
+    eps_hat = ss.eps_hat.cpu().numpy()
+    vp = ss.vprime.sum(dim=-1).cpu().numpy()
+    if batched:
+        B = trace.shape[0]
+        live0 = ([n] * B if alive is None
+                 else [int(x) for x in alive.sum(dim=1).tolist()])
+        sp.set(
+            B=int(B),
+            rounds=[int(x) for x in ss.rounds],
+            eps_hat=[float(x) for x in eps_hat],
+            vprime_size=[int(x) for x in vp],
+            rounds_detail=[
+                _round_detail(row, n, r, c, int(l0), wall_s)
+                for row, l0 in zip(trace, live0)
+            ],
+        )
+        total_rounds = int(sum(ss.rounds))
+    else:
+        live0 = n if alive is None else int(alive.sum())
+        sp.set(
+            rounds=int(ss.rounds), eps_hat=float(eps_hat),
+            vprime_size=int(vp),
+            rounds_detail=_round_detail(trace, n, r, c, live0, wall_s),
+        )
+        total_rounds = int(ss.rounds)
+    # wall_s is the measured compute wall (start to synchronised end), the
+    # quantity the per-round estimates apportion; the span's own t0..t1
+    # also covers this host-side readout.
+    sp.set(n=n, r=r, c=c, backend=backend, wall_s=wall_s)
+    reg.histogram(
+        "repro_ss_wall_seconds", "ss_sparsify wall time per call",
+        labels=("backend",),
+    ).observe(wall_s, backend=backend)
+    reg.counter(
+        "repro_ss_rounds_total", "SS rounds executed", labels=("backend",),
+    ).inc(total_rounds, backend=backend)
+
+
 def ss_sparsify(
     fn: SubmodularFunction,
     generator: torch.Generator | None = None,
@@ -167,8 +243,12 @@ def ss_sparsify(
         j's draw, in place of ``generator``.
     """
     be = resolve_backend(backend, fn.device)
-    return _sparsify_dense(fn, generator, r, c, alive, state, importance, be,
-                           compact, noise)
+    return _observed(
+        "ss.sparsify", fn.device,
+        lambda: _sparsify_dense(fn, generator, r, c, alive, state, importance,
+                                be, compact, noise),
+        lambda sp, ss, wall: _record_ss(sp, ss, fn.n, r, c, be.name, wall, alive,
+                                        batched=False))
 
 
 def _sparsify_dense(
@@ -321,8 +401,12 @@ def ss_sparsify_batched(
     single-query run's: never read them off the live set.
     """
     be = resolve_backend(backend, fn.device)
-    return _sparsify_batched(fn, generators, r, c, alive, state, importance, be,
-                             compact, noise)
+    return _observed(
+        "ss.sparsify_batched", fn.device,
+        lambda: _sparsify_batched(fn, generators, r, c, alive, state, importance,
+                                  be, compact, noise),
+        lambda sp, ss, wall: _record_ss(sp, ss, fn.row(0).n, r, c, be.name, wall,
+                                        alive, batched=True))
 
 
 def _sparsify_batched(

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels, each with its plain PyTorch version."""
 
-from repro_torch.kernels._build import build, load_library
+from repro_torch.kernels._build import KernelError, build, load_library
 from repro_torch.kernels.feature_gains import feature_gains_kernel
 from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_route
 from repro_torch.kernels.fl_divergence import (
@@ -31,6 +31,7 @@ from repro_torch.kernels.ss_weights import ss_divergence_kernel
 
 __all__ = [
     "GainsPanel",
+    "KernelError",
     "SieveElements",
     "attention_ref",
     "attention_split_p_ref",

@@ -32,6 +32,12 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _lib: ctypes.CDLL | None = None
 
 
+class KernelError(RuntimeError):
+    """A kernel failed to build, load or launch.  Code that calls a kernel
+    never answers this by running the kernel's plain version instead: on
+    the card a kernel runs, or the call fails."""
+
+
 def _nvcc() -> str:
     for cand in (
         shutil.which("nvcc"),
@@ -39,7 +45,7 @@ def _nvcc() -> str:
     ):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (looked on PATH and under CUDA_HOME): the CUDA "
         "kernels of repro_torch need the CUDA toolkit to build"
     )
@@ -60,7 +66,7 @@ def _run_all(cmds: list[list[str]]) -> list[str]:
         if p.returncode != 0:
             failed.append(f"$ {' '.join(cmd)}\n{out}")
     if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(failed))
     return outs
 
 
@@ -166,7 +172,11 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, then load the kernels' shared library (once)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        path = build()
+        try:
+            lib = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelError(f"cannot load the CUDA kernels ({path}): {e}") from e
         _declare(lib)
         _lib = lib
     return _lib
@@ -309,4 +319,4 @@ def ptr(t: torch.Tensor | None) -> int | None:
 
 def raise_on_error(name: str, rc: int) -> None:
     if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed (cudaError_t {rc})")
+        raise KernelError(f"{name}: CUDA launch failed (cudaError_t {rc})")

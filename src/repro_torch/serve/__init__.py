@@ -1,8 +1,11 @@
 """LM serving: batched prefill + decode (``Engine``), SS pruning of the KV
-cache, and the summarization core that both this and batched queries run
+cache, and the summarization service (``SummarizeService``: lanes, the
+sync and async schedulers, retry → failover → isolation, the watchdog and
+the degradation ladder) over the batched core both run
 (``summarize_batch``)."""
 
 from repro_torch.serve.engine import Engine, ServeConfig
+from repro_torch.serve.faults import Fault, FaultEvent, FaultInjected, FaultPlan
 from repro_torch.serve.kv_select import (
     KVSelectConfig,
     pooled_keys,
@@ -11,14 +14,28 @@ from repro_torch.serve.kv_select import (
     select_positions_batched,
 )
 from repro_torch.serve.summarize_service import (
+    LADDER_STEPS,
+    ChunkTimeout,
+    DeadlineExceeded,
+    MalformedResult,
     RunConfig,
+    ServiceOverloaded,
+    ServiceRestarted,
     SummarizeRequest,
+    SummarizeResponse,
+    SummarizeService,
+    Ticket,
+    TicketPending,
     batch_buckets,
     build_batch_objective,
     summarize_batch,
 )
 
-__all__ = ["Engine", "KVSelectConfig", "RunConfig", "ServeConfig",
-           "SummarizeRequest", "batch_buckets", "build_batch_objective",
-           "pooled_keys", "prune_cache", "select_positions",
-           "select_positions_batched", "summarize_batch"]
+__all__ = ["ChunkTimeout", "DeadlineExceeded", "Engine", "Fault", "FaultEvent",
+           "FaultInjected", "FaultPlan", "KVSelectConfig", "LADDER_STEPS",
+           "MalformedResult", "RunConfig", "ServeConfig",
+           "ServiceOverloaded", "ServiceRestarted", "SummarizeRequest",
+           "SummarizeResponse", "SummarizeService", "Ticket", "TicketPending",
+           "batch_buckets", "build_batch_objective", "pooled_keys",
+           "prune_cache", "select_positions", "select_positions_batched",
+           "summarize_batch"]

@@ -444,8 +444,10 @@ def test_run_config_batch_buckets_and_requests():
     assert batch_buckets(8) == (8, 4, 2, 1) and batch_buckets(1) == (1,)
     cfg = RunConfig()
     assert (cfg.backend, cfg.r, cfg.c, cfg.compact) == (None, 8, 8.0, None)
+    assert RunConfig(max_retries=1).max_retries == 1   # the service's fields
+    assert RunConfig().failover_backend == "reference"
     with pytest.raises(TypeError):
-        RunConfig(max_retries=1)     # the service's fields come with the service
+        RunConfig(no_such_field=1)
     g = SummarizeRequest(k=2, seed=5).generator("cpu")
     assert torch.equal(torch.rand(3, generator=g),
                        torch.rand(3, generator=torch.Generator().manual_seed(5)))

@@ -42,6 +42,9 @@ def _port_files():
     assert len(files) >= 15
     assert {"fl_divergence.py", "fl_stream.py", "sieve.py",
             "sieve_gains.py"} <= {f.name for f in files}
+    rel = {f.relative_to(ROOT / "src" / "repro_torch").as_posix() for f in files}
+    assert {"obs/__init__.py", "obs/events.py", "obs/metrics.py", "obs/trace.py",
+            "serve/faults.py", "serve/summarize_service.py", "api.py"} <= rel
     return files + [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
 
 
@@ -214,3 +217,35 @@ def test_lm_entry_points_default_to_the_card(monkeypatch, entry):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
     call(device="cpu")     # the host works when asked for
+
+
+SERVICE_ENTRY_POINTS = {
+    "SummarizeService": lambda **kw: _service_module().SummarizeService(**kw),
+    "api.serve": lambda **kw: _api().serve(**kw),
+    "api.summarize": lambda **kw: _api().summarize(news_day(0, 64, 16), k=3, **kw),
+    "api.default_service": lambda **kw: _api().default_service(**kw),
+}
+
+
+def _service_module():
+    from repro_torch.serve import summarize_service
+
+    return summarize_service
+
+
+def _api():
+    from repro_torch import api
+
+    return api
+
+
+@pytest.mark.parametrize("entry", list(SERVICE_ENTRY_POINTS))
+def test_service_entry_points_default_to_the_card(monkeypatch, entry):
+    """The service and the facade verbs that create one run on the card
+    unless the host is asked for, and raise on a host without one."""
+    call = SERVICE_ENTRY_POINTS[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    if entry != "api.default_service":      # a process-wide singleton
+        call(device="cpu")
