@@ -53,7 +53,13 @@ sync flush of three lanes and an async run, every response held bit for bit
 to the core's run, with no recovery, no degradation and the kernels'
 launches counted; seeded faults (retries bit-identical, a failover to the
 plain route on the card within TOL, the watchdog, a crash); and a traced
-run that changes no bit.
+run that changes no bit.  The durable session tier follows
+(``session_phase``): 16 sessions of 512 news rows (F = 1024, k = 32)
+appended round robin on a durable root, each final state and summary equal
+to a B = 1 replay bit for bit, every SS compaction and summary held to the
+plain route on the same inputs, then a crash, two restarts, a torn WAL
+tail and the eviction ladder, each ending in the same bits, and a traced
+run.
 After the LM path, a fresh prefill's KV cache is pruned to 256 positions
 (``Engine.prune_kv``, coverage and fl objectives, the kernel route held to
 the plain one under the same draws) and 32 tokens are decoded from it,
@@ -1094,6 +1100,8 @@ def fc_path(errs: dict) -> list[dict]:
     records[0]["lane"] = coverage_lane(fn, errs)
     # the summarization service over the lanes, on the same news day
     records[0]["service"] = service_phase(fn)
+    # durable streaming sessions over the news rows
+    records[0]["sessions"] = session_phase(errs)
     return records
 
 
@@ -2597,35 +2605,37 @@ def _f64_mu(fn, probes, state):
     return torch.maximum(state.double()[None], fn.sim.double()[:, probes].T)
 
 
-def _explain_kv(label: str, fn, gen_seed: int, k: int) -> str:
-    """One row whose kept positions differ between the kernel route and the
-    plain route: step both routes in lockstep (the kernel route's state,
-    the same draws) to the first decision they take differently, and show
-    in float64 that it lies within float32 rounding: the two elements'
-    float64 values differ by less than their sums' rounding bounds.  Raises
-    where it does not."""
+def _margin(label: str, what: str, a: int, b: int, va, vb) -> str:
+    """Elements ``a`` and ``b``, (float64 value, rounding bound) each, lie
+    within float32 rounding of each other; raises where they do not."""
+    gap = abs(float(va[0] - vb[0]))
+    bound = float(va[1] + vb[1])
+    check(gap <= bound, f"{label}: {what}: elements {a} and {b} differ by "
+          f"{gap:.3g} in float64, above the float32 rounding bound {bound:.3g}")
+    return (f"{what}: elements {a} and {b} differ by {gap:.3g} in float64, "
+            f"within the float32 rounding bound {bound:.3g}")
+
+
+def _explain_ss(label: str, fn, gen, alive=None, r: int = R, c: float = C):
+    """Step SS on the kernel route and the plain route in lockstep (the
+    kernel route's state, the draws of ``gen``, the live set ``alive``) to
+    the first prune cut they make differently, and show in float64 that it
+    lies within float32 rounding.  Returns (explanation, None) there, or
+    (None, V') when every cut agrees."""
     from repro_torch.core import CudaBackend, ReferenceBackend
     from repro_torch.core.greedy import NEG, gumbel
     from repro_torch.core.sparsify import INF, max_rounds, probe_count
 
     kb, pb = CudaBackend(), ReferenceBackend()
     n = fn.n
-    gen = torch.Generator(device="cuda").manual_seed(gen_seed)
-    m, shrink = min(probe_count(n, R), n), 1.0 - 1.0 / math.sqrt(C)
+    m, shrink = min(probe_count(n, r), n), 1.0 - 1.0 / math.sqrt(c)
     resid = fn.residual_gains()
-    alive = torch.ones(n, dtype=torch.bool, device="cuda")
+    alive = (torch.ones(n, dtype=torch.bool, device="cuda") if alive is None
+             else alive.clone())
     vprime = torch.zeros_like(alive)
     div_k = torch.full((n,), INF, device="cuda")
     div_p = div_k.clone()
     zero = fn.empty_state()
-
-    def margin(a: int, b: int, va, vb, what: str) -> str:
-        gap = abs(float(va[0] - vb[0]))
-        bound = float(va[1] + vb[1])
-        check(gap <= bound, f"{label}: {what}: elements {a} and {b} differ by "
-              f"{gap:.3g} in float64, above the float32 rounding bound {bound:.3g}")
-        return (f"{what}: elements {a} and {b} differ by {gap:.3g} in float64, "
-                f"within the float32 rounding bound {bound:.3g}")
 
     def div64(probes, v):
         t, mag = _f64_pair(fn, _f64_mu(fn, probes, zero),
@@ -2635,7 +2645,7 @@ def _explain_kv(label: str, fn, gen_seed: int, k: int) -> str:
         return float(w[u]), float(_f64_bound(mag[u, 0]))
 
     probes_all = []
-    for rnd in range(max_rounds(n, R, C)):
+    for rnd in range(max_rounds(n, r, c)):
         live = int(alive.sum())
         if live <= m:
             break
@@ -2656,13 +2666,22 @@ def _explain_kv(label: str, fn, gen_seed: int, k: int) -> str:
             a = sorted(set(rk.tolist()) - set(rp.tolist()))[0]
             b = sorted(set(rp.tolist()) - set(rk.tolist()))[0]
             allp = torch.cat(probes_all)
-            return margin(a, b, div64(allp, a), div64(allp, b),
-                          f"SS round {rnd}, the prune cut")
+            return _margin(label, f"SS round {rnd}, the prune cut", a, b,
+                           div64(allp, a), div64(allp, b)), None
         alive[rk] = False
-    vprime |= alive
-    # greedy over V' in lockstep
+    return None, vprime | alive
+
+
+def _explain_greedy(label: str, fn, vprime, k: int) -> str:
+    """Step greedy over ``vprime`` on both routes in lockstep to the first
+    argmax they take differently and bound it in float64; raises where no
+    decision differs or the gap exceeds float32 rounding."""
+    from repro_torch.core import CudaBackend, ReferenceBackend
+    from repro_torch.core.greedy import NEG
+
+    kb, pb = CudaBackend(), ReferenceBackend()
     cand = torch.nonzero(vprime).flatten()
-    st = zero
+    st = fn.empty_state()
     avail = torch.ones(cand.shape[0], dtype=torch.bool, device="cuda")
     for i in range(k):
         gk = torch.where(avail, kb.gains_compact(fn, st, cand), NEG)
@@ -2671,15 +2690,27 @@ def _explain_kv(label: str, fn, gen_seed: int, k: int) -> str:
         if a != b:
             t, mag = _f64_pair(fn, st.double()[None], cand[[a, b]])
             vals = t[0].sum(-1)
-            return margin(int(cand[a]), int(cand[b]),
-                          (float(vals[0]), float(_f64_bound(mag[0, 0]))),
-                          (float(vals[1]), float(_f64_bound(mag[0, 1]))),
-                          f"greedy step {i}, the argmax")
+            return _margin(label, f"greedy step {i}, the argmax",
+                           int(cand[a]), int(cand[b]),
+                           (float(vals[0]), float(_f64_bound(mag[0, 0]))),
+                           (float(vals[1]), float(_f64_bound(mag[0, 1]))))
         st = fn.add(st, cand[a])
         avail[a] = False
     fail(f"{label}: the routes keep other positions, but no decision differs in "
          "lockstep")
     return ""
+
+
+def _explain_kv(label: str, fn, gen_seed: int, k: int) -> str:
+    """One row whose kept positions differ between the kernel route and the
+    plain route: step both routes in lockstep (the kernel route's state,
+    the same draws) to the first decision they take differently, SS's prune
+    cut or greedy's argmax, and show in float64 that it lies within float32
+    rounding: the two elements' float64 values differ by less than their
+    sums' rounding bounds.  Raises where it does not."""
+    gen = torch.Generator(device="cuda").manual_seed(gen_seed)
+    note, vprime = _explain_ss(label, fn, gen)
+    return note if note is not None else _explain_greedy(label, fn, vprime, k)
 
 
 def kv_prune_phase(cfg, eng, prompts, sc, errs: dict) -> dict:
@@ -3230,6 +3261,438 @@ def service_phase(fn) -> dict:
     obs.reset()
     out["d"] = {"launches": launches_d, "exec_s": traced[0].exec_s,
                 "ss_wall_s": ss_span.attrs["wall_s"]}
+    return out
+
+
+# -- durable streaming sessions ----------------------------------------------
+
+SESS_N, SESS_ROWS = 16, 512        # 16 sessions x 512 rows of news_day(0, 2^14, 1024)
+SESS_CFG = dict(k=K, eps=0.2, n_features=F, phi="sqrt", buffer_cap=128,
+                resparsify_every=40, ss_r=4, ss_c=8.0, max_batch=8, batch_c=4.0,
+                snapshot_every=128)
+SESS_CRASH_AT = 600                # a fault draw mid-stream (about 1070 in all)
+SESS_RESTARTS = (150, 400)         # of the restart run's 4 sessions (about 540)
+SESS_BLOCK = 64                    # the eviction run's rows a session at a time
+
+
+class _Compactions:
+    """Records the SS compactions session engines run, through a transparent
+    wrapper of ``ss_sparsify_batched`` in ``repro_torch.serve.sessions``:
+    the rows' rounds (one ``ss_divergence`` launch a row a round) and, with
+    ``keep``, each call's inputs (the stacked buffers, the live masks, each
+    row's generator state before its draws) and result, for the route
+    check."""
+
+    def __init__(self, keep: bool = False):
+        from repro_torch.serve import sessions
+
+        self.mod, self.real, self.keep = sessions, sessions.ss_sparsify_batched, keep
+        self.calls: list = []
+        self.rounds = 0
+
+    def __enter__(self) -> "_Compactions":
+        def wrapped(fn, generators=None, **kw):
+            states = [g.get_state() for g in generators] if self.keep else None
+            ss = self.real(fn, generators, **kw)
+            self.rounds += sum(ss.rounds)
+            if self.keep:
+                self.calls.append((fn.W.clone(), kw["alive"].clone(), states, ss))
+            return ss
+
+        self.mod.ss_sparsify_batched = wrapped
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.mod.ss_sparsify_batched = self.real
+
+
+def _sess_gens(states) -> list:
+    gens = []
+    for st in states:
+        g = torch.Generator(device="cuda")
+        g.set_state(st)
+        gens.append(g)
+    return gens
+
+
+def _open_all(eng, streams) -> None:
+    for sid in streams:
+        eng.open_session(sid=sid, key=int(sid[1:]))
+
+
+def _ingest(eng, streams, start=None, block: int = 1) -> None:
+    """Append every stream round robin, ``block`` rows of a session at a
+    time, each from its row ``start[sid]`` on (default 0); then flush."""
+    start = start or {}
+    for r0 in range(0, SESS_ROWS, block):
+        for sid, rows in streams.items():
+            for r in range(max(r0, start.get(sid, 0)), r0 + block):
+                eng.append(sid, rows[r])
+    eng.flush()
+
+
+def _same_session(label: str, eng, sid: str, state, summary=None) -> None:
+    """``eng``'s state of ``sid`` (and its summary) equal ``state`` (and
+    ``summary``) bit for bit, leaf for leaf."""
+    import numpy as np
+
+    got = eng.state(sid)
+    for i, (a, b) in enumerate(zip([*got.sieve, *got[1:]], [*state.sieve, *state[1:]])):
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"{label}: session {sid}'s state leaf {i} differs")
+    if summary is not None:
+        s = eng.summary(sid)
+        check(np.array_equal(s.selected, summary.selected)
+              and np.array_equal(s.gains, summary.gains)
+              and (s.value, s.sieve_value, s.retained, s.seen, s.drops, s.resparsifies)
+              == (summary.value, summary.sieve_value, summary.retained, summary.seen,
+                  summary.drops, summary.resparsifies),
+              f"{label}: session {sid}'s summary differs")
+
+
+def _sess_fault_free(label: str, eng) -> dict:
+    st = eng.stats()
+    bad = {k: st[k] for k in ("restarts", "crashes", "snapshot_fallbacks",
+                              "wal_truncations") if st[k]}
+    check(not bad, f"{label}: fault counters {bad} in a fault-free run")
+    return st
+
+
+def _session_routes(calls, states: dict, summaries: dict) -> dict:
+    """The kernel route against the plain route (backend "reference" on the
+    card) on the same inputs: every recorded compaction replayed with the
+    same draws (the kernel route bit for bit, the plain route's kept set
+    equal with eps_hat within TOL of the divergences' size, or a differing
+    prune cut explained in float64), and every session's summary greedy
+    over its final buffer (the same picks with gains and f(S) within TOL,
+    or a differing argmax explained)."""
+    import numpy as np
+
+    from repro_torch import FeatureCoverage, greedy
+    from repro_torch.core.sparsify import ss_sparsify_batched
+
+    cfg, tol = SESS_CFG, TOL[torch.float32]
+    notes, eps_err, rows = [], 0.0, 0
+    for W, alive, gen_states, ss in calls:
+        runs = {be: ss_sparsify_batched(FeatureCoverage(W=W), _sess_gens(gen_states),
+                                        r=cfg["ss_r"], c=cfg["ss_c"], alive=alive,
+                                        backend=be) for be in ("cuda", "reference")}
+        check(torch.equal(runs["cuda"].vprime, ss.vprime)
+              and torch.equal(runs["cuda"].eps_hat, ss.eps_hat),
+              "sessions: a compaction's kernel-route replay differs from its run")
+        plain = runs["reference"]
+        for b in range(W.shape[0]):
+            rows += 1
+            f = FeatureCoverage(W=W[b])
+            if torch.equal(plain.vprime[b], ss.vprime[b]):
+                size = float(f.singleton_gains().max() + f.residual_gains().abs().max())
+                err = abs(float(plain.eps_hat[b] - ss.eps_hat[b]))
+                check(err <= tol * max(1.0, size), f"sessions: compaction eps_hat of "
+                      f"the plain route vs the kernel route err {err}")
+                eps_err = max(eps_err, err)
+                continue
+            note, _ = _explain_ss("sessions compaction", f, _sess_gens(gen_states[b:b + 1])[0],
+                                  alive[b], r=cfg["ss_r"], c=cfg["ss_c"])
+            check(note is not None, "sessions: the routes keep other rows, but no "
+                  "prune cut differs in lockstep")
+            notes.append(note)
+    val_err, picks_same = 0.0, 0
+    for sid, st in states.items():
+        s = summaries[sid]
+        f = FeatureCoverage(W=st.buf)
+        alive = torch.arange(cfg["buffer_cap"], device="cuda") < st.buf_len
+        plain = greedy(f, cfg["k"], alive=alive, backend="reference")
+        n_sel = min(cfg["k"], s.retained)
+        ids = st.buf_ids[plain.selected[:n_sel]].cpu().numpy()
+        gains = plain.gains[:n_sel].cpu().numpy()
+        differ = np.nonzero(ids != s.selected)[0]
+        upto = int(differ[0]) if differ.size else n_sel
+        size = abs(s.value)
+        err = float(np.abs(gains[:upto] - s.gains[:upto]).max()) if upto else 0.0
+        if not differ.size:
+            err = max(err, abs(float(plain.value) - s.value))
+            picks_same += 1
+        check(err <= tol * max(1.0, size), f"sessions: {sid}'s summary on the plain "
+              f"route vs the kernel route err {err}")
+        val_err = max(val_err, err)
+        if differ.size:
+            notes.append(_explain_greedy(f"sessions summary {sid}", f, alive, cfg["k"]))
+    return {"compaction_rows": rows, "eps_hat_err": eps_err, "summary_err": val_err,
+            "same_picks": picks_same, "explained": notes}
+
+
+def session_phase(errs: dict) -> dict:
+    """The durable session tier on the card (``api.sessions``):
+    ``SESS_N`` sessions of ``SESS_ROWS`` consecutive news rows each,
+    appended round robin under ``SESS_CFG`` (k = 32, F = 1024, a buffer of
+    128 compacted by SS every 40 inserts, snapshots every 128) on a durable
+    root in a temporary directory.  (a) Ingest and summaries: the launches
+    (counts set to 0 just before, read just after) equal the compactions'
+    rows x rounds and k a summary; a B = 1 replay of four sessions equals
+    them bit for bit; the kernel route against the plain route on every
+    compaction's and summary's inputs (``_session_routes``); the kernels
+    against their plain versions at one buffer's shapes.  (b) Durability: a
+    crash mid-stream, recovery by a fresh engine and the rest of the
+    streams; two restarts; a WAL torn inside its last record.  (c) The
+    eviction ladder at 4 live sessions.  (d) Traced.  Every final state and
+    summary equals (a)'s bit for bit; the fault-free runs fail on any fault
+    counter.  Also the host syncs of one wave, a profile of 16 waves, and
+    walls, snapshot and WAL sizes, recovery, peak memory."""
+    import os
+    import tempfile
+
+    from repro_torch import FeatureCoverage, api, greedy, news_day, obs
+    from repro_torch.kernels import feature_gains_kernel, ss_divergence_kernel
+    from repro_torch.serve import Fault, FaultPlan, ServiceRestarted, SessionConfig
+
+    t_phase = time.perf_counter()
+    kern = {"ss_divergence": ss_divergence_kernel, "feature_gains": feature_gains_kernel}
+
+    def zero():
+        for k_ in kern.values():
+            k_.launches = 0
+
+    def counts():
+        return {name: k_.launches for name, k_ in kern.items()}
+
+    cfg = SessionConfig(**SESS_CFG)
+    W = news_day(0, SESS_N * SESS_ROWS, F)
+    streams = {f"u{i:03d}": W[i * SESS_ROWS:(i + 1) * SESS_ROWS] for i in range(SESS_N)}
+    sids = list(streams)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=build)
+    root = Path(tmp.name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = {"card": CARD[0], "sessions": SESS_N, "rows": SESS_ROWS}
+    try:
+        # host syncs of one wave of 8 sessions, and a profile of 16 waves
+        eng_s = api.sessions(SessionConfig(**{**SESS_CFG, "flush_every": 100}),
+                             device="cuda")
+        eight = {sid: streams[sid] for sid in sids[:8]}
+        _open_all(eng_s, eight)
+
+        def one_row(t):
+            for sid, rows in eight.items():
+                eng_s.append(sid, rows[t])
+
+        one_row(0)
+        eng_s.flush()
+        one_row(1)
+        flush_syncs = host_syncs(eng_s.flush)
+        one_row(2)
+        wave_syncs = host_syncs(lambda: eng_s._exec_wave(list(eight), False))
+        check(wave_syncs == 0 and flush_syncs == 2, f"sessions: a wave synchronises "
+              f"{wave_syncs} times and its flush {flush_syncs} (want 0 and 2: the "
+              "two due checks' transfers)")
+
+        def sixteen_waves():
+            for t in range(3, 19):
+                one_row(t)
+                eng_s.flush()
+
+        prof = profile_run("sessions: 16 waves of 8 sessions (one row each)",
+                           sixteen_waves, top=6)
+
+        # (a) ingest and summaries
+        eng_a = api.sessions(cfg, str(root / "a"), device="cuda")
+        _open_all(eng_a, streams)
+        obs.reset()
+        zero()
+        with _Compactions(keep=True) as comp_a:
+            _, wall_a = _synced(lambda: _ingest(eng_a, streams))
+            summaries = {sid: eng_a.summary(sid) for sid in sids}
+        launches_a = counts()
+        st_a = _sess_fault_free("sessions (a)", eng_a)
+        check(st_a["rehydrations"] == 0 and st_a["evictions"] == 0,
+              f"sessions (a): rehydrations or evictions without pressure: {st_a}")
+        check(comp_a.rounds > 0 and st_a["resparsifies"] >= SESS_N,
+              f"sessions (a): {st_a['resparsifies']} compactions, {comp_a.rounds} "
+              "rounds: SS did no real work")
+        want = {"ss_divergence": comp_a.rounds, "feature_gains": K * SESS_N}
+        check(all(s.retained > 0 for s in summaries.values()) and launches_a == want,
+              f"sessions (a): launches {launches_a}, want {want}")
+        states = {sid: eng_a.state(sid) for sid in sids}
+        snap = obs.get_registry().get("repro_sessions_snapshot_seconds").stats()
+        sdir = root / "a" / sids[0]
+        snap_bytes = os.path.getsize(sdir / max(n for n in os.listdir(sdir)
+                                                if n.startswith("snap-")))
+        wal_bytes = sum(os.path.getsize(root / "a" / s / "wal.log") for s in sids)
+
+        four = [sids[0], sids[5], sids[10], sids[15]]
+        eng_1 = api.sessions(SessionConfig(**{**SESS_CFG, "max_batch": 1}), device="cuda")
+        _open_all(eng_1, {s: streams[s] for s in four})
+        _, wall_1 = _synced(lambda: _ingest(eng_1, {s: streams[s] for s in four}))
+        for sid in four:
+            _same_session("sessions (a) B = 1 replay", eng_1, sid, states[sid],
+                          summaries[sid])
+        check(eng_1.stats()["wave_slots"] == eng_1.stats()["waves"],
+              "sessions (a): the replay's waves were not B = 1")
+        route = _session_routes(comp_a.calls, states, summaries)
+        st0 = states[sids[0]]
+        f0 = FeatureCoverage(W=st0.buf)
+        alive0 = torch.arange(SESS_CFG["buffer_cap"], device="cuda") < st0.buf_len
+        hooks = _hooks_vs_plain("sessions", f0, ("ss_divergence", "feature_gains"),
+                                alive0, greedy(f0, K, alive=alive0).state, errs, 23)
+        print(f"[{CARD[0]}] sessions (a): {SESS_N} sessions x {SESS_ROWS} news rows "
+              f"(F = {F}, k = {K}, buffer 128, SS every 40 inserts, r = 4, c = 8, "
+              f"snapshots every 128), round robin: {SESS_N * SESS_ROWS / wall_a:.1f} "
+              f"appends/s ({wall_a:.3f} s, synchronised); {st_a['waves']} waves, "
+              f"{wall_a / st_a['waves'] * 1e3:.4f} ms a wave (mean, WAL, checks and "
+              f"snapshots included); host syncs a one-wave flush {flush_syncs}, the "
+              f"wave alone {wave_syncs}; {st_a['resparsifies']} compactions, "
+              f"{comp_a.rounds} SS rounds; launches {launches_a} (ingest and 16 "
+              f"summaries); {st_a['snapshots']} snapshots, {snap['mean'] * 1e3:.4f} "
+              f"ms each (mean), {snap_bytes} bytes; WAL {wal_bytes} bytes; B = 1 "
+              f"replay of {four} equal bit for bit ({wall_1:.3f} s); routes: "
+              f"{route['compaction_rows']} compaction rows, eps_hat err "
+              f"{route['eps_hat_err']:.3g}, {route['same_picks']} of {SESS_N} "
+              f"summaries the same picks, err {route['summary_err']:.3g}, explained "
+              f"{route['explained']}; {hooks}", flush=True)
+        out["a"] = {"appends_per_s": SESS_N * SESS_ROWS / wall_a, "wall_s": wall_a,
+                    "waves": st_a["waves"], "ms_per_wave_mean": wall_a / st_a["waves"] * 1e3,
+                    "flush_syncs": flush_syncs, "wave_syncs": wave_syncs,
+                    "compactions": st_a["resparsifies"], "ss_rounds": comp_a.rounds,
+                    "launches": launches_a, "snapshots": st_a["snapshots"],
+                    "snapshot_ms_mean": snap["mean"] * 1e3, "snapshot_bytes": snap_bytes,
+                    "wal_bytes": wal_bytes, "b1_replay_wall_s": wall_1, "route": route,
+                    "busy_ms": prof.get("busy_ms"), "profiled_wall_ms": prof.get("wall_ms")}
+        del comp_a
+
+        # (b) durability: a crash mid-stream, two restarts, a torn WAL tail
+        eng_b = api.sessions(cfg, str(root / "b"),
+                             faults=FaultPlan({SESS_CRASH_AT: Fault("crash")}),
+                             device="cuda")
+        _open_all(eng_b, streams)
+        try:
+            _ingest(eng_b, streams)
+            crashed = False
+        except ServiceRestarted:
+            crashed = True
+        check(crashed, f"sessions (b): the crash at attempt {SESS_CRASH_AT} never fired")
+        rec = api.sessions(cfg, str(root / "b"), device="cuda")
+        check(rec.sessions() == sids, f"sessions (b): sessions lost: {rec.sessions()}")
+        (done, t_rec) = _synced(lambda: {sid: int(rec.state(sid).sieve.t) for sid in sids})
+        replayed = sum(e["replayed"] for e in rec.events if e["step"] == "rehydrate")
+        _ingest(rec, streams, start=done)
+        for sid in sids:
+            _same_session("sessions (b) after the crash", rec, sid, states[sid],
+                          summaries[sid])
+
+        first4 = {s: streams[s] for s in sids[:4]}
+        eng_r = api.sessions(cfg, str(root / "r"), device="cuda", faults=FaultPlan(
+            {i: Fault("restart") for i in SESS_RESTARTS}))
+        _open_all(eng_r, first4)
+        _ingest(eng_r, first4)
+        check(eng_r.stats()["restarts"] == len(SESS_RESTARTS),
+              f"sessions (b): restarts {eng_r.stats()['restarts']}")
+        for sid in first4:
+            _same_session("sessions (b) after two restarts", eng_r, sid, states[sid],
+                          summaries[sid])
+
+        sid, rows = sids[0], streams[sids[0]]
+        tcfg = SessionConfig(**{**SESS_CFG, "tolerate_torn_tail": True})
+        half = api.sessions(tcfg, str(root / "t"), device="cuda")
+        half.open_session(sid=sid, key=0)
+        for r in range(300):
+            half.append(sid, rows[r])
+        half.flush()
+        del half
+        wal_path = root / "t" / sid / "wal.log"
+        os.truncate(wal_path, os.path.getsize(wal_path) - 7)
+        torn = api.sessions(tcfg, str(root / "t"), device="cuda")
+        check(int(torn.state(sid).sieve.t) == 299, "sessions (b): the torn tail "
+              "lost more than its record")
+        (ev,) = [e for e in torn.events if e["step"] == "wal_truncate"]
+        check(ev["dropped_bytes"] == 21 + 4 * F - 7
+              and os.path.getsize(wal_path) == ev["valid_end"],
+              f"sessions (b): wal_truncate {ev}")
+        for r in range(299, SESS_ROWS):
+            torn.append(sid, rows[r])
+        torn.flush()
+        del torn
+        _same_session("sessions (b) after the torn tail", api.sessions(
+            cfg, str(root / "t"), device="cuda"), sid, states[sid], summaries[sid])
+        print(f"[{CARD[0]}] sessions (b): a crash at fault attempt {SESS_CRASH_AT} "
+              f"after {sum(done.values())} applied elements; recovery of {SESS_N} "
+              f"sessions by a fresh engine {t_rec * 1e3:.2f} ms ({replayed} elements "
+              f"replayed after the snapshots), then the rest of the streams: every "
+              f"state and summary equal to (a)'s bit for bit, no session lost; "
+              f"restarts at attempts {SESS_RESTARTS} over 4 sessions, equal; a WAL "
+              f"cut 7 bytes inside its last record recovered with tolerate_torn_tail "
+              f"(wal_truncate dropped {ev['dropped_bytes']} bytes), 213 later appends "
+              f"survive a strict reopen, equal", flush=True)
+        out["b"] = {"crash_at": SESS_CRASH_AT, "applied_at_crash": sum(done.values()),
+                    "recovery_ms": t_rec * 1e3, "replayed": replayed,
+                    "restarts": eng_r.stats()["restarts"], "torn_dropped": ev["dropped_bytes"]}
+
+        # (c) the eviction ladder: 4 live sessions of 16
+        eng_c = api.sessions(SessionConfig(**{**SESS_CFG, "max_live_sessions": 4}),
+                             str(root / "c"), device="cuda")
+        _open_all(eng_c, streams)
+        zero()
+        with _Compactions() as comp_c:
+            _, wall_c = _synced(lambda: _ingest(eng_c, streams, block=SESS_BLOCK))
+        launches_c = counts()
+        st_c = _sess_fault_free("sessions (c)", eng_c)
+        check(st_c["evictions"] > 0 and st_c["rehydrations"] > 0
+              and st_c["live_sessions"] <= 4, f"sessions (c): ladder stats {st_c}")
+        check(launches_c == {"ss_divergence": comp_c.rounds, "feature_gains": 0}
+              and comp_c.rounds == out["a"]["ss_rounds"],
+              f"sessions (c): launches {launches_c}, rounds {comp_c.rounds} (a: "
+              f"{out['a']['ss_rounds']})")
+        for sid in sids:
+            _same_session("sessions (c) under eviction", eng_c, sid, states[sid])
+        print(f"[{CARD[0]}] sessions (c), max_live_sessions = 4, {SESS_BLOCK} rows a "
+              f"session at a time: {st_c['evictions']} evictions, "
+              f"{st_c['rehydrations']} rehydrations, wall {wall_c:.3f} s; every "
+              f"state equal to (a)'s bit for bit; launches {launches_c}", flush=True)
+        out["c"] = {"evictions": st_c["evictions"], "rehydrations": st_c["rehydrations"],
+                    "wall_s": wall_c, "launches": launches_c}
+
+        # (d) traced, 4 sessions
+        obs.reset()
+        obs.configure(trace=True)
+        try:
+            eng_d = api.sessions(cfg, str(root / "d"), device="cuda")
+            _open_all(eng_d, first4)
+            zero()
+            with _Compactions() as comp_d:
+                _, wall_d = _synced(lambda: _ingest(eng_d, first4))
+                summ_d = {s: eng_d.summary(s) for s in first4}
+            launches_d = counts()
+            rec_d = api.sessions(cfg, str(root / "d"), device="cuda")
+            rec_d.state(sids[0])
+        finally:
+            obs.configure(trace=False)
+        _sess_fault_free("sessions (d)", eng_d)
+        check(launches_d == {"ss_divergence": comp_d.rounds, "feature_gains": K * 4},
+              f"sessions (d): launches {launches_d}")
+        for sid in first4:
+            _same_session("sessions (d) traced", eng_d, sid, states[sid], summaries[sid])
+            check(summ_d[sid].value == summaries[sid].value, "sessions (d): a summary "
+                  "changed under tracing")
+        tr = obs.get_tracer()
+        names = {sp.name for sp in tr.spans()}
+        want_spans = {"sessions.wave", "sessions.resparsify", "sessions.snapshot",
+                      "sessions.recover"}
+        check(want_spans <= names, f"sessions (d): spans {names} miss "
+              f"{want_spans - names}")
+        wave_ms = statistics.median(sp.wall_s * 1e3 for sp in tr.spans(name="sessions.wave"))
+        obs.reset()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        wall = time.perf_counter() - t_phase
+        print(f"[{CARD[0]}] sessions (d), traced (4 sessions): states and summaries "
+              f"equal (a)'s bit for bit; spans {sorted(want_spans)} present; median "
+              f"{wave_ms:.4f} ms a wave of 4 (sessions.wave, synchronised); wall "
+              f"{wall_d:.3f} s; peak memory above the phase's start {peak:.1f} MiB; "
+              f"the phase's wall {wall:.2f} s", flush=True)
+        out["d"] = {"median_wave_ms": wave_ms, "wall_s": wall_d, "launches": launches_d}
+        out.update(peak_mib=peak, phase_wall_s=wall)
+    finally:
+        tmp.cleanup()
     return out
 
 

@@ -6,7 +6,9 @@ prints the utility ratio, the reduction and the certificate.  Then the
 paper's other selectors on V (stochastic and lazy greedy), the streaming
 baseline (sieve streaming), the one-call pipeline with the §3.4
 improvements, one request through the summarization service's facade
-(``repro_torch.api.summarize``, traced), and matrix-free facility location.
+(``repro_torch.api.summarize``, traced), a durable streaming session
+(``repro_torch.api.sessions``: appends, a summary, and the same summary from
+a reopened root), and matrix-free facility location.
 On the card, SS and greedy run once more through the plain backend under
 the same draws: the kernels must give the same V' and the same picks.
 
@@ -15,7 +17,10 @@ the same draws: the kernels must give the same V' and the same picks.
 """
 
 import argparse
+import tempfile
 import time
+
+import numpy as np
 
 import torch
 
@@ -131,6 +136,27 @@ print(f"api.summarize:      f(S) = {resp.value:.4f}  "
       f"(|V'| = {resp.vprime_size}, batch {resp.batch_size}/"
       f"{resp.batch_bucket}, queue {resp.queue_delay_s * 1e3:.1f} ms)")
 print(obs.trace_summary())               # the request's span tree
+
+# --- durable streaming sessions (repro_torch.api) ----------------------------
+# A session keeps a live summary over an unbounded stream of feature rows: a
+# row sieve decides online what to keep, SS compacts the kept rows, greedy
+# summarizes them.  With a root directory every append is in a write-ahead
+# log before it is acknowledged, so a new engine on the same root (after a
+# crash, say) recovers the session bit for bit.
+rows = fn.W[:512].cpu().numpy()
+with tempfile.TemporaryDirectory() as root:
+    scfg = api.SessionConfig(k=K, n_features=rows.shape[1], buffer_cap=32,
+                             resparsify_every=16, ss_r=2)
+    eng = api.sessions(scfg, root, device=dev)
+    sid = api.open_session(key=0, engine=eng)
+    for row in rows:
+        api.append(sid, row, engine=eng)     # returns its WAL sequence number
+    s = api.summary(sid, engine=eng)         # greedy over the SS-pruned buffer
+    again = api.summary(sid, engine=api.sessions(scfg, root, device=dev))
+    assert np.array_equal(s.selected, again.selected) and s.value == again.value
+print(f"api.sessions:       f(S) = {s.value:.4f} over {s.retained} retained of "
+      f"{s.seen} rows ({s.resparsifies} SS compactions); the same summary after "
+      f"reopening the root")
 
 # --- matrix-free facility location round-trip --------------------------------
 # StreamingFacilityLocation stores only (n, d) embeddings and computes

@@ -12,7 +12,10 @@ cache (``repro_torch.serve.kv_select``).  The summarization service
 (``repro_torch.serve.SummarizeService``: lanes, the sync and async
 schedulers, retry, failover, isolation, the watchdog and the degradation
 ladder) serves queries through that core, behind the facade
-``repro_torch.api``, with its own telemetry (``repro_torch.obs``).  The
+``repro_torch.api``, with its own telemetry (``repro_torch.obs``); the
+durable streaming tier (``repro_torch.serve.SessionEngine``: a live summary
+per session through row-sieve waves and SS compaction, with a write-ahead
+log, snapshots and crash recovery) sits behind the same facade.  The
 JAX package ``repro`` is the reference it is tested against; this package
 imports nothing of it.
 """
@@ -63,10 +66,12 @@ from repro_torch.core import (
     threshold_grid,
 )
 from repro_torch.data import clustered_embeddings, news_day, video
+from repro_torch.serve.sessions import SessionConfig, SessionEngine, SessionSummary
 
 __all__ = [
     "CudaBackend", "FacilityLocation", "FeatureCoverage", "GreedyResult",
     "LazyGreedyResult", "ReferenceBackend", "SSResult", "STREAM_PHIS",
+    "SessionConfig", "SessionEngine", "SessionSummary",
     "SieveResult", "SieveState", "StreamSieveState",
     "StreamingFacilityLocation", "api", "auto_sample_size", "bidirectional_greedy",
     "check_triangle_inequality", "clustered_embeddings", "divergence_update",

@@ -1,6 +1,6 @@
 """``repro_torch.api`` — the public facade over the port's summarization
-service, the counterpart of the JAX package's ``repro.api`` (its service and
-observability verbs; the streaming-session verbs are not ported yet).
+service and streaming sessions, the counterpart of the JAX package's
+``repro.api``.
 
 - :func:`summarize` — one query, one call: build the objective from a raw
   payload, run SS → compact greedy through the service's execution core,
@@ -10,15 +10,22 @@ observability verbs; the streaming-session verbs are not ported yet).
   service is a context manager).
 - :func:`submit` — fire-and-forget onto a process-wide default *async*
   service (:func:`default_service`); returns the :class:`Ticket` future.
+- :func:`sessions` — a :class:`SessionEngine`, the durable multi-session
+  streaming tier (pass a ``root`` directory for the WAL + snapshot
+  durability contract); :func:`open_session` / :func:`append` /
+  :func:`summary` — the per-session verbs, routed to a process-wide
+  default engine (:func:`default_engine`) when none is given.
 - :func:`stats` — one consistent snapshot of a service's counters;
   :func:`metrics` — the process-wide metrics registry as Prometheus text or
   a JSON-serializable dict.  ``repro_torch.obs.configure(trace=True)`` (or
   ``REPRO_TRACE=1``) records request span trees
   (:func:`repro_torch.obs.trace_summary`).
 
-Every verb that creates a service takes ``device`` ("cuda", the card, by
-default; a host without one raises); pass ``device="cpu"`` to run the
-plain PyTorch route on the host.  Execution knobs ride one
+Every verb that creates a service or a session engine takes ``device``
+("cuda", the card, by default; a host without one raises); pass
+``device="cpu"`` to run the plain PyTorch route on the host.  The session
+verbs create the default engine on the card, so without a card they need
+an ``engine``.  Execution knobs ride one
 :class:`RunConfig`; per-query knobs (payload, ``k``, ``seed``, objective,
 ``deadline_s``) ride :class:`SummarizeRequest`.
 """
@@ -31,6 +38,7 @@ import threading
 from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.serve.faults import FaultPlan
+from repro_torch.serve.sessions import SessionConfig, SessionEngine, SessionSummary
 from repro_torch.serve.summarize_service import (
     LADDER_STEPS,
     ChunkTimeout,
@@ -45,6 +53,7 @@ from repro_torch.serve.summarize_service import (
     Ticket,
     TicketPending,
 )
+from repro_torch.serve.wal import WALCorrupt, WALTruncated
 
 __all__ = [
     "LADDER_STEPS",
@@ -55,20 +64,31 @@ __all__ = [
     "RunConfig",
     "ServiceOverloaded",
     "ServiceRestarted",
+    "SessionConfig",
+    "SessionEngine",
+    "SessionSummary",
     "SummarizeRequest",
     "SummarizeResponse",
     "SummarizeService",
     "Ticket",
     "TicketPending",
+    "WALCorrupt",
+    "WALTruncated",
+    "append",
+    "default_engine",
     "default_service",
     "metrics",
+    "open_session",
     "serve",
+    "sessions",
     "stats",
     "submit",
     "summarize",
+    "summary",
 ]
 
 _default_service: SummarizeService | None = None
+_default_engine: SessionEngine | None = None
 _default_lock = threading.Lock()
 
 
@@ -153,6 +173,100 @@ def summarize(
     )
     return svc.run([req])[0]
 
+
+# ------------------------------------------------------------- streaming ----
+
+def sessions(
+    config: SessionConfig | None = None,
+    root: str | None = None,
+    *,
+    faults: FaultPlan | None = None,
+    device="cuda",
+) -> SessionEngine:
+    """A fresh :class:`SessionEngine` on ``device``: the durable
+    multi-session streaming tier (docs/streaming.md).  ``root=None`` runs
+    volatile; a directory arms the WAL + snapshot durability contract, and
+    a new engine on the same root recovers every session bit-identically.
+    ``faults`` is the chaos hook (``crash``/``restart`` kinds included)."""
+    return SessionEngine(config or SessionConfig(), root, faults=faults,
+                         device=device)
+
+
+def default_engine(
+    config: SessionConfig | None = None, root: str | None = None,
+    device="cuda",
+) -> SessionEngine:
+    """The process-wide engine the session verbs target, created on first
+    use on ``device`` (volatile unless ``root`` is given then).  A crashed
+    or closed default is replaced on the next call; passing a different
+    config, root or device while one is live is an error (use
+    :func:`sessions` instead): silently returning the live engine on a root
+    mismatch would let a caller who asked for durability believe volatile
+    acks survive a crash."""
+    global _default_engine
+    dev = resolve_device(device)
+    with _default_lock:
+        eng = _default_engine
+        if eng is None or eng._dead is not None or eng._closed:
+            _default_engine = SessionEngine(config or SessionConfig(), root,
+                                            device=dev)
+        elif config is not None and config != eng.config:
+            raise ValueError(
+                "the default session engine is already configured; use "
+                "repro_torch.api.sessions(config) for a differently-configured "
+                "one"
+            )
+        elif root is not None and root != eng.root:
+            raise ValueError(
+                "the default session engine is already rooted at "
+                f"{eng.root!r} (None = volatile, appends are NOT durable); "
+                "use repro_torch.api.sessions(root=...) for a "
+                "differently-rooted engine"
+            )
+        elif dev != eng.device:
+            raise ValueError(
+                f"the default session engine runs on {eng.device}; use "
+                "repro_torch.api.sessions(device=...) for another device"
+            )
+        return _default_engine
+
+
+def _engine(engine: SessionEngine | None) -> SessionEngine:
+    """``engine``, else the live process-wide default, else a new default
+    on the card."""
+    if engine is not None:
+        return engine
+    with _default_lock:
+        eng = _default_engine
+    if eng is not None and eng._dead is None and not eng._closed:
+        return eng
+    return default_engine()
+
+
+def open_session(
+    sid: str | None = None, *, key: int = 0,
+    engine: SessionEngine | None = None,
+) -> str:
+    """Create a streaming session on ``engine`` (default: the process-wide
+    :func:`default_engine`, created on the card if none is live); returns
+    the session id."""
+    return _engine(engine).open_session(sid, key=key)
+
+
+def append(sid: str, row, engine: SessionEngine | None = None) -> int:
+    """Ingest one (F,) feature row into session ``sid``; returns the WAL
+    sequence number: on a durable engine the element survives any crash
+    from the moment this returns."""
+    return _engine(engine).append(sid, row)
+
+
+def summary(sid: str, engine: SessionEngine | None = None) -> SessionSummary:
+    """The session's current k-element summary (flushes pending appends,
+    then greedy over the SS-pruned retained buffer)."""
+    return _engine(engine).summary(sid)
+
+
+# --------------------------------------------------------- observability ----
 
 def stats(service: SummarizeService | None = None) -> dict:
     """One consistent snapshot of ``service``'s serving counters

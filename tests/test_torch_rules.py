@@ -44,7 +44,8 @@ def _port_files():
             "sieve_gains.py"} <= {f.name for f in files}
     rel = {f.relative_to(ROOT / "src" / "repro_torch").as_posix() for f in files}
     assert {"obs/__init__.py", "obs/events.py", "obs/metrics.py", "obs/trace.py",
-            "serve/faults.py", "serve/summarize_service.py", "api.py"} <= rel
+            "serve/faults.py", "serve/summarize_service.py", "serve/wal.py",
+            "serve/sessions.py", "api.py"} <= rel
     return files + [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
 
 
@@ -237,6 +238,35 @@ def _api():
     from repro_torch import api
 
     return api
+
+
+SESSION_ENTRY_POINTS = {
+    "SessionEngine": lambda **kw: _sessions_module().SessionEngine(**kw),
+    "api.sessions": lambda **kw: _api().sessions(**kw),
+    "api.default_engine": lambda **kw: _api().default_engine(**kw),
+    "api.open_session": lambda **kw: (
+        _api().open_session(engine=_api().sessions(**kw)) if kw
+        else _api().open_session()),
+}
+
+
+def _sessions_module():
+    from repro_torch.serve import sessions
+
+    return sessions
+
+
+@pytest.mark.parametrize("entry", list(SESSION_ENTRY_POINTS))
+def test_session_entry_points_default_to_the_card(monkeypatch, entry):
+    """The session engine and the facade verbs that create one run on the
+    card unless the host is asked for: ``api.open_session`` with no engine
+    creates the default engine there, and raises on a host without one."""
+    call = SESSION_ENTRY_POINTS[entry]
+    monkeypatch.setattr(_api(), "_default_engine", None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        call()
+    call(device="cpu")
 
 
 @pytest.mark.parametrize("entry", list(SERVICE_ENTRY_POINTS))

@@ -371,5 +371,6 @@ def test_quickstart_torch_runs_on_the_cpu(monkeypatch, capsys):
     runpy.run_path(str(path), run_name="__main__")
     out = capsys.readouterr().out
     assert "OK: SS matches greedy" in out
-    for line in ("stochastic greedy on V", "lazy greedy on V", "streaming FL"):
+    for line in ("stochastic greedy on V", "lazy greedy on V", "api.sessions",
+                 "streaming FL"):
         assert line in out
