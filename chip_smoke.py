@@ -63,7 +63,22 @@ run.
 After the LM path, a fresh prefill's KV cache is pruned to 256 positions
 (``Engine.prune_kv``, coverage and fl objectives, the kernel route held to
 the plain one under the same draws) and 32 tokens are decoded from it,
-held to the plain attention at every step.  The
+held to the plain attention at every step.
+Then the other block types serve at full width and depth,
+each on a freed card (``lm_families_phase``): olmoe-1b-7b (16 attn_moe
+layers, 64 experts top-8; flash on the tensor-core route) and mamba2-780m
+(48 SSD layers, no kernel) on four 2048-token prompts, recurrentgemma-2b
+(26 rglru / local layers; flash on the FFMA route, window 2048) on four
+4096-token prompts, 32 new tokens each: launches, TTFT, decode, peak, the
+plain attention route's logits at every step (olmoe: the prefill's; its
+decode steps' differences are printed), the prefill layer by layer
+(each attention layer's flash output against the plain version on the
+same inputs, each MoE layer's top-8 under both routes with any differing
+choice shown a near tie, the pairs capacity drops), decode seeded by the
+prefill against the forward (the recurrent families), a profiled prefill,
+and the FFMA kernel timed at recurrentgemma's shape beside its bound and
+``scaled_dot_product_attention`` with the window as a mask.
+The
 FeatureCoverage kernels sum only the terms W's nonzeros make nonzero, so
 they are also swept over sparse W and their bounds count what these inputs
 need (W read once as stored, the work of its nonzeros), printed beside the
@@ -73,8 +88,9 @@ rule, ``kernel_ms``: the median of 5 windows of back-to-back calls between
 CUDA events, each window queued behind a sleep on the card where Python's
 enqueue takes at least half of it, so that the events time the card alone.
 
-The last two lines of its output are JSON: the kernels' records, then
-``{"ok": true, "device": {...}}``.  Any failure raises before them, and the
+The last lines of its output are JSON: the block types' figures
+(``lm_families``), the kernels' records, then ``{"ok": true, "device":
+{...}}``.  Any failure raises before them, and the
 script exits non-zero without a CUDA device or outside a checkout.
 
     python3 chip_smoke.py --first-chunk cold|warmed
@@ -2107,35 +2123,20 @@ def profile_lm(label: str, call) -> dict:
             "device_kernels": launches}
 
 
-def lm_path(errs: dict) -> dict:
-    """qwen3-4b at full width and depth on synthetic weights serves four
-    2048-token prompts (greedy, 32 new tokens): launches (all 36 of a
-    prefill on the tensor-core route), agreement with the plain route,
-    timings, a profile of the prefill, and the flash kernels timed at the
-    path's shape and at S = 32768 beside their bounds, with flip rates."""
-    from repro_torch import configs
-    from repro_torch.kernels import (attention_ref, attention_split_p_ref,
-                                     flash_attention_kernel)
-    from repro_torch.kernels.flash_attention import TC_PARTS, _launch
-    from repro_torch.models import decode_step, forward, init_params, prefill
-    from repro_torch.models.layers import tree_leaves
+def _serve(cfg, params, B: int, S: int, NEW: int) -> dict:
+    """The LM main path on ``params``: ``Engine.generate`` on B random
+    S-token prompts with the flash counts set to 0 just before (one launch
+    per attention layer of the prefill, on ``flash_route``'s route, none in
+    decode), then the same path step by step, timed (TTFT, decode ms a step,
+    peak), with the counts per phase and the same tokens."""
+    from repro_torch.kernels import flash_attention_kernel, flash_route
+    from repro_torch.models.layers import dtype_of
     from repro_torch.serve import Engine, ServeConfig
     from repro_torch.serve.engine import _sample
 
-    cfg = configs.get(LM_ARCH)
-    B, S, NEW = LM_B, LM_S, LM_NEW
-    t = time.perf_counter()
-    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
-    torch.cuda.synchronize()
-    n_params = sum(t_.numel() for t_ in tree_leaves(params))
-    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads x {cfg.head_dim}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_params} parameters "
-          f"({cfg.param_dtype}, compute {cfg.compute_dtype}) made on the card in "
-          f"{time.perf_counter() - t:.2f} s (the config counts "
-          f"{cfg.param_count()}, norm scales aside)", flush=True)
-    check(abs(n_params / cfg.param_count() - 1) < 1e-3,
-          "the parameters are not the config's")
+    n_attn = sum(b in ("attn", "attn_moe", "local") for b in cfg.layer_types)
+    route = flash_route(dtype_of(cfg.compute_dtype), cfg.head_dim) if n_attn else None
+    n_tc = n_attn if route == "tc" else 0
     sc = ServeConfig(max_len=S + NEW + 8)
     eng = Engine(cfg, params, sc)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -2151,14 +2152,15 @@ def lm_path(errs: dict) -> dict:
     launches = flash_attention_kernel.launches
     launches_tc = flash_attention_kernel.launches_tc
     check(tokens.shape == (B, NEW) and int(tokens.min()) >= 0
-          and int(tokens.max()) < cfg.vocab_size, "generate: bad tokens")
-    check(launches == launches_tc == cfg.num_layers,
-          f"generate launched the flash kernels {launches} times ({launches_tc} "
-          f"on the tensor-core route), not once per layer of the prefill "
-          f"({cfg.num_layers}), all on the tensor-core route, and never in decode")
-    print(f"generate: {B} x {S}-token prompts -> {tuple(tokens.shape)} tokens in "
-          f"{wall_gen:.4f} s (host clock, synchronised, first call); flash "
-          f"launches {launches}, {launches_tc} on the tensor-core route", flush=True)
+          and int(tokens.max()) < cfg.vocab_size, f"{cfg.name} generate: bad tokens")
+    check(launches == n_attn and launches_tc == n_tc,
+          f"{cfg.name}: generate launched the flash kernels {launches} times "
+          f"({launches_tc} on the tensor-core route), not once per attention "
+          f"layer of the prefill ({n_attn}, route {route}) and never in decode")
+    print(f"{cfg.name} generate: {B} x {S}-token prompts -> {tuple(tokens.shape)} "
+          f"tokens in {wall_gen:.4f} s (host clock, synchronised, first call); "
+          f"flash launches {launches}, {launches_tc} on the tensor-core route",
+          flush=True)
 
     # the same path step by step, timed, with the counts per phase
     torch.cuda.reset_peak_memory_stats()
@@ -2185,35 +2187,111 @@ def lm_path(errs: dict) -> dict:
     decode_s = time.perf_counter() - t
     decode_launches = flash_attention_kernel.launches
     peak = torch.cuda.max_memory_allocated() / 2**30
-    check(prefill_launches == prefill_tc == cfg.num_layers and decode_launches == 0,
-          f"launches: prefill {prefill_launches} ({prefill_tc} tensor-core), "
-          f"decode {decode_launches}")
+    check(prefill_launches == n_attn and prefill_tc == n_tc and decode_launches == 0,
+          f"{cfg.name} launches: prefill {prefill_launches} ({prefill_tc} "
+          f"tensor-core), decode {decode_launches}")
     check(torch.equal(torch.cat(toks, 1), tokens),
-          "the step-by-step run gave other tokens than generate")
+          f"{cfg.name}: the step-by-step run gave other tokens than generate")
     ms_tok = decode_s * 1e3 / (NEW - 1)
-    print(f"prefill {prefill_ms:.4f} ms, time to first token {ttft_ms:.4f} ms; "
-          f"decode {ms_tok:.4f} ms per step ({B * (NEW - 1) / decode_s:.1f} "
-          f"tokens/s over {B} requests); peak device memory {peak:.2f} GiB; "
-          f"flash launches: prefill {prefill_launches}, decode {decode_launches}",
-          flush=True)
+    print(f"{cfg.name} ({CARD[0]}): prefill {prefill_ms:.4f} ms, time to first "
+          f"token {ttft_ms:.4f} ms; decode {ms_tok:.4f} ms per step "
+          f"({B * (NEW - 1) / decode_s:.1f} tokens/s over {B} requests); peak "
+          f"device memory {peak:.2f} GiB; flash launches: prefill "
+          f"{prefill_launches}, decode {decode_launches}", flush=True)
+    return {"eng": eng, "sc": sc, "gen": gen, "prompts": prompts, "tokens": tokens,
+            "toks": toks, "step_logits": step_logits, "cache": cache,
+            "n_attn": n_attn, "route": route, "launches": launches,
+            "launches_tc": launches_tc, "prefill_ms": prefill_ms,
+            "ttft_ms": ttft_ms, "decode_ms_per_step": ms_tok,
+            "tokens_per_s": B * (NEW - 1) / decode_s, "peak_gib": peak}
+
+
+def _plain_route(cfg, params, prompts, toks, step_logits, max_len: int,
+                 seen: list | None = None) -> tuple[float, list]:
+    """The same weights with attention through the plain version, fed the
+    kernel route's tokens: logits at every step held by ``_logits_close``.
+    With experts only the prefill's are held: decode reads each route's
+    own cache, and a near-tie routing flip in the prefill (``_lockstep``
+    shows each) moves a pair to another expert and shifts which pairs
+    capacity drops, a discrete change in the cached keys and values of
+    those tokens; the decode steps' differences are returned.  Returns
+    (largest held error, the unheld steps' errors) relative to
+    max|logits|."""
+    from repro_torch.models import decode_step, prefill
+
+    S = prompts.shape[1]
+    moe_model = "attn_moe" in cfg.block_pattern
+    with plain_attention(seen):
+        p_logits, p_cache = prefill(cfg, params, prompts, max_len=max_len)
+        rel = _logits_close(step_logits[0], p_logits,
+                            f"{cfg.name} prefill, kernel vs plain")
+        step_rel = []
+        for i in range(len(toks) - 1):
+            p_logits, p_cache = decode_step(cfg, params, toks[i], p_cache, S + i)
+            what = f"{cfg.name} decode step {i + 1}, kernel vs plain"
+            if moe_model:
+                check(bool(torch.isfinite(step_logits[i + 1]).all()),
+                      f"{what}: non-finite logits")
+                step_rel.append(float((step_logits[i + 1] - p_logits).abs().max())
+                                / float(p_logits.abs().max()))
+            else:
+                rel = max(rel, _logits_close(step_logits[i + 1], p_logits, what))
+    del p_cache
+    if moe_model:
+        print(f"{cfg.name} plain route (attention through the plain version, the "
+              f"kernel route's tokens): prefill logits agree, err {rel:.4g} of "
+              f"max|logits|; decode steps from each route's own cache (not held: "
+              f"routing flips): {', '.join(f'{r:.4g}' for r in step_rel)}",
+              flush=True)
+    else:
+        print(f"{cfg.name} plain route (attention through the plain version, the "
+              f"kernel route's tokens): logits agree at every step, max err "
+              f"{rel:.4g} of max|logits|", flush=True)
+    return rel, step_rel
+
+
+def lm_path(errs: dict) -> dict:
+    """qwen3-4b at full width and depth on synthetic weights serves four
+    2048-token prompts (greedy, 32 new tokens): launches (all 36 of a
+    prefill on the tensor-core route), agreement with the plain route,
+    timings, a profile of the prefill, and the flash kernels timed at the
+    path's shape and at S = 32768 beside their bounds, with flip rates."""
+    from repro_torch import configs
+    from repro_torch.kernels import (attention_ref, attention_split_p_ref,
+                                     flash_attention_kernel)
+    from repro_torch.kernels.flash_attention import TC_PARTS, _launch
+    from repro_torch.models import forward, init_params
+    from repro_torch.models.layers import tree_leaves
+
+    cfg = configs.get(LM_ARCH)
+    B, S, NEW = LM_B, LM_S, LM_NEW
+    t = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t_.numel() for t_ in tree_leaves(params))
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads x {cfg.head_dim}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_params} parameters "
+          f"({cfg.param_dtype}, compute {cfg.compute_dtype}) made on the card in "
+          f"{time.perf_counter() - t:.2f} s (the config counts "
+          f"{cfg.param_count()}, norm scales aside)", flush=True)
+    check(abs(n_params / cfg.param_count() - 1) < 1e-3,
+          "the parameters are not the config's")
+    run = _serve(cfg, params, B, S, NEW)
+    check(run["n_attn"] == cfg.num_layers and run["route"] == "tc",
+          "qwen3-4b: every layer's attention on the tensor-core route")
+    eng, sc, gen, prompts = run["eng"], run["sc"], run["gen"], run["prompts"]
+    toks, step_logits, cache = run["toks"], run["step_logits"], run["cache"]
+    launches, launches_tc = run["launches"], run["launches_tc"]
 
     # the plain route: same weights, attention through the plain version,
     # fed the kernel route's tokens
     seen = []
-    with plain_attention(seen):
-        p_logits, p_cache = prefill(cfg, params, prompts, max_len=sc.max_len)
-        rel = _logits_close(step_logits[0], p_logits, "prefill, kernel vs plain")
-        for i, n in enumerate(range(S, S + NEW - 1)):
-            p_logits, p_cache = decode_step(cfg, params, toks[i], p_cache, n)
-            rel = max(rel, _logits_close(step_logits[i + 1], p_logits,
-                                         f"decode step {i + 1}, kernel vs plain"))
-    del p_cache
+    _plain_route(cfg, params, prompts, toks, step_logits, sc.max_len, seen)
     full, _ = forward(cfg, params, torch.cat([prompts, toks[0]], 1),
                       logits_slice=1)
     rel_fwd = _logits_close(step_logits[1], full, "decode at S vs forward over S+1")
-    print(f"plain route (attention through the plain version, the kernel route's "
-          f"tokens): logits agree at every step, max err {rel:.4g} of max|logits|;"
-          f" decode at position {S} vs forward over {S + 1} tokens {rel_fwd:.4g}",
+    print(f"decode at position {S} vs forward over {S + 1} tokens {rel_fwd:.4g}",
           flush=True)
     prof = {"prefill": profile_lm("prefill", lambda: eng.prefill(prompts)),
             "decode_step": profile_lm("decode step", lambda: eng.decode_with_cache(
@@ -2347,10 +2425,273 @@ def lm_path(errs: dict) -> dict:
                    "ffma_design_bound_ms": ffma_bound_l,
                    "tensor_core_bound_ms": tc_l, "library_ms": lib_long},
         "lm_path": {"arch": cfg.name, "batch": B, "prompt": S, "new": NEW,
-                    "prefill_ms": prefill_ms, "ttft_ms": ttft_ms,
-                    "decode_ms_per_step": ms_tok, "peak_gib": peak,
-                    "profile": prof, "kv_prune": kv_prune},
+                    "prefill_ms": run["prefill_ms"], "ttft_ms": run["ttft_ms"],
+                    "decode_ms_per_step": run["decode_ms_per_step"],
+                    "peak_gib": run["peak_gib"], "profile": prof,
+                    "kv_prune": kv_prune},
     }
+
+
+# -- the other LM block types: experts, Mamba2 SSD and RG-LRU -----------------
+
+# (arch, batch, prompt length): olmoe's attn_moe blocks (flash on the
+# tensor-core route), recurrentgemma's rglru / local hybrid at prompts of
+# twice its 2048 window (the FFMA route, windowed; the local caches' ring
+# buffers wrap), mamba2's SSD stack (no attention, no kernel).  Full widths
+# and depths, 32 new tokens each.
+FAMILIES = (("olmoe-1b-7b", 4, 2048), ("recurrentgemma-2b", 4, 4096),
+            ("mamba2-780m", 4, 2048))
+FAMILY_NEW = 32
+# The reference's prefill-seeds-decode rule (tests/test_models_smoke.py:95-
+# 115, float32 compute): max |decode - forward| < 5e-3, absolute.
+SEED_DECODE_TOL = 5e-3
+
+
+def _route_flips(label: str, probs_k, probs_p, K: int) -> tuple[int, list]:
+    """The kernel route's and the plain route's top-K experts of every token
+    (float32 probabilities (T, E), one layer): the tokens whose sets differ,
+    each with the plain route's probability gap between the two experts it
+    swaps and the largest probability difference of the token between the
+    routes, delta.  A swap is a near tie: its gap is within 2 delta (the
+    routes order the pair differently, so it cannot be wider) and delta is
+    within the bf16 tolerance of the token's largest probability (the
+    routes' inputs differ by bf16 roundings only)."""
+    from repro_torch.models.moe import top_k
+
+    set_k = top_k(probs_k, K)[1].sort(-1).values
+    set_p = top_k(probs_p, K)[1].sort(-1).values
+    diff = (set_k != set_p).any(-1).nonzero()[:, 0].tolist()
+    gaps = []
+    for t in diff:
+        a = sorted(set(set_k[t].tolist()) - set(set_p[t].tolist()))
+        b = sorted(set(set_p[t].tolist()) - set(set_k[t].tolist()))
+        pk, pp = probs_k[t].double(), probs_p[t].double()
+        delta = float((pk - pp).abs().max())
+        gap = float(pp[b].min() - pp[a].max())
+        check(gap <= 2 * delta + 1e-12 and delta <= TOL[torch.bfloat16] * float(pp.max()),
+              f"{label}: token {t} takes experts {a} on the kernel route, {b} on "
+              f"the plain: gap {gap:.3g}, delta {delta:.3g} is no near tie")
+        gaps.append((t, gap, delta))
+    return len(diff), gaps
+
+
+def _lockstep(cfg, params, prompts, errs: dict) -> dict:
+    """The prefill layer by layer, both attention routes from the kernel
+    route's input: each attention layer's flash output against the plain
+    version on the same (q, k, v) (``flash_close``); for ``attn_moe`` the
+    top-K experts each route's residual picks (``_route_flips``) and the
+    (token, k) pairs capacity drops on the kernel route.  Returns the
+    first attention layer's (q, k, v, window) with the per-layer figures."""
+    from repro_torch.kernels import attention_ref, flash_attention_kernel
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import rglru as rglru_lib
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models.decoder import _embed, _layers, _second_half, _window
+    from repro_torch.models.layers import dtype_of, rmsnorm
+
+    cdt = dtype_of(cfg.compute_dtype)
+    B, S = prompts.shape
+    x = _embed(cfg, params, prompts, None)
+    positions = torch.arange(S, device=x.device)
+    C = moe_lib.capacity(cfg, S) if cfg.num_experts else 0
+    first, layers = None, []
+    for i, (btype, p, _) in enumerate(_layers(cfg, params)):
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        if btype == "mamba2":
+            x = x + ssm_lib.mamba2_forward(p["mixer"], cfg, h)
+            continue
+        if btype == "rglru":
+            x = _second_half(cfg, btype, p, x + rglru_lib.rglru_forward(
+                p["mixer"], cfg, h))[0]
+            continue
+        w = _window(cfg, btype)
+        q, k, v = attn._project_qkv(p["attn"], cfg, h, positions)
+        o_k = flash_attention_kernel(q, k, v, causal=True, window=w)
+        o_p = attention_ref(q, k, v, True, w)
+        err = flash_close(o_k, o_p, f"{cfg.name} layer {i} ({btype}): flash vs plain")
+        errs["flash_attention"] = max(errs["flash_attention"], err)
+        if first is None:
+            first = (q, k, v, w)
+        row = {"layer": i, "type": btype, "attn_err": err}
+        x_k = x + o_k.reshape(B, S, cfg.q_dim) @ p["attn"]["w_o"].to(cdt)
+        if btype == "attn_moe":
+            x_p = x + o_p.reshape(B, S, cfg.q_dim) @ p["attn"]["w_o"].to(cdt)
+            probs = []
+            for xr in (x_k, x_p):
+                h2 = rmsnorm(p["ln2"], xr, cfg.norm_eps).reshape(B * S, -1)
+                probs.append(torch.softmax(
+                    (h2.to(cdt) @ p["moe"]["router"].to(cdt)).float(), dim=-1))
+            flips, gaps = _route_flips(f"{cfg.name} layer {i}", *probs, cfg.top_k)
+            top = moe_lib.top_k(probs[0], cfg.top_k)[1].reshape(B, S, -1)
+            keys = moe_lib.dispatch_keys(top, cfg.num_experts, C)
+            row.update(dropped=int((keys == cfg.num_experts * C).sum()),
+                       flips=flips, gaps=[g for _, g, _ in gaps])
+            moe_line = (f"; (token, k) pairs dropped by capacity (C = {C}) "
+                        f"{row['dropped']} of {B * S * cfg.top_k}; tokens routed "
+                        f"differently by the two routes {flips}"
+                        + "".join(f"; token {t} gap {g:.3g} (delta {d:.3g})"
+                                  for t, g, d in gaps[:4]))
+        print(f"  layer {i} ({btype}): attention err {err:.4g}"
+              + (moe_line if btype == "attn_moe" else ""), flush=True)
+        layers.append(row)
+        x = _second_half(cfg, btype, p, x_k)[0]
+        del q, k, v, o_k, o_p
+    return {"first": first, "layers": layers, "capacity": C}
+
+
+def _ffma_at_shape(cfg, q, k, v, window: int, errs: dict) -> dict:
+    """The flash kernel at a windowed MQA shape on its FFMA route: time
+    (``kernel_ms``) beside its bound, the plain version and
+    ``scaled_dot_product_attention`` with the window as a boolean mask (P
+    rounded to bf16 once: another function, a yardstick), and the share of
+    its bf16 outputs that differ from the plain version's."""
+    from repro_torch.kernels import attention_ref, flash_attention_kernel, flash_route
+
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    check(flash_route(q.dtype, hd) == "ffma", f"{cfg.name}: not the FFMA route")
+    n0, tc0 = flash_attention_kernel.launches, flash_attention_kernel.launches_tc
+    out = flash_attention_kernel(q, k, v, causal=True, window=window)
+    check(flash_attention_kernel.launches - n0 == 1
+          and flash_attention_kernel.launches_tc == tc0, "the FFMA kernel did not launch")
+    ref = attention_ref(q, k, v, True, window)
+    err = flash_close(out, ref, f"flash (FFMA) at {cfg.name}'s shape")
+    errs["flash_attention"] = max(errs["flash_attention"], err)
+    flips = float((out != ref).float().mean())
+    ms = kernel_ms(lambda: flash_attention_kernel(q, k, v, causal=True,
+                                                  window=window), 5)[1]
+    plain_ms = kernel_ms(lambda: attention_ref(q, k, v, True, window), 2)[1].ms
+    qx, kx, vx = (t.transpose(1, 2).contiguous() for t in (
+        q, k.repeat_interleave(H // KV, dim=2), v.repeat_interleave(H // KV, dim=2)))
+    i = torch.arange(S, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(qx, kx, vx, attn_mask=mask)
+    err_lib = float((out.float() - lib_out.transpose(1, 2).float()).abs().max())
+    check(err_lib <= TOL[torch.bfloat16] * float(v.float().abs().max()),
+          f"flash at {cfg.name}'s shape vs the library: err {err_lib}")
+    lib_ms = kernel_ms(lambda: sdpa(qx, kx, vx, attn_mask=mask), 5)[1].ms
+    # each query reads min(i + 1, window) keys: 2 hd FFMAs (Q.K, P.V) and
+    # one exponential a pair; q, k, v read once and o written once
+    pairs = B * H * sum(min(j + 1, window) for j in range(S))
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    b_ms, b_by, b_pipe = bound(nbytes, ffma=2 * pairs * hd, sfu=pairs)
+    share = b_ms / ms.ms
+    check(share <= 1.05, f"flash (FFMA) runs at {share:.3f} of its bound")
+    print(f"flash_attention (FFMA route) at {cfg.name}'s shape (B={B}, S={S}, "
+          f"H={H}, KV={KV}, hd={hd}, {str(q.dtype)[6:]}, window {window}; "
+          f"{CARD[0]}): {ms.ms:.4f} ms per launch ({fmt_windows(ms)}), bound "
+          f"{b_ms:.4f} ms ({b_by}: {b_pipe}), share {share:.4f}; plain "
+          f"{plain_ms:.4f} ms; library (scaled_dot_product_attention, the window "
+          f"as a boolean mask, P rounded once) {lib_ms:.4f} ms; flip rate against "
+          f"the plain version {flips:.6f}; vs plain err {err:.3g}, vs the library "
+          f"{err_lib:.3g}", flush=True)
+    return {"ms": ms.ms, "windows": ms.windows, "bound_ms": b_ms, "bound_by": b_by,
+            "pipe": b_pipe, "share_of_bound": share, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "flip_rate": flips, "max_abs_err": err,
+            "shape": [B, S, H, KV, hd], "window": window}
+
+
+def _seeds_decode(cfg, params, prompts, toks, step_logits, label: str) -> dict:
+    """Decode seeded by the prefill against the forward over S + n tokens,
+    for the first 2 decode steps: the served bf16 run at the LM path's rule
+    (3e-2 of max|logits|), and the same weights with float32 compute (the
+    reference's own setting) at ``SEED_DECODE_TOL``."""
+    import dataclasses
+
+    from repro_torch.models import decode_step, forward, prefill
+
+    S = prompts.shape[1]
+    longer = torch.cat([prompts, toks[0], toks[1]], 1)
+    full, _ = forward(cfg, params, longer, logits_slice=2)
+    rel16 = max(_logits_close(step_logits[n + 1], full[:, n:n + 1],
+                              f"{label} decode step {n + 1} vs forward")
+                for n in range(2))
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    logits, cache = prefill(cfg32, params, prompts, max_len=S + 8)
+    full32, _ = forward(cfg32, params, longer, logits_slice=3)
+    steps = [logits]
+    for n in range(2):
+        lg, cache = decode_step(cfg32, params, toks[n], cache, S + n)
+        steps.append(lg)
+    del cache
+    errs32 = [float((got - full32[:, n:n + 1]).abs().max())
+              for n, got in enumerate(steps)]
+    scale = float(full32.abs().max())
+    check(max(errs32) < SEED_DECODE_TOL,
+          f"{label}: float32 prefill and decode vs the forward err {errs32}, not "
+          f"under {SEED_DECODE_TOL}")
+    print(f"{label}: decode seeded by the prefill vs the forward over S + n "
+          f"tokens, 2 steps: bf16 {rel16:.4g} of max|logits|; float32 compute "
+          f"(prefill, step 1, step 2) max abs err {', '.join(f'{e:.4g}' for e in errs32)} "
+          f"against max|logits| {scale:.4g}", flush=True)
+    return {"bf16_rel": rel16, "float32_abs": errs32, "float32_scale": scale}
+
+
+def _family(arch: str, B: int, S: int, errs: dict) -> dict:
+    """One model served at full width and depth on a freed card: the main
+    path (``Engine.generate``, counts from 0), the same path step by step
+    (TTFT, decode, peak), the plain attention route's logits
+    (``_plain_route``), the prefill layer by layer, decode seeded by the
+    prefill (recurrent families) and a profiled prefill."""
+    from repro_torch import configs
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import tree_leaves
+
+    cfg = configs.get(arch)
+    NEW = FAMILY_NEW
+    t = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t_.numel() for t_ in tree_leaves(params))
+    print(f"{cfg.name}: {cfg.num_layers} layers {cfg.layer_types[:3]}..., d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}: {n_params} parameters "
+          f"({cfg.param_dtype}, {n_params * 4 / 2**30:.2f} GiB; compute "
+          f"{cfg.compute_dtype}) made on the card in {time.perf_counter() - t:.2f} s "
+          f"(the config counts {cfg.param_count()})", flush=True)
+    check(abs(n_params / cfg.param_count() - 1) < 1e-2,
+          f"{cfg.name}: the parameters are not the config's")
+    run = _serve(cfg, params, B, S, NEW)
+    eng, prompts = run["eng"], run["prompts"]
+    toks, step_logits = run["toks"], run["step_logits"]
+    out = {"arch": cfg.name, "batch": B, "prompt": S, "new": NEW, "params": n_params,
+           **{k: run[k] for k in ("n_attn", "launches", "launches_tc", "route",
+                                  "prefill_ms", "ttft_ms", "decode_ms_per_step",
+                                  "tokens_per_s", "peak_gib")}}
+    del run
+    if out["n_attn"]:
+        rel, step_rel = _plain_route(cfg, params, prompts, toks, step_logits,
+                                     S + NEW + 8)
+        print(f"{cfg.name} layer by layer:", flush=True)
+        lock = _lockstep(cfg, params, prompts, errs)
+        out.update(plain_rel=rel, plain_decode_rel=step_rel, layers=lock["layers"],
+                   capacity=lock["capacity"])
+        if out["route"] == "ffma":
+            q, k, v, w = lock["first"]
+            out["ffma"] = _ffma_at_shape(cfg, q, k, v, w, errs)
+        del lock
+    if {"mamba2", "rglru"} & set(cfg.block_pattern):
+        # (not olmoe: its prefill drops pairs past capacity, its decode has
+        # no capacity, so the two differ by design)
+        out["seeds_decode"] = _seeds_decode(cfg, params, prompts, toks,
+                                            step_logits, cfg.name)
+    out["profile"] = profile_lm(f"{cfg.name} prefill", lambda: eng.prefill(prompts))
+    return out
+
+
+def lm_families_phase(errs: dict) -> dict:
+    """olmoe-1b-7b, recurrentgemma-2b and mamba2-780m (``FAMILIES``), each
+    on a freed card."""
+    out = {}
+    for arch, B, S in FAMILIES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out[arch] = _family(arch, B, S, errs)
+        out[arch]["phase_s"] = time.perf_counter() - t
+        print(f"{arch}: {out[arch]['phase_s']:.2f} s", flush=True)
+    return out
 
 
 # -- batched execution: the service's lanes and SS pruning of the KV cache ----
@@ -2904,6 +3245,7 @@ def kv_prune_phase(cfg, eng, prompts, sc, errs: dict) -> dict:
 
 SVC_FAULT_N = 1 << 14              # the fault phase: 2 queries of 2^14 x 1024
 CARD = [""]                        # nvidia-smi's name and power limit, set in main
+T0 = [0.0]                         # the script's start (host clock), set in main
 
 
 def _svc_kernels() -> dict:
@@ -3787,6 +4129,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
+    T0[0] = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import build, load_library
 
@@ -3856,6 +4199,9 @@ def main() -> int:
     flash_sweep(errs)
     torch.cuda.reset_peak_memory_stats()
     records.append(lm_path(errs))
+    # 14. the other block types: olmoe, recurrentgemma, mamba2, each served
+    # at full width and depth on a freed card
+    families = lm_families_phase(errs)
     records.append(sieve_record())
     # the lanes and the KV path held the kernels to their plain versions
     # after the records were made
@@ -3868,6 +4214,8 @@ def main() -> int:
     flash = next(r_ for r_ in records if r_["name"] == "flash_attention")
     check(math.isfinite(flash["library_ms"]), "flash: no library time")
 
+    print(json.dumps({"lm_families": families}))
+    print(f"chip_smoke: {time.perf_counter() - T0[0]:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

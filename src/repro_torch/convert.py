@@ -20,7 +20,6 @@ from repro_torch.core.functions import (
 )
 from repro_torch.device import resolve_device as _device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.decoder import _require_ported
 from repro_torch.models.layers import tree_leaves
 
 
@@ -106,7 +105,6 @@ def model_params_from_numpy(params: dict, cfg: ModelConfig, device="cuda") -> di
     leaves as numpy arrays, groups stacked on axis 0), on ``device``, each
     leaf in its own dtype."""
     dev = _device(device)
-    _require_ported(cfg)
     G = cfg.num_groups
     for i in range(len(cfg.block_pattern)):
         for leaf in tree_leaves(params["blocks"][f"p{i}"]):
@@ -118,6 +116,8 @@ def model_params_from_numpy(params: dict, cfg: ModelConfig, device="cuda") -> di
 
 def cache_from_numpy(cache: dict, device="cuda") -> dict:
     """The port's decode cache from a JAX one (``prefill``'s or
-    ``init_cache``'s, leaves as numpy arrays), on ``device``."""
+    ``init_cache``'s, leaves as numpy arrays), on ``device``, each leaf in
+    its own dtype: attention's ``k`` / ``v`` and the mixers' ``conv`` in
+    the compute dtype, ``ssm`` (mamba2) and ``h`` (rglru) in float32."""
     return _tree(cache, _device(device))
 

@@ -1,6 +1,8 @@
-"""Config-driven decoder-only LMs, the counterpart of ``repro.models`` for the
-dense attention blocks (``attn``, ``local``): prefill through the flash
-kernel, decode against a static KV cache."""
+"""Config-driven decoder-only LMs, the counterpart of ``repro.models``: dense
+GQA (``attn``, ``local``), mixture of experts (``attn_moe``, ``moe.py``),
+Mamba2 SSD (``mamba2``, ``ssm.py``) and the RG-LRU hybrid (``rglru``,
+``rglru.py``).  Prefill runs attention through the flash kernel; decode
+runs against a static KV cache and O(1) recurrent states."""
 
 from repro_torch.models.config import (
     SHAPES,

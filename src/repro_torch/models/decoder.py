@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly: the counterpart of ``repro/models/decoder.py``
-for the attention-only block types (``attn``, ``local``).
+"""Decoder-only LM assembly for every block type the configs use: the
+counterpart of ``repro/models/decoder.py``.
 
 Params layout (plain nested dicts of tensors), the reference's own:
 
@@ -11,13 +11,18 @@ Params layout (plain nested dicts of tensors), the reference's own:
 ``blocks.p<i>`` holds the i-th entry of ``cfg.block_pattern`` stacked over
 the ``cfg.num_groups`` pattern repetitions.  The reference scans over the
 groups; here a Python loop walks them, taking group g's parameters as views
-(``[g]``) of the stacked tensors.  The decode cache keeps the same layout,
-``{"blocks": {"p0": {"k": (G, B, L, KV, hd), ...}}, "rem": {...}}``.
+(``[g]``) of the stacked tensors.  The decode cache keeps the same layout:
+``{"k", "v"}`` (G, B, L, KV, hd) for attention blocks, ``{"conv", "ssm"}``
+for ``mamba2`` and ``{"conv", "h"}`` for ``rglru``, each layer's state
+updated in place.
+
+Block types: ``attn`` (full causal attention + FFN), ``attn_moe``
+(attention + mixture of experts, :mod:`repro_torch.models.moe`), ``local``
+(sliding-window attention + FFN), ``mamba2`` (the SSD mixer alone,
+:mod:`repro_torch.models.ssm`) and ``rglru`` (the RG-LRU mixer + FFN,
+:mod:`repro_torch.models.rglru`).
 
 Entry points: ``forward``, ``prefill``, ``init_cache``, ``decode_step``.
-The block types ``attn_moe``, ``mamba2`` and ``rglru`` raise
-``NotImplementedError``: they wait for ROADMAP §1 item 6, the rest of the
-LM stack.
 """
 
 from __future__ import annotations
@@ -26,6 +31,9 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models import rglru as rglru_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     Params,
@@ -41,16 +49,7 @@ from repro_torch.models.layers import (
 
 Tensor = torch.Tensor
 
-_PORTED = ("attn", "local")
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    for btype in cfg.block_pattern:
-        if btype not in _PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: block type {btype!r} is not ported yet (ROADMAP "
-                "§1 item 6: experts, SSM and RG-LRU mixers come later); the "
-                f"port runs {_PORTED}")
+_ATTN = ("attn", "attn_moe", "local")      # the block types with attention
 
 
 def _group(tree: Params, g: int) -> Params:
@@ -68,9 +67,22 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, btype: str,
     pdt = dtype_of(cfg.param_dtype)
     d, dev = cfg.d_model, gen.device
     p: Params = {"ln1": rmsnorm_init(d, pdt, dev, lead)}
-    p["attn"] = attn.attention_init(gen, cfg, lead)
-    p["ln2"] = rmsnorm_init(d, pdt, dev, lead)
-    p["ffn"] = ffn_init(gen, d, cfg.d_ff, pdt, gated=cfg.mlp_gated, lead=lead)
+    if btype in _ATTN:
+        p["attn"] = attn.attention_init(gen, cfg, lead)
+        p["ln2"] = rmsnorm_init(d, pdt, dev, lead)
+        if btype == "attn_moe":
+            p["moe"] = moe_lib.moe_init(gen, cfg, lead)
+        else:
+            p["ffn"] = ffn_init(gen, d, cfg.d_ff, pdt, gated=cfg.mlp_gated,
+                                lead=lead)
+    elif btype == "mamba2":
+        p["mixer"] = ssm_lib.mamba2_init(gen, cfg, lead)
+    elif btype == "rglru":
+        p["mixer"] = rglru_lib.rglru_init(gen, cfg, lead)
+        p["ln2"] = rmsnorm_init(d, pdt, dev, lead)
+        p["ffn"] = ffn_init(gen, d, cfg.d_ff, pdt, gated=cfg.mlp_gated, lead=lead)
+    else:
+        raise ValueError(f"unknown block type {btype!r}")
     return p
 
 
@@ -81,7 +93,6 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     shapes and standard deviations.  The draws differ from ``jax.random``'s:
     tests that compare the two packages carry the JAX parameters across with
     ``convert.model_params_from_numpy``."""
-    _require_ported(cfg)
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"init_params: the generator is on {generator.device}, "
@@ -120,9 +131,24 @@ def _window(cfg: ModelConfig, btype: str) -> int:
     return cfg.local_window if btype == "local" else 0
 
 
-def _ffn_half(cfg: ModelConfig, p: Params, x: Tensor) -> Tensor:
+def _second_half(cfg: ModelConfig, btype: str, p: Params,
+                 x: Tensor) -> tuple[Tensor, Tensor | None]:
+    """The sublayer after a block's mixer: experts (``attn_moe``, with their
+    aux loss), the FFN (``attn``, ``local``, ``rglru``), or none
+    (``mamba2``).  Returns (x, aux or None)."""
+    if btype == "mamba2":
+        return x, None
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + ffn(p["ffn"], h2, dtype_of(cfg.compute_dtype), cfg.mlp_act)
+    if btype == "attn_moe":
+        y, aux = moe_lib.moe_forward(p["moe"], cfg, h2)
+        return x + y, aux
+    return x + ffn(p["ffn"], h2, dtype_of(cfg.compute_dtype), cfg.mlp_act), None
+
+
+def _store(cache: Params, new: dict) -> None:
+    """Write a recurrent mixer's new state into this layer's cache views."""
+    for name, t in new.items():
+        cache[name].copy_(t)
 
 
 def _embed(cfg: ModelConfig, params: Params, tokens: Tensor,
@@ -144,20 +170,27 @@ def forward(
     *,
     logits_slice: int = 0,          # >0: only last N positions get logits
 ) -> tuple[Tensor, Tensor]:
-    """Full-sequence forward.  Returns (logits, aux_loss); aux_loss is 0
-    for the ported (dense) blocks."""
-    _require_ported(cfg)
+    """Full-sequence forward.  Returns (logits, aux_loss): the sum of the
+    MoE layers' load-balance losses (0 without experts), float32."""
     x = _embed(cfg, params, tokens, patches)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for btype, p, _ in _layers(cfg, params):
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-        x = x + attn.attention_forward(p["attn"], cfg, h, positions,
+        if btype in _ATTN:
+            y = attn.attention_forward(p["attn"], cfg, h, positions,
                                        window=_window(cfg, btype))
-        x = _ffn_half(cfg, p, x)
+        elif btype == "mamba2":
+            y = ssm_lib.mamba2_forward(p["mixer"], cfg, h)
+        else:
+            y = rglru_lib.rglru_forward(p["mixer"], cfg, h)
+        x, a = _second_half(cfg, btype, p, x + y)
+        if a is not None:
+            aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice > 0:
         x = x[:, -logits_slice:]
-    return unembed(params["embed"], cfg, x), torch.zeros((), device=x.device)
+    return unembed(params["embed"], cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -165,11 +198,19 @@ def forward(
 # ---------------------------------------------------------------------------
 
 def _block_prefill(cfg: ModelConfig, btype: str, p: Params, x: Tensor,
-                   positions: Tensor, cache: Params):
+                   positions: Tensor, cache: Params) -> Tensor:
+    """One block over the prompt; writes its decode state into ``cache``
+    (this layer's ``init_cache`` views) in place."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    y, cache = attn.attention_prefill(p["attn"], cfg, h, positions, cache,
+    if btype in _ATTN:
+        y, _ = attn.attention_prefill(p["attn"], cfg, h, positions, cache,
                                       window=_window(cfg, btype))
-    return _ffn_half(cfg, p, x + y), cache
+    else:
+        mixer = ssm_lib.mamba2_forward if btype == "mamba2" else \
+            rglru_lib.rglru_forward
+        y, new = mixer(p["mixer"], cfg, h, return_cache=True)
+        _store(cache, new)
+    return _second_half(cfg, btype, p, x + y)[0]
 
 
 def prefill(
@@ -183,12 +224,11 @@ def prefill(
     """Full-sequence forward that also populates the decode cache.
 
     Returns (last-position logits (B, 1, V...), cache)."""
-    _require_ported(cfg)
     x = _embed(cfg, params, tokens, patches)
     positions = torch.arange(x.shape[1], device=x.device)
     cache = init_cache(cfg, x.shape[0], max_len, device=x.device)
     for btype, p, c in _layers(cfg, params, cache):
-        x, _ = _block_prefill(cfg, btype, p, x, positions, c)
+        x = _block_prefill(cfg, btype, p, x, positions, c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], cfg, x[:, -1:]), cache
 
@@ -197,31 +237,47 @@ def prefill(
 # decode
 # ---------------------------------------------------------------------------
 
+def _block_cache_init(cfg: ModelConfig, btype: str, batch: int, max_len: int,
+                      dev: torch.device, lead: tuple[int, ...] = ()) -> Params:
+    if btype in _ATTN:
+        return attn.kv_cache_init(cfg, batch, max_len, _window(cfg, btype),
+                                  device=dev, lead=lead)
+    if btype == "mamba2":
+        return ssm_lib.mamba2_cache_init(cfg, batch, device=dev, lead=lead)
+    if btype == "rglru":
+        return rglru_lib.rglru_cache_init(cfg, batch, device=dev, lead=lead)
+    raise ValueError(f"unknown block type {btype!r}")
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> Params:
     """Decode cache, stacked over groups like the params."""
-    _require_ported(cfg)
     dev = resolve_device(device)
     return {
         "blocks": {
-            f"p{i}": attn.kv_cache_init(cfg, batch, max_len, _window(cfg, btype),
-                                        device=dev, lead=(cfg.num_groups,))
+            f"p{i}": _block_cache_init(cfg, btype, batch, max_len, dev,
+                                       (cfg.num_groups,))
             for i, btype in enumerate(cfg.block_pattern)
         },
         "rem": {
-            f"r{i}": attn.kv_cache_init(cfg, batch, max_len, _window(cfg, btype),
-                                        device=dev)
+            f"r{i}": _block_cache_init(cfg, btype, batch, max_len, dev)
             for i, btype in enumerate(cfg.remainder_blocks)
         },
     }
 
 
 def _block_decode(cfg: ModelConfig, btype: str, p: Params, x: Tensor, cache,
-                  cache_len: int, pos: int | None = None):
+                  cache_len: int, pos: int | None = None) -> Tensor:
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    y, cache = attn.attention_decode(p["attn"], cfg, h, cache, cache_len,
+    if btype in _ATTN:
+        y, _ = attn.attention_decode(p["attn"], cfg, h, cache, cache_len,
                                      window=_window(cfg, btype), pos=pos)
-    return _ffn_half(cfg, p, x + y), cache
+    else:
+        mixer = ssm_lib.mamba2_decode if btype == "mamba2" else \
+            rglru_lib.rglru_decode
+        y, new = mixer(p["mixer"], cfg, h, cache)
+        _store(cache, new)
+    return _second_half(cfg, btype, p, x + y)[0]
 
 
 def decode_step(
@@ -234,9 +290,8 @@ def decode_step(
 ) -> tuple[Tensor, Params]:
     """One-token decode.  Returns (logits (B, 1, V...), the cache), which
     is updated in place (the reference returns a new one)."""
-    _require_ported(cfg)
     x = embed_tokens(params["embed"], cfg, tokens)
     for btype, p, c in _layers(cfg, params, cache):
-        x, _ = _block_decode(cfg, btype, p, x, c, cache_len, pos)
+        x = _block_decode(cfg, btype, p, x, c, cache_len, pos)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], cfg, x), cache

@@ -1,6 +1,6 @@
 """The port's serving engine on the CPU against the JAX package: greedy
-generation gives identical tokens on the attention-only smoke configs, and
-top-k sampling draws only from the top k."""
+generation gives identical tokens on the smoke configs of every block
+type, and top-k sampling draws only from the top k."""
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +21,8 @@ from repro_torch.serve.engine import _sample
 
 ATTN_ARCHS = ["llama3.2-3b", "qwen3-4b", "qwen2-7b", "starcoder2-3b",
               "musicgen-large", "internvl2-76b"]
+BLOCK_ARCHS = ["olmoe-1b-7b", "llama4-maverick-400b-a17b", "mamba2-780m",
+               "recurrentgemma-2b"]
 
 
 def _prompt(cfg, B, S, seed=5):
@@ -51,6 +53,25 @@ def test_greedy_generate_matches_jax(arch):
     assert got.shape == want.shape
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert cache["blocks"]["p0"]["k"].shape[2] == 32
+
+
+@pytest.mark.parametrize("arch", BLOCK_ARCHS)
+def test_greedy_generate_matches_jax_on_the_other_block_types(arch):
+    """Experts, Mamba2 and the RG-LRU hybrid: the JAX engine's greedy
+    tokens, and a cache with the block types' own states."""
+    jcfg, tcfg = jax_configs.smoke(arch), configs.smoke(arch)
+    params = jax.tree.map(np.asarray, jax_init_params(jax.random.PRNGKey(3), jcfg))
+    toks, _ = _prompt(jcfg, 3, 10)
+    want, _ = JaxEngine(jcfg, jax.tree.map(jnp.asarray, params),
+                        JaxServeConfig(max_len=32)).generate(jnp.asarray(toks), 12)
+    eng = Engine(tcfg, model_params_from_numpy(params, tcfg, device="cpu"),
+                 ServeConfig(max_len=32), device="cpu")
+    got, cache = eng.generate(torch.from_numpy(toks).long(), 12)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    names = {name for c in cache["blocks"].values() for name in c}
+    assert names == ({"conv", "ssm"} if arch == "mamba2-780m" else
+                     {"conv", "h", "k", "v"} if arch == "recurrentgemma-2b" else
+                     {"k", "v"})
 
 
 def test_argmax_takes_the_first_maximum():
@@ -102,3 +123,20 @@ def test_launch_serve_smoke_on_cpu(capsys):
                            "--batch", "2", "--prompt-len", "8", "--gen", "4"]) == 0
     out = capsys.readouterr().out
     assert "generated (2, 4) tokens" in out and "on cpu" in out
+
+
+@pytest.mark.parametrize("arch", BLOCK_ARCHS)
+def test_launch_serve_smoke_on_cpu_other_block_types(capsys, arch):
+    assert serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu",
+                           "--batch", "2", "--prompt-len", "8", "--gen", "4"]) == 0
+    out = capsys.readouterr().out
+    assert "generated (2, 4) tokens" in out and "on cpu" in out
+
+
+def test_launch_serve_kv_budget_needs_attention_layers():
+    """``--kv-budget`` prunes attention caches; mamba2 has none, and the
+    reference's ``pooled_keys`` asserts as the port raises."""
+    with pytest.raises(ValueError, match="no attention layers"):
+        serve_cli.main(["--arch", "mamba2-780m", "--smoke", "--device", "cpu",
+                        "--batch", "2", "--prompt-len", "8", "--gen", "4",
+                        "--kv-budget", "4"])

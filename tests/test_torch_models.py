@@ -1,7 +1,9 @@
 """The port's LM stack on the CPU against the JAX package: every layer, then
 ``prefill`` (logits and the whole cache), ``decode_step`` and ``forward``
-of the attention-only smoke configs, on the same numpy-made parameters
-carried across with ``model_params_from_numpy``."""
+(logits and the MoE aux loss) of the smoke configs of every block type,
+on the same numpy-made parameters carried across with
+``model_params_from_numpy``; and prefill seeding decode in the port
+alone."""
 
 import dataclasses
 
@@ -17,7 +19,7 @@ from repro.models import layers as jlayers
 from repro.models.config import ModelConfig as JaxModelConfig
 from repro_torch import configs
 from repro_torch.convert import cache_from_numpy, model_params_from_numpy
-from repro_torch.models import decode_step, forward, init_params, prefill
+from repro_torch.models import decode_step, forward, init_cache, init_params, prefill
 from repro_torch.models import layers
 
 # The six attention-only smoke configs, and two with sliding-window blocks
@@ -27,8 +29,11 @@ from repro_torch.models import layers
 ATTN_ARCHS = ["llama3.2-3b", "qwen3-4b", "qwen2-7b", "starcoder2-3b",
               "musicgen-large", "internvl2-76b"]
 LOCAL = {"local-window-6": 6, "local-window-16": 16}
-UNPORTED = {"olmoe-1b-7b": "attn_moe", "llama4-maverick-400b-a17b": "attn_moe",
-            "mamba2-780m": "mamba2", "recurrentgemma-2b": "rglru"}
+# The other block types: experts (top-k and, with the shared expert, top-1),
+# Mamba2 SSD, and the RG-LRU / local-attention hybrid (a local window of 8
+# shorter than the prompt, two rglru layers in the unrolled tail).
+BLOCK_ARCHS = ["olmoe-1b-7b", "llama4-maverick-400b-a17b", "mamba2-780m",
+               "recurrentgemma-2b"]
 
 
 def _cfgs(arch):
@@ -178,7 +183,7 @@ def _both(arch, B=2, S=12, max_len=20):
     return jcfg, tcfg, params, tparams, toks, patches
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS + list(LOCAL))
+@pytest.mark.parametrize("arch", ATTN_ARCHS + list(LOCAL) + BLOCK_ARCHS)
 def test_prefill_logits_and_cache_match_jax(arch):
     jcfg, tcfg, params, tparams, toks, patches = _both(arch)
     jp = jax.tree.map(jnp.asarray, params)
@@ -196,15 +201,17 @@ def test_prefill_logits_and_cache_match_jax(arch):
         _close(g, w)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS + list(LOCAL))
+@pytest.mark.parametrize("arch", ATTN_ARCHS + list(LOCAL) + BLOCK_ARCHS)
 def test_decode_steps_and_forward_match_jax(arch):
     """Three decode steps from the JAX prefill's cache (carried across with
-    cache_from_numpy), each step's logits and cache against JAX; then the
-    full forward's logits."""
+    cache_from_numpy, each leaf in its own dtype), each step's logits and
+    cache against JAX; then the full forward's logits and aux loss."""
     jcfg, tcfg, params, tparams, toks, patches = _both(arch)
     jp = jax.tree.map(jnp.asarray, params)
     _, jcache = jdec.prefill(jcfg, jp, jnp.asarray(toks), _j(patches), max_len=20)
     cache = cache_from_numpy(_np_tree(jcache), device="cpu")
+    for w, g in zip(jax.tree.leaves(_np_tree(jcache)), jax.tree.leaves(cache)):
+        assert str(g.dtype)[6:] == str(w.dtype)
     rng = np.random.default_rng(4)
     S = toks.shape[1]
     for n in range(S, S + 3):
@@ -216,10 +223,12 @@ def test_decode_steps_and_forward_match_jax(arch):
         _close(got, want)
         for w, g in zip(jax.tree.leaves(_np_tree(jcache)), jax.tree.leaves(cache)):
             _close(g, w)
-    want, _ = jdec.forward(jcfg, jp, jnp.asarray(toks), _j(patches))
+    want, want_aux = jdec.forward(jcfg, jp, jnp.asarray(toks), _j(patches))
     got, aux = forward(tcfg, tparams, _t(toks).long(), _t(patches))
     _close(got, want)
-    assert float(aux) == 0.0
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    _close(aux, want_aux)
+    assert (float(aux) > 0) == (jcfg.num_experts > 0)
     got_last, _ = forward(tcfg, tparams, _t(toks).long(), _t(patches),
                           logits_slice=1)
     _close(got_last, np.asarray(want)[:, -1:])
@@ -273,22 +282,43 @@ def test_config_copies_are_identical():
         "qwen3-4b").param_count()
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_block_types_raise(arch):
-    jcfg, tcfg = jax_configs.smoke(arch), configs.smoke(arch)
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
-        init_params(torch.Generator(), tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model_params_from_numpy(_np_params(jcfg), tcfg, device="cpu")
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    for call in (lambda: forward(tcfg, {}, toks),
-                 lambda: prefill(tcfg, {}, toks, max_len=8),
-                 lambda: decode_step(tcfg, {}, toks[:, :1], {}, 4)):
-        with pytest.raises(NotImplementedError):
-            call()
+def test_np_params_reach_the_zero_initialised_leaves():
+    """The reference initialises the RG-LRU gates, the conv biases and the
+    QKV biases to zero: the parity tests' draws must make them non-zero, or
+    those paths go untested."""
+    for arch, names in (("recurrentgemma-2b", ("gate_a_w", "gate_a_b",
+                                               "gate_i_w", "gate_i_b", "conv_b")),
+                        ("mamba2-780m", ("conv_b",))):
+        mixer = _np_params(jax_configs.smoke(arch))["blocks"]["p0"]["mixer"]
+        for name in names:
+            assert np.abs(mixer[name]).min() > 0, (arch, name)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", BLOCK_ARCHS)
+def test_prefill_seeds_decode(arch):
+    """The port against itself, as the reference's test_prefill_seeds_decode
+    holds the JAX package (5e-3): prefill's logits equal the forward's last
+    position; one decode step from the prefilled cache equals the same step
+    after decoding the prompt token by token from an empty cache, and the
+    forward over S + 1 tokens."""
+    _, tcfg, _, tparams, toks, _ = _both(arch, S=16, max_len=24)
+    t = torch.from_numpy(toks).long()
+    B, S = t.shape
+    pre, cache = prefill(tcfg, tparams, t, max_len=24)
+    full, _ = forward(tcfg, tparams, t)
+    assert float((pre - full[:, -1:]).abs().max()) < 5e-3
+    nxt = pre.argmax(-1)
+    step_a, _ = decode_step(tcfg, tparams, nxt, cache, S)
+    cache2 = init_cache(tcfg, B, 24, device="cpu")
+    for i in range(S):
+        _, cache2 = decode_step(tcfg, tparams, t[:, i:i + 1], cache2, i)
+    step_b, _ = decode_step(tcfg, tparams, nxt, cache2, S)
+    assert float((step_a - step_b).abs().max()) < 5e-3
+    longer, _ = forward(tcfg, tparams, torch.cat([t, nxt], 1), logits_slice=1)
+    assert float((step_a - longer).abs().max()) < 5e-3
+
+
+@pytest.mark.parametrize("arch", ATTN_ARCHS + BLOCK_ARCHS)
 def test_init_params_shapes_match_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     want = jax.eval_shape(lambda: jdec.init_params(jax.random.PRNGKey(0), jcfg))
@@ -297,5 +327,7 @@ def test_init_params_shapes_match_jax(arch):
         jax.tree.map(lambda t: 0, got))
     for w, g in zip(jax.tree.leaves(want), jax.tree.leaves(got)):
         assert tuple(g.shape) == w.shape and str(g.dtype)[6:] == str(w.dtype)
-    w = got["blocks"]["p0"]["attn"]["w_q"]
+    p0 = got["blocks"]["p0"]
+    w = p0["attn"]["w_q"] if "attn" in p0 else p0["mixer"]["w_x" if "w_x" in
+                                                           p0["mixer"] else "w_in_zx"]
     assert abs(float(w.std()) * np.sqrt(tcfg.d_model) - 1.0) < 0.1
