@@ -2059,6 +2059,16 @@ def flash_sweep(errs: dict) -> None:
           f"{FLASH_WORST[0]:.4f} of its tolerance", flush=True)
 
 
+def flash_bound(nbytes: float, pairs: float, hd: int) -> tuple[float, str, str]:
+    """The least time for the flash function on bf16 inputs: one
+    exponential a (q, k) pair the mask keeps, QKᵀ on the bf16 tensor cores
+    (exact products, float32 sums) and P·V as TC_PARTS bf16 products (P
+    kept in float32), against one read of q, k, v and one write of o."""
+    from repro_torch.kernels.flash_attention import TC_PARTS
+
+    return bound(nbytes, sfu=pairs, bf16_tc=(2 + 2 * TC_PARTS) * pairs * hd)
+
+
 @contextlib.contextmanager
 def plain_attention(seen: list | None = None):
     """The LM path's attention through the plain version on the card (the
@@ -2206,48 +2216,98 @@ def _serve(cfg, params, B: int, S: int, NEW: int) -> dict:
             "tokens_per_s": B * (NEW - 1) / decode_s, "peak_gib": peak}
 
 
+@contextlib.contextmanager
+def routing(chosen: list, replay: bool):
+    """Every MoE layer's expert picks, in the order the layers route:
+    recorded into ``chosen``, or replayed from it (each layer then gates
+    its own probabilities at the replayed picks)."""
+    import repro_torch.models.moe as moe_lib
+
+    real, picks = moe_lib.top_k, iter(chosen)
+
+    def top_k(x, k):
+        if replay:
+            idx = next(picks)
+            return x.gather(-1, idx), idx
+        vals, idx = real(x, k)
+        chosen.append(idx)
+        return vals, idx
+
+    moe_lib.top_k = top_k
+    try:
+        yield
+    finally:
+        moe_lib.top_k = real
+    check(not replay or next(picks, None) is None,
+          "the replay routed fewer layers than the recording")
+
+
 def _plain_route(cfg, params, prompts, toks, step_logits, max_len: int,
-                 seen: list | None = None) -> tuple[float, list]:
+                 seen: list | None = None) -> float:
     """The same weights with attention through the plain version, fed the
     kernel route's tokens: logits at every step held by ``_logits_close``.
-    With experts only the prefill's are held: decode reads each route's
-    own cache, and a near-tie routing flip in the prefill (``_lockstep``
-    shows each) moves a pair to another expert and shifts which pairs
-    capacity drops, a discrete change in the cached keys and values of
-    those tokens; the decode steps' differences are returned.  Returns
-    (largest held error, the unheld steps' errors) relative to
+    With experts, the kernel route runs again recording every layer's
+    picks and the plain route replays them (``routing``), so both dispatch
+    the same pairs: a near-tie flip (``_lockstep`` shows each) would
+    otherwise move a pair to another expert and shift which pairs capacity
+    drops, a discrete change.  Returns the largest error relative to
     max|logits|."""
     from repro_torch.models import decode_step, prefill
 
     S = prompts.shape[1]
-    moe_model = "attn_moe" in cfg.block_pattern
-    with plain_attention(seen):
-        p_logits, p_cache = prefill(cfg, params, prompts, max_len=max_len)
-        rel = _logits_close(step_logits[0], p_logits,
-                            f"{cfg.name} prefill, kernel vs plain")
-        step_rel = []
+
+    def steps():
+        logits, cache = prefill(cfg, params, prompts, max_len=max_len)
+        yield logits
         for i in range(len(toks) - 1):
-            p_logits, p_cache = decode_step(cfg, params, toks[i], p_cache, S + i)
-            what = f"{cfg.name} decode step {i + 1}, kernel vs plain"
-            if moe_model:
-                check(bool(torch.isfinite(step_logits[i + 1]).all()),
-                      f"{what}: non-finite logits")
-                step_rel.append(float((step_logits[i + 1] - p_logits).abs().max())
-                                / float(p_logits.abs().max()))
-            else:
-                rel = max(rel, _logits_close(step_logits[i + 1], p_logits, what))
-    del p_cache
+            logits, cache = decode_step(cfg, params, toks[i], cache, S + i)
+            yield logits
+
+    chosen, moe_model = [], "attn_moe" in cfg.block_pattern
     if moe_model:
-        print(f"{cfg.name} plain route (attention through the plain version, the "
-              f"kernel route's tokens): prefill logits agree, err {rel:.4g} of "
-              f"max|logits|; decode steps from each route's own cache (not held: "
-              f"routing flips): {', '.join(f'{r:.4g}' for r in step_rel)}",
-              flush=True)
-    else:
-        print(f"{cfg.name} plain route (attention through the plain version, the "
-              f"kernel route's tokens): logits agree at every step, max err "
-              f"{rel:.4g} of max|logits|", flush=True)
-    return rel, step_rel
+        with routing(chosen, replay=False):
+            step_logits = list(steps())
+    with plain_attention(seen), (routing(chosen, replay=True) if moe_model
+                                 else contextlib.nullcontext()):
+        rel = max(_logits_close(got, want, f"{cfg.name} step {i} (0: the prefill), "
+                                "kernel vs plain")
+                  for i, (got, want) in enumerate(zip(step_logits, steps())))
+    print(f"{cfg.name} plain route (attention through the plain version, the "
+          f"kernel route's tokens{', its expert picks replayed' if moe_model else ''}"
+          f"): logits agree at every step, max err {rel:.4g} of max|logits|",
+          flush=True)
+    return rel
+
+
+def _params_on_card(cfg) -> tuple[dict, int]:
+    """Full-size float32 parameters made on the card from seed 0, held to
+    the config's count: the config estimates the weight matrices (the
+    leaves of two or more axes) and the final norm and leaves out the other
+    norm scales, biases and per-channel vectors, so the matrices are held
+    to it within 1e-3 (mamba2-780m's conv taps are the most it leaves out,
+    8.2e-4).  Returns (params, every parameter's count)."""
+    from repro_torch.models import init_params
+    from repro_torch.models.decoder import _layers
+    from repro_torch.models.layers import tree_leaves
+
+    t = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t
+    n_params = sum(t_.numel() for t_ in tree_leaves(params))
+    n_mat = sum(t_.numel() for t_ in tree_leaves(params["embed"]) if t_.dim() >= 2)
+    n_mat += sum(t_.numel() for _, p, _ in _layers(cfg, params)
+                 for t_ in tree_leaves(p) if t_.dim() >= 2)
+    est = cfg.param_count() - cfg.d_model
+    print(f"{cfg.name}: {cfg.num_layers} layers {cfg.layer_types[:3]}..., d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV heads x "
+          f"{cfg.head_dim}, vocab {cfg.vocab_size}: {n_params} parameters "
+          f"({cfg.param_dtype}, {n_params * 4 / 2**30:.2f} GiB; compute "
+          f"{cfg.compute_dtype}) made on the card in {made_s:.2f} s; weight "
+          f"matrices {n_mat}, the config's estimate {est} "
+          f"({n_mat / est - 1:.3g} off)", flush=True)
+    check(abs(n_mat / est - 1) < 1e-3, f"{cfg.name}: the parameters are not the config's")
+    return params, n_params
 
 
 def lm_path(errs: dict) -> dict:
@@ -2260,23 +2320,11 @@ def lm_path(errs: dict) -> dict:
     from repro_torch.kernels import (attention_ref, attention_split_p_ref,
                                      flash_attention_kernel)
     from repro_torch.kernels.flash_attention import TC_PARTS, _launch
-    from repro_torch.models import forward, init_params
-    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models import forward
 
     cfg = configs.get(LM_ARCH)
     B, S, NEW = LM_B, LM_S, LM_NEW
-    t = time.perf_counter()
-    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
-    torch.cuda.synchronize()
-    n_params = sum(t_.numel() for t_ in tree_leaves(params))
-    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV heads x {cfg.head_dim}, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n_params} parameters "
-          f"({cfg.param_dtype}, compute {cfg.compute_dtype}) made on the card in "
-          f"{time.perf_counter() - t:.2f} s (the config counts "
-          f"{cfg.param_count()}, norm scales aside)", flush=True)
-    check(abs(n_params / cfg.param_count() - 1) < 1e-3,
-          "the parameters are not the config's")
+    params, _ = _params_on_card(cfg)
     run = _serve(cfg, params, B, S, NEW)
     check(run["n_attn"] == cfg.num_layers and run["route"] == "tc",
           "qwen3-4b: every layer's attention on the tensor-core route")
@@ -2348,15 +2396,13 @@ def lm_path(errs: dict) -> dict:
     lib_ms = kernel_ms(lambda: sdpa(qx, kx, vx, is_causal=True), 20)[1].ms
 
     def flash_bounds(b, s):
-        # One exponential a causal (q, k) pair.  The tensor-core design: QKᵀ
-        # on bf16 q, k (exact products, float32 sums) and P·V as TC_PARTS
-        # bf16 products, all at the tensor cores' rate.  Yardsticks: the
-        # FFMA design (P·V on the CUDA cores) and both products once on the
+        # ``flash_bound`` over the causal pairs.  Yardsticks: the FFMA
+        # design (P·V on the CUDA cores) and both products once on the
         # tensor cores (P rounded once: a different result).
         pairs = b * H * s * (s + 1) / 2
         nbytes = (2 * b * s * H * hd + 2 * b * s * KV * hd) * q.element_size()
         check(q.dtype == torch.bfloat16, "flash_bounds count bfloat16 inputs")
-        tc = bound(nbytes, sfu=pairs, bf16_tc=(2 + 2 * TC_PARTS) * pairs * hd)
+        tc = flash_bound(nbytes, pairs, hd)
         ffma_design = bound(nbytes, ffma=pairs * hd, sfu=pairs,
                             bf16_tc=2 * pairs * hd)[0]
         return tc, ffma_design, 4 * pairs * hd / BF16_TENSOR_FLOPS_PER_S * 1e3
@@ -2447,31 +2493,37 @@ FAMILY_NEW = 32
 SEED_DECODE_TOL = 5e-3
 
 
-def _route_flips(label: str, probs_k, probs_p, K: int) -> tuple[int, list]:
+def _route_flips(label: str, logits_k, logits_p, K: int) -> tuple[int, list]:
     """The kernel route's and the plain route's top-K experts of every token
-    (float32 probabilities (T, E), one layer): the tokens whose sets differ,
-    each with the plain route's probability gap between the two experts it
-    swaps and the largest probability difference of the token between the
-    routes, delta.  A swap is a near tie: its gap is within 2 delta (the
-    routes order the pair differently, so it cannot be wider) and delta is
-    within the bf16 tolerance of the token's largest probability (the
-    routes' inputs differ by bf16 roundings only)."""
+    of one layer (router logits (T, E): bf16 values in float32; the picks
+    are ``_route``'s, on their softmax): the tokens whose sets differ.  A
+    swap must be a near tie: on each route the logits of the experts it
+    swaps are equal or adjacent bf16 values (the widest gap between one it
+    picks and one it passes over at most one bf16 spacing at their
+    magnitude), so one rounding of the logits explains it.  Returns each
+    swap's (token, plain gap, kernel gap) in bf16 spacings."""
     from repro_torch.models.moe import top_k
 
-    set_k = top_k(probs_k, K)[1].sort(-1).values
-    set_p = top_k(probs_p, K)[1].sort(-1).values
+    set_k = top_k(torch.softmax(logits_k, -1), K)[1].sort(-1).values
+    set_p = top_k(torch.softmax(logits_p, -1), K)[1].sort(-1).values
     diff = (set_k != set_p).any(-1).nonzero()[:, 0].tolist()
+
+    def spacings(lg, hi, lo):
+        # the widest gap between a picked (hi) and a passed-over (lo)
+        # expert, in bf16 spacings at the largest magnitude among them
+        mag = float(lg[hi + lo].abs().max())
+        return float(lg[hi].max() - lg[lo].min()) / 2.0 ** (math.floor(math.log2(mag)) - 7)
+
     gaps = []
     for t in diff:
         a = sorted(set(set_k[t].tolist()) - set(set_p[t].tolist()))
         b = sorted(set(set_p[t].tolist()) - set(set_k[t].tolist()))
-        pk, pp = probs_k[t].double(), probs_p[t].double()
-        delta = float((pk - pp).abs().max())
-        gap = float(pp[b].min() - pp[a].max())
-        check(gap <= 2 * delta + 1e-12 and delta <= TOL[torch.bfloat16] * float(pp.max()),
+        g_p, g_k = spacings(logits_p[t], b, a), spacings(logits_k[t], a, b)
+        check(max(g_p, g_k) <= 1,
               f"{label}: token {t} takes experts {a} on the kernel route, {b} on "
-              f"the plain: gap {gap:.3g}, delta {delta:.3g} is no near tie")
-        gaps.append((t, gap, delta))
+              f"the plain: gaps {g_p:.3g} (plain), {g_k:.3g} (kernel) bf16 "
+              "spacings is no near tie")
+        gaps.append((t, g_p, g_k))
     return len(diff), gaps
 
 
@@ -2517,21 +2569,22 @@ def _lockstep(cfg, params, prompts, errs: dict) -> dict:
         x_k = x + o_k.reshape(B, S, cfg.q_dim) @ p["attn"]["w_o"].to(cdt)
         if btype == "attn_moe":
             x_p = x + o_p.reshape(B, S, cfg.q_dim) @ p["attn"]["w_o"].to(cdt)
-            probs = []
+            logits = []
             for xr in (x_k, x_p):
                 h2 = rmsnorm(p["ln2"], xr, cfg.norm_eps).reshape(B * S, -1)
-                probs.append(torch.softmax(
-                    (h2.to(cdt) @ p["moe"]["router"].to(cdt)).float(), dim=-1))
-            flips, gaps = _route_flips(f"{cfg.name} layer {i}", *probs, cfg.top_k)
-            top = moe_lib.top_k(probs[0], cfg.top_k)[1].reshape(B, S, -1)
+                logits.append((h2.to(cdt) @ p["moe"]["router"].to(cdt)).float())
+            flips, gaps = _route_flips(f"{cfg.name} layer {i}", *logits, cfg.top_k)
+            top = moe_lib.top_k(torch.softmax(logits[0], -1),
+                                cfg.top_k)[1].reshape(B, S, -1)
             keys = moe_lib.dispatch_keys(top, cfg.num_experts, C)
             row.update(dropped=int((keys == cfg.num_experts * C).sum()),
-                       flips=flips, gaps=[g for _, g, _ in gaps])
+                       flips=flips, gaps=[[g_p, g_k] for _, g_p, g_k in gaps])
             moe_line = (f"; (token, k) pairs dropped by capacity (C = {C}) "
                         f"{row['dropped']} of {B * S * cfg.top_k}; tokens routed "
                         f"differently by the two routes {flips}"
-                        + "".join(f"; token {t} gap {g:.3g} (delta {d:.3g})"
-                                  for t, g, d in gaps[:4]))
+                        + "".join(f"; token {t} gaps {g_p:.3g}, {g_k:.3g}"
+                                  for t, g_p, g_k in gaps[:4])
+                        + (" (bf16 spacings: plain, kernel)" if gaps else ""))
         print(f"  layer {i} ({btype}): attention err {err:.4g}"
               + (moe_line if btype == "attn_moe" else ""), flush=True)
         layers.append(row)
@@ -2572,45 +2625,45 @@ def _ffma_at_shape(cfg, q, k, v, window: int, errs: dict) -> dict:
     check(err_lib <= TOL[torch.bfloat16] * float(v.float().abs().max()),
           f"flash at {cfg.name}'s shape vs the library: err {err_lib}")
     lib_ms = kernel_ms(lambda: sdpa(qx, kx, vx, attn_mask=mask), 5)[1].ms
-    # each query reads min(i + 1, window) keys: 2 hd FFMAs (Q.K, P.V) and
-    # one exponential a pair; q, k, v read once and o written once
+    # each query reads min(i + 1, window) keys.  The bound is the
+    # function's on bf16 inputs (``flash_bound``); the FFMA design's own,
+    # 2 hd FFMAs (Q.K, P.V) and one exponential a pair, is a yardstick.
     pairs = B * H * sum(min(j + 1, window) for j in range(S))
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    b_ms, b_by, b_pipe = bound(nbytes, ffma=2 * pairs * hd, sfu=pairs)
+    check(q.dtype == torch.bfloat16, "flash_bound counts bfloat16 inputs")
+    b_ms, b_by, b_pipe = flash_bound(nbytes, pairs, hd)
+    ffma_design = bound(nbytes, ffma=2 * pairs * hd, sfu=pairs)[0]
     share = b_ms / ms.ms
     check(share <= 1.05, f"flash (FFMA) runs at {share:.3f} of its bound")
     print(f"flash_attention (FFMA route) at {cfg.name}'s shape (B={B}, S={S}, "
           f"H={H}, KV={KV}, hd={hd}, {str(q.dtype)[6:]}, window {window}; "
           f"{CARD[0]}): {ms.ms:.4f} ms per launch ({fmt_windows(ms)}), bound "
-          f"{b_ms:.4f} ms ({b_by}: {b_pipe}), share {share:.4f}; plain "
+          f"{b_ms:.4f} ms ({b_by}: {b_pipe}), share {share:.4f}; the FFMA design's "
+          f"bound {ffma_design:.4f} ms; plain "
           f"{plain_ms:.4f} ms; library (scaled_dot_product_attention, the window "
           f"as a boolean mask, P rounded once) {lib_ms:.4f} ms; flip rate against "
           f"the plain version {flips:.6f}; vs plain err {err:.3g}, vs the library "
           f"{err_lib:.3g}", flush=True)
     return {"ms": ms.ms, "windows": ms.windows, "bound_ms": b_ms, "bound_by": b_by,
-            "pipe": b_pipe, "share_of_bound": share, "plain_ms": plain_ms,
+            "pipe": b_pipe, "share_of_bound": share,
+            "ffma_design_bound_ms": ffma_design, "plain_ms": plain_ms,
             "library_ms": lib_ms, "flip_rate": flips, "max_abs_err": err,
             "shape": [B, S, H, KV, hd], "window": window}
 
 
-def _seeds_decode(cfg, params, prompts, toks, step_logits, label: str) -> dict:
+def _seeds_decode(cfg, params, prompts, toks, label: str) -> dict:
     """Decode seeded by the prefill against the forward over S + n tokens,
-    for the first 2 decode steps: the served bf16 run at the LM path's rule
-    (3e-2 of max|logits|), and the same weights with float32 compute (the
-    reference's own setting) at ``SEED_DECODE_TOL``."""
+    for the first 2 decode steps, with float32 compute (the reference's own
+    setting) at ``SEED_DECODE_TOL``."""
     import dataclasses
 
     from repro_torch.models import decode_step, forward, prefill
 
     S = prompts.shape[1]
-    longer = torch.cat([prompts, toks[0], toks[1]], 1)
-    full, _ = forward(cfg, params, longer, logits_slice=2)
-    rel16 = max(_logits_close(step_logits[n + 1], full[:, n:n + 1],
-                              f"{label} decode step {n + 1} vs forward")
-                for n in range(2))
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     logits, cache = prefill(cfg32, params, prompts, max_len=S + 8)
-    full32, _ = forward(cfg32, params, longer, logits_slice=3)
+    full32, _ = forward(cfg32, params, torch.cat([prompts, toks[0], toks[1]], 1),
+                        logits_slice=3)
     steps = [logits]
     for n in range(2):
         lg, cache = decode_step(cfg32, params, toks[n], cache, S + n)
@@ -2623,10 +2676,10 @@ def _seeds_decode(cfg, params, prompts, toks, step_logits, label: str) -> dict:
           f"{label}: float32 prefill and decode vs the forward err {errs32}, not "
           f"under {SEED_DECODE_TOL}")
     print(f"{label}: decode seeded by the prefill vs the forward over S + n "
-          f"tokens, 2 steps: bf16 {rel16:.4g} of max|logits|; float32 compute "
-          f"(prefill, step 1, step 2) max abs err {', '.join(f'{e:.4g}' for e in errs32)} "
-          f"against max|logits| {scale:.4g}", flush=True)
-    return {"bf16_rel": rel16, "float32_abs": errs32, "float32_scale": scale}
+          f"tokens, float32 compute (prefill, step 1, step 2): max abs err "
+          f"{', '.join(f'{e:.4g}' for e in errs32)} against max|logits| {scale:.4g}",
+          flush=True)
+    return {"float32_abs": errs32, "float32_scale": scale}
 
 
 def _family(arch: str, B: int, S: int, errs: dict) -> dict:
@@ -2636,22 +2689,10 @@ def _family(arch: str, B: int, S: int, errs: dict) -> dict:
     (``_plain_route``), the prefill layer by layer, decode seeded by the
     prefill (recurrent families) and a profiled prefill."""
     from repro_torch import configs
-    from repro_torch.models import init_params
-    from repro_torch.models.layers import tree_leaves
 
     cfg = configs.get(arch)
     NEW = FAMILY_NEW
-    t = time.perf_counter()
-    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
-    torch.cuda.synchronize()
-    n_params = sum(t_.numel() for t_ in tree_leaves(params))
-    print(f"{cfg.name}: {cfg.num_layers} layers {cfg.layer_types[:3]}..., d_model "
-          f"{cfg.d_model}, vocab {cfg.vocab_size}: {n_params} parameters "
-          f"({cfg.param_dtype}, {n_params * 4 / 2**30:.2f} GiB; compute "
-          f"{cfg.compute_dtype}) made on the card in {time.perf_counter() - t:.2f} s "
-          f"(the config counts {cfg.param_count()})", flush=True)
-    check(abs(n_params / cfg.param_count() - 1) < 1e-2,
-          f"{cfg.name}: the parameters are not the config's")
+    params, n_params = _params_on_card(cfg)
     run = _serve(cfg, params, B, S, NEW)
     eng, prompts = run["eng"], run["prompts"]
     toks, step_logits = run["toks"], run["step_logits"]
@@ -2661,11 +2702,10 @@ def _family(arch: str, B: int, S: int, errs: dict) -> dict:
                                   "tokens_per_s", "peak_gib")}}
     del run
     if out["n_attn"]:
-        rel, step_rel = _plain_route(cfg, params, prompts, toks, step_logits,
-                                     S + NEW + 8)
+        rel = _plain_route(cfg, params, prompts, toks, step_logits, S + NEW + 8)
         print(f"{cfg.name} layer by layer:", flush=True)
         lock = _lockstep(cfg, params, prompts, errs)
-        out.update(plain_rel=rel, plain_decode_rel=step_rel, layers=lock["layers"],
+        out.update(plain_rel=rel, layers=lock["layers"],
                    capacity=lock["capacity"])
         if out["route"] == "ffma":
             q, k, v, w = lock["first"]
@@ -2674,8 +2714,7 @@ def _family(arch: str, B: int, S: int, errs: dict) -> dict:
     if {"mamba2", "rglru"} & set(cfg.block_pattern):
         # (not olmoe: its prefill drops pairs past capacity, its decode has
         # no capacity, so the two differ by design)
-        out["seeds_decode"] = _seeds_decode(cfg, params, prompts, toks,
-                                            step_logits, cfg.name)
+        out["seeds_decode"] = _seeds_decode(cfg, params, prompts, toks, cfg.name)
     out["profile"] = profile_lm(f"{cfg.name} prefill", lambda: eng.prefill(prompts))
     return out
 

@@ -1,5 +1,5 @@
-"""Shared neural building blocks: init helpers, RMSNorm, RoPE, embeddings,
-SwiGLU FFN.  The counterpart of ``repro/models/layers.py``: parameters are
+"""Shared neural building blocks: init helpers, RMSNorm, the causal
+depthwise conv, RoPE, embeddings, SwiGLU FFN.  The counterpart of ``repro/models/layers.py``: parameters are
 plain nested dicts of tensors, every function is pure.
 
 Dtype policy: parameters are stored in ``cfg.param_dtype``; matmuls run in
@@ -75,6 +75,16 @@ def rmsnorm_headwise(scale: Tensor, x: Tensor, eps: float) -> Tensor:
     xf = x.float()
     rms = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * rms).to(dt) * scale.to(dt)
+
+
+def causal_conv(x: Tensor, w: Tensor, b: Tensor, state: Tensor | None = None):
+    """Causal depthwise conv over (B, S, C) with kernel (W, C); ``state``
+    (B, W-1, C) is the carry-in (zeros when None).  Returns (out, the carry
+    out: the last W - 1 inputs, left-padded with zeros when S < W - 1)."""
+    W, S = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, W - 1, 0)) if state is None else torch.cat([state, x], 1)
+    out = sum(xp[:, i:i + S, :] * w[i] for i in range(W))
+    return out + b, xp[:, xp.shape[1] - (W - 1):, :]
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Params, dense_init, dtype_of
+from repro_torch.models.layers import Params, causal_conv, dense_init, dtype_of
 
 Tensor = torch.Tensor
 
@@ -74,15 +74,6 @@ def _gates(p: Params, u: Tensor):
     return a, b
 
 
-def _conv(x: Tensor, w: Tensor, b: Tensor, state: Tensor | None = None):
-    """Causal depthwise conv over (B, S, dr); ``state`` (B, W-1, dr) is the
-    carry-in (zeros when None).  Returns (out, the new state)."""
-    W, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, W - 1, 0)) if state is None else torch.cat([state, x], 1)
-    out = sum(xp[:, i:i + S, :] * w[i] for i in range(W))
-    return out + b, xp[:, xp.shape[1] - (W - 1):, :]
-
-
 def linear_scan(a: Tensor, b: Tensor) -> Tensor:
     """h_t = a_t h_{t-1} + b_t along axis 1 from h_{-1} = 0, by doubling:
     after the step of stride d each position holds the composition of its
@@ -110,7 +101,7 @@ def rglru_forward(p: Params, cfg, x: Tensor, return_cache: bool = False):
     x_in = xc @ p["w_x"].to(cdt)
     # the conv's carry-out is the decode cache's conv state, left-padded
     # with zeros when S < W - 1
-    u, tail = _conv(x_in, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
+    u, tail = causal_conv(x_in, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
     a, b = _gates(p, u.float())                           # (B, S, dr)
     h = linear_scan(a, b)
     out = ((h.to(cdt) * y) @ p["w_out"].to(cdt)).to(x.dtype)
@@ -136,8 +127,8 @@ def rglru_decode(p: Params, cfg, x: Tensor, cache: dict) -> tuple[Tensor, dict]:
     cdt = dtype_of(cfg.compute_dtype)
     xc = x.to(cdt)
     y = F.gelu(xc @ p["w_y"].to(cdt), approximate="tanh")  # (B, 1, dr)
-    u, new_conv = _conv(xc @ p["w_x"].to(cdt), p["conv_w"].to(cdt),
-                        p["conv_b"].to(cdt), state=cache["conv"])
+    u, new_conv = causal_conv(xc @ p["w_x"].to(cdt), p["conv_w"].to(cdt),
+                              p["conv_b"].to(cdt), state=cache["conv"])
     a, b = _gates(p, u[:, 0].float())                     # (B, dr)
     h = a * cache["h"] + b
     out = (h[:, None, :].to(cdt) * y) @ p["w_out"].to(cdt)

@@ -21,7 +21,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Params, dense_init, dtype_of, rmsnorm
+from repro_torch.models.layers import (Params, causal_conv, dense_init, dtype_of,
+                                      rmsnorm)
 
 Tensor = torch.Tensor
 
@@ -60,14 +61,6 @@ def mamba2_init(gen: torch.Generator, cfg, lead: tuple[int, ...] = ()) -> Params
     }
 
 
-def _causal_conv(x: Tensor, w: Tensor, b: Tensor) -> Tensor:
-    """Depthwise causal conv over (B, S, C) with kernel (W, C)."""
-    W, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, W - 1, 0))
-    out = sum(xp[:, i:i + S, :] * w[i] for i in range(W))
-    return out + b
-
-
 def _split_proj(p: Params, cfg, u: Tensor):
     """u (B, S, D) -> z, x, bc, dt_raw, all in the compute dtype."""
     cdt = dtype_of(cfg.compute_dtype)
@@ -86,13 +79,6 @@ def _gated_out(p: Params, cfg, y: Tensor, z: Tensor) -> Tensor:
     y = y * F.silu(z.float()).to(y.dtype)
     y = rmsnorm({"scale": p["norm"]}, y, 1e-6)
     return y.to(cdt) @ p["w_out"].to(cdt)
-
-
-def _conv_tail(x: Tensor, W: int) -> Tensor:
-    """The last W - 1 positions of (B, S, C), left-padded with zeros when
-    S < W - 1: the decode cache's conv state."""
-    S = x.shape[1]
-    return x[:, S - (W - 1):] if S >= W - 1 else F.pad(x, (0, 0, W - 1 - S, 0))
 
 
 def chunk_len(cfg, S: int) -> int:
@@ -117,8 +103,11 @@ def mamba2_forward(p: Params, cfg, u: Tensor, return_cache: bool = False):
 
     z, x, bc, dt_raw = _split_proj(p, cfg, u)
     xbc_raw = torch.cat([x, bc], dim=-1)
-    xbc = F.silu(_causal_conv(xbc_raw, p["conv_w"].to(xbc_raw.dtype),
-                              p["conv_b"].to(xbc_raw.dtype)).float())
+    # the conv's carry-out is the decode cache's conv state, left-padded
+    # with zeros when S < W - 1
+    conv_out, tail = causal_conv(xbc_raw, p["conv_w"].to(xbc_raw.dtype),
+                                 p["conv_b"].to(xbc_raw.dtype))
+    xbc = F.silu(conv_out.float())
     x = xbc[..., :di]
     Bm = xbc[..., di:di + g * n]
     Cm = xbc[..., di + g * n:]
@@ -171,8 +160,7 @@ def mamba2_forward(p: Params, cfg, u: Tensor, return_cache: bool = False):
     if not return_cache:
         return out
     cdt = dtype_of(cfg.compute_dtype)
-    return out, {"conv": _conv_tail(xbc_raw, cfg.conv_width).to(cdt),
-                 "ssm": state}
+    return out, {"conv": tail.to(cdt), "ssm": state}
 
 
 # ---------------------------------------------------------------------------
