@@ -15,9 +15,11 @@ ladder) serves queries through that core, behind the facade
 ``repro_torch.api``, with its own telemetry (``repro_torch.obs``); the
 durable streaming tier (``repro_torch.serve.SessionEngine``: a live summary
 per session through row-sieve waves and SS compaction, with a write-ahead
-log, snapshots and crash recovery) sits behind the same facade.  The
-JAX package ``repro`` is the reference it is tested against; this package
-imports nothing of it.
+log, snapshots and crash recovery) sits behind the same facade.  The LMs
+also train (``repro_torch.train``, ``repro_torch.data.Pipeline`` with SS
+selecting each batch, ``launch/train.py``), with attention's gradient
+through a hand-written backward kernel.  The JAX package ``repro`` is the
+reference it is tested against; this package imports nothing of it.
 """
 
 from repro_torch import api, obs

@@ -1,5 +1,6 @@
 """Synthetic corpora matched to the paper's datasets: numpy copies of
-``news_day``, ``video`` and ``clustered_embeddings`` from the JAX package's
+``news_day``, ``video``, ``clustered_embeddings``, ``zipf_tokens``,
+``lm_documents`` and ``hashed_features`` from the JAX package's
 ``repro/data/synthetic.py``, kept here so the port imports nothing of that
 package.  Same seed, same arrays.
 
@@ -8,7 +9,10 @@ with Zipfian token draws and per-day topical clusters: sentences within a
 cluster share a topic distribution, the redundancy SS finds.  ``video`` gives
 SumMe-like frame descriptors (the facility-location objective of the paper's
 video summarization), ``clustered_embeddings`` unit-norm embedding rows for
-the matrix-free facility location.
+the matrix-free facility location.  ``lm_documents`` gives token documents
+for the LM-training coreset stage (a Zipfian stream with planted
+near-duplicates), and ``hashed_features`` the hashed n-gram rows that stage
+selects on.
 """
 
 from __future__ import annotations
@@ -18,6 +22,14 @@ import numpy as np
 
 def _rng(seed) -> np.random.Generator:
     return np.random.default_rng(seed)
+
+
+def zipf_tokens(rng: np.random.Generator, size, vocab: int, a: float = 1.07):
+    """Zipf-distributed token ids in [0, vocab) (rejection-free truncation)."""
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = ranks ** (-a)
+    probs /= probs.sum()
+    return rng.choice(vocab, size=size, p=probs).astype(np.int32)
 
 
 def news_day(
@@ -101,3 +113,55 @@ def clustered_embeddings(
     X = centers[assign] + noise * rng.normal(0, 1, (n, d))
     X /= np.maximum(np.linalg.norm(X, axis=1, keepdims=True), 1e-9)
     return X.astype(np.float32)
+
+
+def lm_documents(
+    seed: int,
+    n_docs: int,
+    doc_len: int,
+    vocab: int,
+    dup_frac: float = 0.3,
+    zipf_a: float = 1.1,
+) -> np.ndarray:
+    """(n_docs, doc_len) int32 token matrix with planted near-duplicates:
+    ``dup_frac`` of the documents are noisy copies of earlier ones (10%
+    token perturbation), the redundancy the SS coreset stage removes."""
+    rng = _rng(seed)
+    n_unique = max(1, int(n_docs * (1.0 - dup_frac)))
+    docs = zipf_tokens(rng, (n_unique, doc_len), vocab, zipf_a)
+    out = np.zeros((n_docs, doc_len), np.int32)
+    out[:n_unique] = docs
+    for i in range(n_unique, n_docs):
+        src = rng.integers(0, n_unique)
+        copy = docs[src].copy()
+        flip = rng.random(doc_len) < 0.1
+        copy[flip] = zipf_tokens(rng, int(flip.sum()), vocab, zipf_a)
+        out[i] = copy
+    perm = rng.permutation(n_docs)
+    return out[perm]
+
+
+def hashed_features(
+    tokens: np.ndarray, n_features: int = 1024, ngram: int = 2
+) -> np.ndarray:
+    """Hashed n-gram count features of token documents: (n, L) int32 ->
+    (n, F) float32, l2-normalized rows.
+
+    One ``bincount`` per n-gram order over all rows at once, in place of the
+    reference's ``np.add.at`` row by row: the counts are small integers,
+    exact in float32 whatever the order they are added in, so the array is
+    the reference's bit for bit."""
+    n, L = tokens.shape
+    W = np.zeros((n, n_features), np.float32)
+    t = tokens.astype(np.int64)
+    rows = np.arange(n, dtype=np.int64)[:, None] * n_features
+    for g in range(1, ngram + 1):
+        h = np.zeros((n, L - g + 1), np.int64)
+        for j in range(g):
+            h = h * 1_000_003 + t[:, j : L - g + 1 + j]
+        h = (h ^ (h >> 13)) * 0x9E3779B1
+        h = np.abs(h) % n_features
+        W += np.bincount((rows + h).ravel(), minlength=n * n_features
+                         ).reshape(n, n_features).astype(np.float32)
+    W /= np.maximum(np.linalg.norm(W, axis=1, keepdims=True), 1e-9)
+    return W

@@ -2,7 +2,13 @@
 
 from repro_torch.kernels._build import KernelError, build, load_library
 from repro_torch.kernels.feature_gains import feature_gains_kernel
-from repro_torch.kernels.flash_attention import flash_attention_kernel, flash_route
+from repro_torch.kernels.flash_attention import (
+    FlashAttentionFn,
+    flash_attention_bwd_kernel,
+    flash_attention_kernel,
+    flash_attention_lse,
+    flash_route,
+)
 from repro_torch.kernels.fl_divergence import (
     GainsPanel,
     fl_divergence_kernel,
@@ -15,6 +21,8 @@ from repro_torch.kernels.fl_stream import (
     fl_stream_gains_kernel,
 )
 from repro_torch.kernels.ref import (
+    attention_bwd_ref,
+    attention_lse_ref,
     attention_ref,
     attention_split_p_ref,
     feature_gains_ref,
@@ -30,9 +38,12 @@ from repro_torch.kernels.sieve_gains import SieveElements, sieve_gains_kernel
 from repro_torch.kernels.ss_weights import ss_divergence_kernel
 
 __all__ = [
+    "FlashAttentionFn",
     "GainsPanel",
     "KernelError",
     "SieveElements",
+    "attention_bwd_ref",
+    "attention_lse_ref",
     "attention_ref",
     "attention_split_p_ref",
     "build",
@@ -46,7 +57,9 @@ __all__ = [
     "fl_stream_divergence_ref",
     "fl_stream_gains_kernel",
     "fl_stream_pair_ref",
+    "flash_attention_bwd_kernel",
     "flash_attention_kernel",
+    "flash_attention_lse",
     "flash_attention_ref",
     "flash_route",
     "load_library",

@@ -150,6 +150,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sieve_gains_launch.restype = i
     lib.flash_attention_launch.argtypes = [
         p, p, p, p,      # q, k, v, out
+        p,               # lse (or NULL): each row's L, (B, H, S) float32
         i, i, i, i, i, i,  # inputs are bf16, B, S, H, KV, head_dim
         *[ll] * 12,      # (batch, seq, head) strides of q, k, v, out
         i, i,            # causal, window
@@ -159,6 +160,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.restype = i
     lib.flash_attention_tc_launch.argtypes = [
         p, p, p, p,      # q, k, v, out (bfloat16)
+        p,               # lse (or NULL): each row's L, (B, H, S) float32
         i, i, i, i, i,   # B, S, H, KV, head_dim
         *[ll] * 12,      # (batch, seq, head) strides of q, k, v, out
         i, i,            # causal, window
@@ -166,6 +168,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,               # stream
     ]
     lib.flash_attention_tc_launch.restype = i
+    lib.flash_attention_bwd_launch.argtypes = [
+        p, p, p, p, p,   # q, k, v, o, dout
+        p, p,            # lse (the forward's L), delta scratch: (B, H, S) float32
+        p, p, p,         # dq, dk, dv
+        i, i, i, i, i, i,  # inputs are bf16, B, S, H, KV, head_dim
+        p,               # 24 int64 (batch, seq, head) strides: q k v o dout dq dk dv
+        i, i,            # causal, window
+        ctypes.c_float,  # scale
+        p,               # stream
+    ]
+    lib.flash_attention_bwd_launch.restype = i
 
 
 def load_library() -> ctypes.CDLL:

@@ -19,7 +19,11 @@
 //   m' = max(m, max_j s), l' = l exp(m - m') + sum_j exp(s - m'),
 //   acc' = acc exp(m - m') + sum_j exp(s - m') V[j].
 // Tiles wholly above the diagonal or outside the window are skipped; the
-// ragged edge past S is masked here, nothing is padded or copied.
+// ragged edge past S is masked here, nothing is padded or copied.  When
+// lse is not null, each row's float32 statistic L = m + log(max(l, 1e-30))
+// (the log of its softmax denominator, which the backward pass in
+// flash_attention_bwd.cu reads) is written to lse[(b H + h) S + i]; O is the
+// same either way.
 //
 // What bounds it on this card: operations.  Each unmasked (i, j) pair costs
 // 2 hd FFMAs (Q.K and P.V) and one exponential, against one read of q, k, v
@@ -104,7 +108,7 @@ __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
 template <typename T, int HD>
 __global__ void __launch_bounds__(NT, HD <= 128 ? 2 : 1) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int H, int G, int S,
+    T* __restrict__ o, float* __restrict__ lse, int H, int G, int S,
     long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh,
@@ -232,19 +236,23 @@ __global__ void __launch_bounds__(NT, HD <= 128 ? 2 : 1) flash_kernel(
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + 4 * ty + i;
     if (qi >= S) continue;
-    const float lse = fmaxf(l[i], 1e-30f);
+    const float den = fmaxf(l[i], 1e-30f);
     T* orow = o + b * osb + qi * oss + h * osh;
 #pragma unroll
     for (int c = 0; c < CV; ++c) {
       const int col = HD >= 64 ? 64 * (c / 4) + 4 * tx + c % 4 : 2 * tx + c;
-      store_out(orow + col, acc[i][c] / lse);
+      store_out(orow + col, acc[i][c] / den);
     }
+    // m and l are the same in the 16 threads of the row
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<long long>(b) * H + h) * S + qi] = m[i] + logf(den);
   }
 }
 
 struct Args {
   const void *q, *k, *v;
   void* o;
+  float* lse;
   int B, S, H, KV;
   long long st[12];  // (batch, seq, head) strides of q, k, v, o
   int causal, window;
@@ -262,7 +270,8 @@ int launch(const Args& a, cudaStream_t stream) {
   const long long* st = a.st;
   kern<<<grid, NT, bytes, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.H, a.H / a.KV, a.S,
+      static_cast<const T*>(a.v), static_cast<T*>(a.o), a.lse, a.H, a.H / a.KV,
+      a.S,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9],
       st[10], st[11], a.causal, a.window, a.scale);
   return static_cast<int>(cudaGetLastError());
@@ -281,8 +290,10 @@ int launch_hd(int hd, const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
+// lse: NULL, or (B, H, S) float32 for each row's L.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int bf16, int B,
+    const void* q, const void* k, const void* v, void* o, float* lse, int bf16,
+    int B,
     int S, int H, int KV, int hd,
     long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh,
@@ -292,7 +303,7 @@ extern "C" int flash_attention_launch(
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (KV <= 0 || H % KV != 0 || window < 0 || (S + BQ - 1) / BQ > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, o, B, S, H, KV,
+  const Args a{q, k, v, o, lse, B, S, H, KV,
                {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh},
                causal, window, scale};
   const auto s = static_cast<cudaStream_t>(stream);

@@ -15,7 +15,11 @@
 // recurrence is the TPU kernel's, tile by tile: m' = max(m, max_j s),
 // alpha = exp(m - m'), l' = l alpha + sum_j p, acc' = acc alpha + P V with
 // P V summed afresh for the tile.  Exponentials are taken as 2^x on scores
-// pre-multiplied by log2(e).  O is written in bfloat16.
+// pre-multiplied by log2(e).  O is written in bfloat16.  When lse is not
+// null, each row's float32 L = m ln 2 + log(max(l, 1e-30)) (m in the log2
+// domain: the natural log of the softmax denominator, which the backward
+// pass in flash_attention_bwd.cu reads) goes to lse[(b H + h) S + i]; O is
+// the same either way.
 //
 // Arithmetic.  q and k are bfloat16, so each product q_d k_d is exact in
 // float32: QKᵀ on the bf16 tensor cores with float32 sums is the TPU
@@ -71,6 +75,7 @@ constexpr int NCONS = 256;        // consumer threads
 constexpr int NT = NCONS + 128;   // and one producer warpgroup
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle's
 // period): the Q tile, then STAGES K tiles, STAGES V tiles, the barriers.
@@ -443,7 +448,8 @@ __device__ __forceinline__ void produce(const Cta<HD>& t, const CUtensorMap* qma
 // it was (p = 0), or adds what alpha = 0 wipes when its first real key
 // arrives, as in the TPU kernel.
 template <int HD>
-__device__ __forceinline__ void consume(const Cta<HD>& t, __nv_bfloat16* o, int S,
+__device__ __forceinline__ void consume(const Cta<HD>& t, __nv_bfloat16* o,
+                                        float* lse, int H, int S,
                                         long long osb, long long oss, long long osh,
                                         int causal, int window, float scale_log2) {
   constexpr int CH = Smem<HD>::CH;
@@ -520,15 +526,19 @@ __device__ __forceinline__ void consume(const Cta<HD>& t, __nv_bfloat16* o, int 
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
     if (row >= S) continue;
-    const float lse = fmaxf(l[r], 1e-30f);
+    const float den = fmaxf(l[r], 1e-30f);
     __nv_bfloat16* orow = o + t.b * osb + row * oss + t.h * osh;
 #pragma unroll
     for (int c = 0; c < CH; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(orow + 64 * c + 8 * j + cq) =
-            __floats2bfloat162_rn(acc[c][4 * j + 2 * r] / lse,
-                                  acc[c][4 * j + 2 * r + 1] / lse);
+            __floats2bfloat162_rn(acc[c][4 * j + 2 * r] / den,
+                                  acc[c][4 * j + 2 * r + 1] / den);
+    // m and l are the same in the 4 threads of the quad
+    if (lse != nullptr && lane % 4 == 0)
+      lse[(static_cast<long long>(t.b) * H + t.h) * S + row] =
+          m[r] * kLn2 + logf(den);
   }
 }
 
@@ -537,8 +547,8 @@ __global__ void __launch_bounds__(NT, 1) flash_kernel_tc(
     const __grid_constant__ CUtensorMap qmap,
     const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ o,
-    int H, int G, int S, long long osb, long long oss, long long osh, int causal,
-    int window, float scale_log2) {
+    float* __restrict__ lse, int H, int G, int S, long long osb, long long oss,
+    long long osh, int causal, int window, float scale_log2) {
   using L = Smem<HD>;
   extern __shared__ uint8_t smem_raw[];
   Cta<HD> t;
@@ -573,7 +583,7 @@ __global__ void __launch_bounds__(NT, 1) flash_kernel_tc(
     if (threadIdx.x == NCONS) produce(t, &qmap, &kmap, &vmap, t.h / G);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
-    consume(t, o, S, osb, oss, osh, causal, window, scale_log2);
+    consume(t, o, lse, H, S, osb, oss, osh, causal, window, scale_log2);
   }
 }
 
@@ -627,7 +637,8 @@ bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int S, int B
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S,
            int H, int KV, const long long* st, int causal, int window,
            float scale, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
@@ -641,9 +652,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + BQ - 1) / BQ);
-  kern<<<grid, NT, bytes, stream>>>(qm, km, vm, static_cast<__nv_bfloat16*>(o), H,
-                                    H / KV, S, st[9], st[10], st[11], causal,
-                                    window, scale * kLog2e);
+  kern<<<grid, NT, bytes, stream>>>(qm, km, vm, static_cast<__nv_bfloat16*>(o),
+                                    lse, H, H / KV, S, st[9], st[10], st[11],
+                                    causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -651,9 +662,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 // bfloat16 q, k, v, o with (batch, seq, head) element strides; every
 // pointer 16-byte aligned and every stride a multiple of 8 elements (TMA's
-// 16 bytes), head_dim 64 or 128.  Returns a cudaError_t.
+// 16 bytes), head_dim 64 or 128; lse NULL, or (B, H, S) float32 for each
+// row's L.  Returns a cudaError_t.
 extern "C" int flash_attention_tc_launch(
-    const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+    const void* q, const void* k, const void* v, void* o, float* lse, int B,
+    int S, int H,
     int KV, int hd, long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksh, long long vsb, long long vss, long long vsh,
     long long osb, long long oss, long long osh, int causal, int window,
@@ -671,9 +684,11 @@ extern "C" int flash_attention_tc_launch(
   const auto s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64:
-      return launch<64>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
+      return launch<64>(q, k, v, o, lse, B, S, H, KV, st, causal, window, scale,
+                        s);
     case 128:
-      return launch<128>(q, k, v, o, B, S, H, KV, st, causal, window, scale, s);
+      return launch<128>(q, k, v, o, lse, B, S, H, KV, st, causal, window, scale,
+                         s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

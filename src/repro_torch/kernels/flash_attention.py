@@ -19,21 +19,32 @@ wrapper launches one of two hand-written kernels, chosen by
 On CPU tensors it runs the plain version,
 :func:`~repro_torch.kernels.ref.attention_ref`.  Nothing else: a failed
 build or launch raises, and no route stands in for another.
+
+Training goes through :class:`FlashAttentionFn`, the autograd function
+around the kernels: its forward launches the kernel of the same route with
+each row's L = m + log(max(l, 1e-30)) requested (:func:`flash_attention_lse`),
+and its backward launches ``csrc/flash_attention_bwd.cu``
+(:func:`flash_attention_bwd_kernel`), never the plain backward.
+``flash_attention_kernel`` takes that path whenever grad mode is on and an
+input requires grad; otherwise (serving, ``torch.no_grad()``) it launches
+what it always did, L not requested.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import attention_bwd_ref, attention_lse_ref, attention_ref
 
 Tensor = torch.Tensor
 
-__all__ = ["HEAD_DIMS", "TC_HEAD_DIMS", "TC_PARTS", "flash_attention_kernel",
-           "flash_route"]
+__all__ = ["HEAD_DIMS", "TC_HEAD_DIMS", "TC_PARTS", "FlashAttentionFn",
+           "flash_attention_bwd_kernel", "flash_attention_kernel",
+           "flash_attention_lse", "flash_route"]
 
 # The head widths the FFMA kernel is compiled for (csrc/flash_attention.cu),
 # and the tensor-core kernel (csrc/flash_attention_tc.cu, bfloat16 only).
@@ -131,22 +142,52 @@ def flash_attention_kernel(
     flat = q.dim() == 3
     if flat:
         q, k, v = q[:, :, None], k[:, :, None], v[:, :, None]
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out = FlashAttentionFn.apply(q, k, v, causal, window)
+    else:
+        out = _forward(q, k, v, causal, window, lse=False)[0]
+    return out[:, :, 0] if flat else out
+
+
+def flash_attention_lse(
+    q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True, window: int = 0,
+) -> tuple[Tensor, Tensor]:
+    """(O, L) on (B, S, H, hd) inputs: ``flash_attention_kernel``'s output
+    and each query row's float32 L = m + log(max(l, 1e-30)), (B, H, S),
+    from one launch of the same route (counted in
+    ``flash_attention_kernel.launches``); O's bits are those of a launch
+    without L.  On CPU tensors, :func:`attention_lse_ref`."""
+    _check(q, k, v, window)
+    if q.dim() != 4:
+        raise ValueError("flash_attention_lse: q, k and v must be (B, S, heads, hd)")
+    return _forward(q, k, v, causal, window, lse=True)
+
+
+def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
+             lse: bool) -> tuple[Tensor, Tensor | None]:
+    """O (and L when ``lse``) on checked (B, S, heads, hd) inputs."""
     tc = flash_route(q.dtype, q.shape[-1]) == "tc"
     if tc:
         check_tc_layout(q, k, v)
     if q.device.type == "cpu":
-        out = attention_ref(q, k, v, causal, window)
-    else:
-        out = torch.empty_like(q, memory_format=torch.contiguous_format)
-        _launch(q, k, v, out, causal, window, tc)
-    return out[:, :, 0] if flat else out
+        if lse:
+            return attention_lse_ref(q, k, v, causal, window)
+        return attention_ref(q, k, v, causal, window), None
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    L = None
+    if lse:
+        B, S, H, _ = q.shape
+        L = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    _launch(q, k, v, out, causal, window, tc, L)
+    return out, L
 
 
 def _launch(q: Tensor, k: Tensor, v: Tensor, out: Tensor, causal: bool,
-            window: int, tc: bool) -> None:
+            window: int, tc: bool, lse: Tensor | None = None) -> None:
     """One kernel on (B, S, heads, hd) tensors: the tensor-core kernel
     (``tc``: bfloat16, laid out as ``check_tc_layout`` requires) or the
-    CUDA-core kernel (either dtype)."""
+    CUDA-core kernel (either dtype); ``lse`` (B, H, S) float32 or None."""
     B, S, H, hd = q.shape
     if B * S * H == 0:
         return
@@ -160,7 +201,7 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, out: Tensor, causal: bool,
     with torch.cuda.device(q.device):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            *flag, B, S, H, k.shape[2], hd, *strides,
+            _build.ptr(lse), *flag, B, S, H, k.shape[2], hd, *strides,
             int(causal), int(window), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream().cuda_stream,
         )
@@ -171,3 +212,85 @@ def _launch(q: Tensor, k: Tensor, v: Tensor, out: Tensor, causal: bool,
 
 flash_attention_kernel.launches = 0
 flash_attention_kernel.launches_tc = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with its gradient, on (B, S, H, hd) q and (B, S, KV,
+    hd) k and v: ``FlashAttentionFn.apply(q, k, v, causal, window)``.
+
+    Forward: :func:`flash_attention_lse` (the forward kernel with L); it
+    saves q, k, v, O and L.  Backward: :func:`flash_attention_bwd_kernel`,
+    the backward kernel on CUDA tensors.  On CPU tensors both directions
+    are the plain versions (any float dtype, float64 included)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        if q.device.type == "cpu":
+            o, L = attention_lse_ref(q, k, v, causal, window)
+        else:
+            o, L = flash_attention_lse(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, o, L)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, L = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_kernel(q, k, v, o, do, L,
+                                                causal=ctx.causal,
+                                                window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_bwd_kernel(
+    q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor, lse: Tensor, *,
+    causal: bool = True, window: int = 0,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """The flash function's gradient (dq, dk, dv), shaped and typed like q,
+    k and v, from the forward's O and L and the output gradient ``do``, on
+    (B, S, H, hd) q and (B, S, KV, hd) k and v.  On CUDA tensors
+    ``csrc/flash_attention_bwd.cu`` (``.launches`` counts its launches: a
+    pre-pass and two kernels each); on CPU tensors
+    :func:`~repro_torch.kernels.ref.attention_bwd_ref`, rounded to the
+    input dtype."""
+    if q.device.type == "cpu":
+        return tuple(g.to(t.dtype) for g, t in zip(
+            attention_bwd_ref(q, k, v, o, do, lse, causal, window), (q, k, v)))
+    _check(q, k, v, window)
+    if q.dim() != 4:
+        raise ValueError("flash_attention_bwd: q, k and v must be (B, S, heads, hd)")
+    B, S, H, hd = q.shape
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, S):
+        raise ValueError("flash_attention_bwd: q, o and do must be (B, S, H, hd) "
+                         "and lse (B, H, S)")
+    for arg, t in (("o", o), ("do", do)):
+        if t.dtype != q.dtype or t.device != q.device:
+            raise TypeError(f"flash_attention_bwd: {arg} must be {q.dtype} on "
+                            f"{q.device}")
+    if lse.dtype != torch.float32 or not lse.is_contiguous() \
+            or lse.device != q.device:
+        raise TypeError("flash_attention_bwd: lse must be contiguous float32 on "
+                        f"{q.device}")
+    o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (o, do))
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                  for t in (q, k, v))
+    if B * S * H == 0:
+        return dq, dk, dv
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*[
+        t.stride(i) for t in (q, k, v, o, do, dq, dk, dv) for i in range(3)])
+    lib = _build.load_library()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), int(q.dtype == torch.bfloat16), B, S, H, k.shape[2], hd,
+            ctypes.addressof(strides), int(causal), int(window),
+            1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.raise_on_error("flash_attention_bwd", rc)
+    flash_attention_bwd_kernel.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_kernel.launches = 0

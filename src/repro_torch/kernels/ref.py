@@ -416,8 +416,30 @@ def _attention_blocks(q: Tensor, k: Tensor, v: Tensor, causal: bool,
     KV = k.shape[2]
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
-    kf, vf = k.float(), v.float()
+    acc = _acc_dtype(q)
+    kf, vf = k.to(acc), v.to(acc)
     out = torch.empty_like(q)
+    for lo, hi, k_lo, k_hi in _row_blocks(B, S, H, causal, window):
+        qb = q[:, lo:hi].to(acc).reshape(B, hi - lo, KV, G, hd)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qb, kf[:, k_lo:k_hi]) * scale
+        s = _softcap(s, softcap)
+        if causal:
+            s = torch.where(_block_mask(lo, hi, k_lo, k_hi, window, q.device), s, NEG)
+        o = pv(s, vf[:, k_lo:k_hi])
+        out[:, lo:hi] = o.reshape(B, hi - lo, H, hd).to(q.dtype)
+    return out
+
+
+def _acc_dtype(q: Tensor) -> torch.dtype:
+    """float32 for float32 and bfloat16 inputs; float64 stays float64 (the
+    CPU tests' gradcheck)."""
+    return torch.promote_types(q.dtype, torch.float32)
+
+
+def _row_blocks(B: int, S: int, H: int, causal: bool, window: int):
+    """(lo, hi, k_lo, k_hi) of each block of query rows [lo, hi) and the
+    keys [k_lo, k_hi) its mask can reach; a block's scores stay under
+    ``_ELEMS`` elements."""
     rows = max(1, _ELEMS // (B * H * S))
     for lo in range(0, S, rows):
         hi = min(S, lo + rows)
@@ -426,19 +448,91 @@ def _attention_blocks(q: Tensor, k: Tensor, v: Tensor, causal: bool,
             k_hi = hi
             if window > 0:
                 k_lo = max(0, lo - window + 1)
-        qb = q[:, lo:hi].float().reshape(B, hi - lo, KV, G, hd)
-        s = torch.einsum("bqkgd,bskd->bkgqs", qb, kf[:, k_lo:k_hi]) * scale
-        s = _softcap(s, softcap)
+        yield lo, hi, k_lo, k_hi
+
+
+def _block_mask(lo: int, hi: int, k_lo: int, k_hi: int, window: int,
+                device) -> Tensor:
+    """The causal (and window) mask of rows [lo, hi) x keys [k_lo, k_hi)."""
+    dq = (torch.arange(lo, hi, device=device)[:, None]
+          - torch.arange(k_lo, k_hi, device=device)[None, :])
+    mask = dq >= 0
+    if window > 0:
+        mask &= dq < window
+    return mask
+
+
+def attention_lse_ref(
+    q: Tensor, k: Tensor, v: Tensor, causal: bool = True, window: int = 0,
+) -> tuple[Tensor, Tensor]:
+    """(O, L): :func:`attention_ref`'s output, bit for bit, and each query
+    row's L = log(sum_j exp(s_ij)) over the keys its mask keeps (the
+    forward kernels' m + log(max(l, 1e-30))), (B, H, S) float32 (float64 on
+    float64 inputs): what the backward pass reads."""
+    B, S, H, _ = q.shape
+    lses = []
+
+    def pv(s: Tensor, vb: Tensor) -> Tensor:
+        lses.append(torch.logsumexp(s, dim=-1))          # (B, KV, G, rows)
+        return torch.einsum("bkgqs,bskd->bqkgd", torch.softmax(s, dim=-1), vb)
+
+    o = _attention_blocks(q, k, v, causal, window, 0.0, pv)
+    return o, torch.cat(lses, dim=-1).reshape(B, H, S)
+
+
+def attention_bwd_ref(
+    q: Tensor,             # (B, S, H, hd), or (BH, S, hd)
+    k: Tensor,             # (B, S, KV, hd), or (BH, S, hd)
+    v: Tensor,
+    o: Tensor,             # the forward's output, like q
+    do: Tensor,            # the output's gradient, like q
+    lse: Tensor,           # the forward's L: (B, H, S), or (BH, S)
+    causal: bool = True,
+    window: int = 0,
+) -> tuple[Tensor, Tensor, Tensor]:
+    """The flash function's gradient (dq, dk, dv) in closed form, the plain
+    version of ``csrc/flash_attention_bwd.cu``:
+
+        D = rowsum(dO ∘ O),  P = exp(S - L) (0 where masked),  dV = Pᵀ dO,
+        dS = P ∘ (dO Vᵀ - D),  dQ = scale dS K,  dK = scale dSᵀ Q,
+
+    with dK and dV summed over the G query heads of each KV head.  float32
+    throughout (float64 on float64 inputs), and returned so: the caller
+    rounds to the input dtype.  Walks blocks of query rows like
+    :func:`attention_ref`, so its temporaries stay bounded at any S."""
+    flat = q.dim() == 3
+    if flat:
+        q, k, v, o, do = (t[:, :, None] for t in (q, k, v, o, do))
+        lse = lse[:, None]
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    acc = _acc_dtype(q)
+    qf, kf, vf, dof = (t.to(acc) for t in (q, k, v, do))
+    D = (dof * o.to(acc)).sum(-1)                        # (B, S, H)
+    L = lse.to(acc).reshape(B, KV, G, S)
+    dq = torch.empty((B, S, H, hd), dtype=acc, device=q.device)
+    dk = torch.zeros((B, S, KV, hd), dtype=acc, device=q.device)
+    dv = torch.zeros((B, S, KV, hd), dtype=acc, device=q.device)
+    for lo, hi, k_lo, k_hi in _row_blocks(B, S, H, causal, window):
+        n = hi - lo
+        qb = qf[:, lo:hi].reshape(B, n, KV, G, hd)
+        gb = dof[:, lo:hi].reshape(B, n, KV, G, hd)
+        kb, vb = kf[:, k_lo:k_hi], vf[:, k_lo:k_hi]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qb, kb) * scale
+        p = torch.exp(s - L[..., lo:hi, None])
         if causal:
-            dq = (torch.arange(lo, hi, device=q.device)[:, None]
-                  - torch.arange(k_lo, k_hi, device=q.device)[None, :])
-            mask = dq >= 0
-            if window > 0:
-                mask &= dq < window
-            s = torch.where(mask, s, NEG)
-        o = pv(s, vf[:, k_lo:k_hi])
-        out[:, lo:hi] = o.reshape(B, hi - lo, H, hd).to(q.dtype)
-    return out
+            p = torch.where(_block_mask(lo, hi, k_lo, k_hi, window, q.device), p, 0.0)
+        dv[:, k_lo:k_hi] += torch.einsum("bkgqs,bqkgd->bskd", p, gb)
+        dp = torch.einsum("bqkgd,bskd->bkgqs", gb, vb)
+        ds = p * (dp - D[:, lo:hi].reshape(B, n, KV, G).permute(0, 2, 3, 1)[..., None])
+        dq[:, lo:hi] = (torch.einsum("bkgqs,bskd->bqkgd", ds, kb) * scale
+                        ).reshape(B, n, H, hd)
+        dk[:, k_lo:k_hi] += torch.einsum("bkgqs,bqkgd->bskd", ds, qb) * scale
+    if flat:
+        return dq[:, :, 0], dk[:, :, 0], dv[:, :, 0]
+    return dq, dk, dv
 
 
 def flash_attention_ref(

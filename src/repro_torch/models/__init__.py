@@ -16,6 +16,7 @@ from repro_torch.models.decoder import (
     forward,
     init_cache,
     init_params,
+    lm_loss,
     prefill,
 )
 
@@ -29,5 +30,6 @@ __all__ = [
     "forward",
     "init_cache",
     "init_params",
+    "lm_loss",
     "prefill",
 ]

@@ -89,8 +89,11 @@ def blockwise_attention(
 
     On the card it is the flash kernel (``kernels/flash_attention.py``),
     which reads KV head h // (H / KV) in place of the reference's expanded
-    copy (``head_map``) and computes in float32 throughout.  On the CPU it
-    is the same function's plain version.  The reference's tiles
+    copy (``head_map``) and computes in float32 throughout; under autograd
+    it goes through ``FlashAttentionFn``, whose backward is the flash
+    backward kernel (the reference takes this gradient by autodiff of its
+    blockwise loop).  On the CPU it is the same function's plain version,
+    differentiated by autograd.  The reference's tiles
     (``block_q``, ``block_k``) are the kernel's own business here.  One
     difference from the reference in bfloat16: it rounds the probabilities
     to bfloat16 before P·V, the flash function does not.

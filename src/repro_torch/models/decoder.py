@@ -22,12 +22,17 @@ Block types: ``attn`` (full causal attention + FFN), ``attn_moe``
 :mod:`repro_torch.models.ssm`) and ``rglru`` (the RG-LRU mixer + FFN,
 :mod:`repro_torch.models.rglru`).
 
-Entry points: ``forward``, ``prefill``, ``init_cache``, ``decode_step``.
+Entry points: ``forward`` (with the reference's remat policies, for
+training), ``lm_loss``, ``prefill``, ``init_cache``, ``decode_step``.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
+import torch.utils.checkpoint as tc
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -162,35 +167,146 @@ def _embed(cfg: ModelConfig, params: Params, tokens: Tensor,
     return x
 
 
+def _block_apply(cfg: ModelConfig, btype: str, p: Params, x: Tensor,
+                 positions: Tensor, aux: Tensor) -> tuple[Tensor, Tensor]:
+    """One block over the full sequence; returns (x, aux plus the block's
+    load-balance loss)."""
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    if btype in _ATTN:
+        y = attn.attention_forward(p["attn"], cfg, h, positions,
+                                   window=_window(cfg, btype))
+    elif btype == "mamba2":
+        y = ssm_lib.mamba2_forward(p["mixer"], cfg, h)
+    else:
+        y = rglru_lib.rglru_forward(p["mixer"], cfg, h)
+    x, a = _second_half(cfg, btype, p, x + y)
+    return x, aux if a is None else aux + a
+
+
+def _unstack(tree: Params, G: int) -> list[Params]:
+    """The G groups of a tree stacked over groups, as views from one
+    ``unbind`` per leaf.  Under autograd each leaf's gradient is then one
+    stack of its G slices; a view ``[g]`` a group would add a zero-filled
+    gradient of the whole stack per group (G^2 / 2 stacks of traffic)."""
+    parts = {k: _unstack(v, G) if isinstance(v, dict) else torch.unbind(v)
+             for k, v in tree.items()}
+    return [{k: v[g] for k, v in parts.items()} for g in range(G)]
+
+
+def _groups_apply(cfg: ModelConfig, groups: list[Params], lo: int, hi: int,
+                  positions: Tensor, x: Tensor, aux: Tensor,
+                  inner=None) -> tuple[Tensor, Tensor]:
+    """Groups [lo, hi) (``_unstack``'s), the reference's scan body one group
+    at a time; ``inner(body, x, aux)`` wraps each group (a checkpoint), None
+    runs it as it is."""
+    for g in range(lo, hi):
+        def body(x, aux, gp=groups[g]):
+            for i, btype in enumerate(cfg.block_pattern):
+                x, aux = _block_apply(cfg, btype, gp[f"p{i}"], x, positions, aux)
+            return x, aux
+        x, aux = body(x, aux) if inner is None else inner(body, x, aux)
+    return x, aux
+
+
+# ``dots``: keep the outputs of the plain matrix products (the reference's
+# dots_with_no_batch_dims_saveable: x @ W, not attention's batched
+# einsums), recompute the rest.
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (tc.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else tc.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpoint(body, *args, context_fn=None):
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return tc.checkpoint(body, *args, use_reentrant=False, **kw)
+
+
+REMAT_POLICIES = ("none", "nothing", "dots", "nested")
+
+
 def forward(
     cfg: ModelConfig,
     params: Params,
     tokens: Tensor,                 # (B, S) or (B, S, K) codebooks
     patches: Tensor | None = None,  # (B, P, D) for tokens+patches mode
     *,
+    remat: str = "nothing",
     logits_slice: int = 0,          # >0: only last N positions get logits
 ) -> tuple[Tensor, Tensor]:
     """Full-sequence forward.  Returns (logits, aux_loss): the sum of the
-    MoE layers' load-balance losses (0 without experts), float32."""
+    MoE layers' load-balance losses (0 without experts), float32.
+
+    ``remat`` is the reference's rematerialisation policy under autograd
+    (it changes no value): ``"none"`` keeps every activation;
+    ``"nothing"`` checkpoints each group of the block pattern (a layer, for
+    a pattern of one block: ``torch.utils.checkpoint``, non-reentrant),
+    keeping only its input; ``"dots"`` keeps the plain matrix products'
+    outputs as well (selective checkpointing); ``"nested"`` checkpoints
+    about √G chunks of groups, each group inside again (two levels; plain
+    ``"nothing"`` below 4 groups).  The unstacked tail blocks run without
+    a checkpoint, as in the reference."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}")
     x = _embed(cfg, params, tokens, patches)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for btype, p, _ in _layers(cfg, params):
-        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-        if btype in _ATTN:
-            y = attn.attention_forward(p["attn"], cfg, h, positions,
-                                       window=_window(cfg, btype))
-        elif btype == "mamba2":
-            y = ssm_lib.mamba2_forward(p["mixer"], cfg, h)
-        else:
-            y = rglru_lib.rglru_forward(p["mixer"], cfg, h)
-        x, a = _second_half(cfg, btype, p, x + y)
-        if a is not None:
-            aux = aux + a
+    G = cfg.num_groups
+    blocks = _unstack(params["blocks"], G)
+    if not torch.is_grad_enabled() or remat == "none":
+        x, aux = _groups_apply(cfg, blocks, 0, G, positions, x, aux)
+    elif remat == "dots":
+        ctx = functools.partial(tc.create_selective_checkpoint_contexts,
+                                _dots_policy)
+        x, aux = _groups_apply(
+            cfg, blocks, 0, G, positions, x, aux,
+            inner=lambda body, x, aux: _checkpoint(body, x, aux, context_fn=ctx))
+    elif remat == "nested" and G >= 4:
+        # two levels: ~sqrt(G) outer chunks, each a checkpointed run of
+        # checkpointed groups; the stash drops from G group inputs to
+        # chunks + G / chunks, for one more forward of a chunk
+        outer = max(2, int(math.sqrt(G)))
+        while G % outer != 0:
+            outer -= 1
+        inner = G // outer
+        for c in range(outer):
+            def chunk(x, aux, c=c):
+                return _groups_apply(cfg, blocks, c * inner, (c + 1) * inner,
+                                     positions, x, aux, inner=_checkpoint)
+            x, aux = _checkpoint(chunk, x, aux)
+    else:
+        x, aux = _groups_apply(cfg, blocks, 0, G, positions, x, aux,
+                               inner=_checkpoint)
+    for i, btype in enumerate(cfg.remainder_blocks):
+        x, aux = _block_apply(cfg, btype, params["rem"][f"r{i}"], x, positions, aux)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if logits_slice > 0:
         x = x[:, -logits_slice:]
     return unembed(params["embed"], cfg, x), aux
+
+
+def lm_loss(
+    cfg: ModelConfig,
+    logits: Tensor,      # (B, S, V) or (B, S, K, V)
+    labels: Tensor,      # (B, S) or (B, S, K) integers; negatives are masked
+) -> Tensor:
+    """Mean next-token cross entropy over unmasked positions (float32).
+
+    The reference's order: the max over V (held constant), exp, sum, log;
+    the label's logit by ``gather``, which gives the reference's one-hot sum
+    exactly (its other terms add 0; the one-hot form there keeps GSPMD's
+    vocab sharding, which one card does not have)."""
+    valid = labels >= 0
+    labels_safe = labels.clamp_min(0).long()
+    lf = logits.float()
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    # exp in place on the fresh difference: one (B, S, V) float32 buffer less
+    lse = torch.log(torch.exp_(lf - m).sum(dim=-1)) + m[..., 0]
+    label_logit = lf.gather(-1, labels_safe[..., None])[..., 0]
+    nll = lse - label_logit
+    return (nll * valid).sum() / valid.sum().clamp_min(1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,171 @@
+"""The flash attention gradient on the CPU: ``attention_bwd_ref`` (the plain
+version of ``csrc/flash_attention_bwd.cu``) against ``jax.vjp`` of the JAX
+package's ``flash_attention_ref`` and against torch autograd of
+``attention_ref``; ``attention_lse_ref``'s O and L; ``FlashAttentionFn``
+under ``gradcheck`` in float64; and attention's gradient reaching the
+projections through the model's plain route.  Tolerance: float32 within
+1e-4 of max|want| (the model tests' rule); O bitwise."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ref import flash_attention_ref as jflash_ref
+from repro_torch import configs
+from repro_torch.kernels import (
+    FlashAttentionFn,
+    attention_bwd_ref,
+    attention_lse_ref,
+    attention_ref,
+    flash_attention_bwd_kernel,
+    flash_attention_kernel,
+)
+from repro_torch.models import forward, init_params, lm_loss
+from repro_torch.models.layers import tree_leaves
+
+MASKS = [(True, 0), (True, 5), (False, 0)]
+
+
+def _close(got, want, rel=1e-4):
+    want = np.asarray(want, np.float64)
+    got = np.asarray(got.detach().double() if isinstance(got, torch.Tensor) else got)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=rel * max(1e-30, float(np.abs(want).max())))
+
+
+def _qkv(B, S, H, KV, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, S, H, hd)).astype(np.float32),
+            rng.standard_normal((B, S, KV, hd)).astype(np.float32),
+            rng.standard_normal((B, S, KV, hd)).astype(np.float32),
+            rng.standard_normal((B, S, H, hd)).astype(np.float32))
+
+
+_jax_vjp = {}
+
+
+def _jvjp(causal, window):
+    """jit-compiled vjp of the JAX reference, one per mask (reused)."""
+    key = (causal, window)
+    if key not in _jax_vjp:
+        def f(q, k, v, do):
+            _, pull = jax.vjp(lambda a, b, c: jflash_ref(a, b, c, causal, window),
+                              q, k, v)
+            return pull(do)
+        _jax_vjp[key] = jax.jit(f)
+    return _jax_vjp[key]
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_bwd_ref_matches_jax_vjp_flat_layout(causal, window):
+    """The TPU layout (BH, S, hd): the JAX reference's own."""
+    q, k, v, do = (a[:, :, 0] for a in _qkv(6, 19, 1, 1, 16, seed=1))
+    want = _jvjp(causal, window)(*(jnp.asarray(a) for a in (q, k, v, do)))
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, L = attention_lse_ref(qt[:, :, None], kt[:, :, None], vt[:, :, None],
+                             causal, window)
+    got = attention_bwd_ref(qt, kt, vt, o[:, :, 0], dot, L[:, 0], causal, window)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_bwd_ref_matches_jax_vjp_grouped(causal, window):
+    """Grouped KV (H = 6 on KV = 2): JAX sees the expanded heads, as the
+    model's head_map gather gives them; dK and dV sum over each group."""
+    B, S, H, KV, hd = 2, 23, 6, 2, 8
+    G = H // KV
+    q, k, v, do = _qkv(B, S, H, KV, hd, seed=2)
+
+    def flat(a):            # (B, S, heads, hd) -> (B heads, S, hd)
+        return jnp.asarray(a).transpose(0, 2, 1, 3).reshape(-1, S, hd)
+
+    kx, vx = (np.repeat(a, G, axis=2) for a in (k, v))
+    dq, dk, dv = _jvjp(causal, window)(flat(q), flat(kx), flat(vx), flat(do))
+
+    def unflat(a):
+        return np.asarray(a).reshape(B, -1, S, hd).transpose(0, 2, 1, 3)
+
+    dk = unflat(dk).reshape(B, S, KV, G, hd).sum(3)
+    dv = unflat(dv).reshape(B, S, KV, G, hd).sum(3)
+    qt, kt, vt, dot = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, L = attention_lse_ref(qt, kt, vt, causal, window)
+    got = attention_bwd_ref(qt, kt, vt, o, dot, L, causal, window)
+    for g, w in zip(got, (unflat(dq), dk, dv)):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+@pytest.mark.parametrize("H,KV", [(4, 4), (6, 2), (5, 1)])
+def test_bwd_ref_matches_torch_autograd(causal, window, H, KV):
+    q, k, v, do = (torch.from_numpy(a) for a in _qkv(2, 17, H, KV, 16, seed=3))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = attention_ref(*leaves, causal, window)
+    want = torch.autograd.grad(out, leaves, do)
+    o, L = attention_lse_ref(q, k, v, causal, window)
+    assert torch.equal(o, out.detach())
+    got = attention_bwd_ref(q, k, v, o, do, L, causal, window)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_lse_ref_is_the_masked_logsumexp(causal, window):
+    q, k, v, _ = (torch.from_numpy(a) for a in _qkv(1, 9, 3, 1, 8, seed=4))
+    o, L = attention_lse_ref(q, k, v, causal, window)
+    assert torch.equal(o, attention_ref(q, k, v, causal, window))
+    s = torch.einsum("bqhd,bkd->bhqk", q, k[:, :, 0]) / np.sqrt(8)
+    i = torch.arange(9)
+    keep = torch.ones(9, 9, dtype=torch.bool)
+    if causal:
+        keep = (i[:, None] >= i[None]) & ((i[:, None] - i[None] < window) | (window == 0))
+    _close(L, torch.logsumexp(torch.where(keep, s, -torch.inf), -1), 1e-6)
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_attention_fn_gradcheck_float64(causal, window):
+    g = torch.Generator().manual_seed(5)
+    q = torch.randn((1, 7, 4, 4), generator=g, dtype=torch.float64, requires_grad=True)
+    k, v = (torch.randn((1, 7, 2, 4), generator=g, dtype=torch.float64,
+                        requires_grad=True) for _ in range(2))
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: FlashAttentionFn.apply(a, b, c, causal, window), (q, k, v))
+
+
+def test_kernel_wrapper_under_grad_has_a_grad_fn_on_the_cpu():
+    """On CPU tensors that require grad the wrapper goes through
+    FlashAttentionFn's plain directions: a grad_fn, and the plain backward's
+    gradients; without grad it returns attention_ref's bits, no grad_fn."""
+    q, k, v, do = (torch.from_numpy(a) for a in _qkv(2, 12, 4, 2, 32, seed=6))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention_kernel(*leaves, causal=True, window=0)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, do)
+    n = flash_attention_bwd_kernel.launches
+    o, L = attention_lse_ref(q, k, v, True, 0)
+    for a, b in zip(got, flash_attention_bwd_kernel(q, k, v, o, do, L)):
+        assert torch.equal(a, b)
+    assert flash_attention_bwd_kernel.launches == n     # CPU calls do not count
+    with torch.no_grad():
+        plain = flash_attention_kernel(*leaves, causal=True, window=0)
+    assert plain.grad_fn is None and torch.equal(plain, out.detach())
+
+
+def test_forward_under_autograd_gives_the_projections_gradients():
+    """The repair's CPU side: every attention leaf (w_q, w_k, w_v, w_o and
+    qwen3's qk-norm scales) gets a nonzero gradient through the plain
+    route."""
+    cfg = configs.smoke("qwen3-4b")
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    attn = params["blocks"]["p0"]["attn"]
+    leaves = list(tree_leaves(params))
+    for p in leaves:
+        p.requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(1))
+    logits, _ = forward(cfg, params, toks)
+    lm_loss(cfg, logits, toks.roll(-1, 1)).backward()
+    for name in ("w_q", "w_k", "w_v", "w_o", "q_norm", "k_norm"):
+        assert attn[name].grad is not None and bool(attn[name].grad.abs().sum() > 0), name

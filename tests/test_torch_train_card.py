@@ -1,0 +1,134 @@
+"""Training's kernels on the card: the flash backward kernel against its
+plain version, the flash forward's L, attention's gradient through
+``FlashAttentionFn`` in a 2-layer llama3.2-shaped model against the plain
+route, and the SS-selected pipeline's picks against the plain route's.
+These tests need a CUDA card (marker ``cuda``) and skip without one; they
+import nothing of JAX:
+
+    python -m pytest -m cuda tests/test_torch_train_card.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import configs
+from repro_torch.data import DataConfig, Pipeline, hashed_features
+from repro_torch.data.pipeline import select_documents
+from repro_torch.kernels import (
+    attention_bwd_ref,
+    attention_ref,
+    flash_attention_bwd_kernel,
+    flash_attention_kernel,
+    flash_attention_lse,
+)
+from repro_torch.models import forward, init_params, lm_loss
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import tree_leaves
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the flash kernels are CUDA kernels")
+    return torch.device("cuda")
+
+
+def _bwd_close(got, want, what):
+    """float32: within 1e-4 of max|want|; bfloat16: within one bfloat16
+    rounding of the float32 plain result (2^-8 |want|) plus that."""
+    scale = float(want.abs().max())
+    diff = (got.float() - want).abs()
+    tol = 1e-4 * scale + (2.0 ** -8 * want.abs() if got.dtype == torch.bfloat16 else 0)
+    assert bool((diff <= tol).all()), f"{what}: err {float(diff.max())} (max {scale})"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G,S,causal,window", [
+    (32, 1, 17, True, 0), (64, 3, 130, True, 40), (128, 3, 1000, True, 0),
+    (256, 10, 64, False, 0), (128, 1, 130, True, 64)])
+def test_backward_kernel_matches_plain(card, dtype, hd, G, S, causal, window):
+    g = torch.Generator(device=card).manual_seed(hd + S)
+    B, KV = 2, 2
+    q = torch.randn((B, S, KV * G, hd), generator=g, device=card).to(dtype)
+    k, v = (torch.randn((B, S, KV, hd), generator=g, device=card).to(dtype)
+            for _ in range(2))
+    o, L = flash_attention_lse(q, k, v, causal=causal, window=window)
+    assert torch.equal(o, flash_attention_kernel(q, k, v, causal=causal,
+                                                 window=window))
+    do = torch.randn(q.shape, generator=g, device=card).to(dtype)
+    n = flash_attention_bwd_kernel.launches
+    got = flash_attention_bwd_kernel(q, k, v, o, do, L, causal=causal, window=window)
+    assert flash_attention_bwd_kernel.launches == n + 1
+    want = attention_bwd_ref(q, k, v, o, do, L, causal, window)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dtype
+        _bwd_close(a, b, f"d{name} {dtype} hd={hd} G={G} S={S}")
+
+
+@pytest.mark.cuda
+def test_kernel_output_has_a_grad_fn_and_backward_launches_the_kernel(card):
+    g = torch.Generator(device=card).manual_seed(1)
+    q, k, v = (torch.randn((2, 96, 4, 64), generator=g, device=card)
+               .to(torch.bfloat16).requires_grad_() for _ in range(3))
+    out = flash_attention_kernel(q, k, v, causal=True)
+    assert out.grad_fn is not None
+    n = flash_attention_bwd_kernel.launches
+    out.float().sum().backward()
+    assert flash_attention_bwd_kernel.launches == n + 1
+    assert all(t.grad is not None and bool(t.grad.abs().sum() > 0) for t in (q, k, v))
+
+
+@pytest.mark.cuda
+def test_two_layer_llama_gradients_match_the_plain_route(card, monkeypatch):
+    cfg = dataclasses.replace(configs.get("llama3.2-3b"), num_layers=2)
+    params = init_params(torch.Generator(device=card).manual_seed(0), cfg)
+    leaves = list(tree_leaves(params))
+    g = torch.Generator(device=card).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256), generator=g, device=card)
+
+    def grads():
+        for p in leaves:
+            p.requires_grad_(True)
+        logits, _ = forward(cfg, params, toks)
+        loss = lm_loss(cfg, logits, toks.roll(-1, 1))
+        out = torch.autograd.grad(loss, leaves)
+        for p in leaves:
+            p.requires_grad_(False)
+        return loss.detach(), out
+
+    n = flash_attention_bwd_kernel.launches
+    loss_k, g_k = grads()
+    assert flash_attention_bwd_kernel.launches == n + 2
+    monkeypatch.setattr(attn, "flash_attention_kernel",
+                        lambda q, k, v, *, causal, window:
+                        attention_ref(q, k, v, causal, window))
+    loss_p, g_p = grads()
+    assert abs(float(loss_k) / float(loss_p) - 1) < 1e-3
+    for a, b in zip(g_k, g_p):
+        assert bool(a.abs().sum() > 0), "a leaf got no gradient"
+        assert float((a - b).norm() / b.norm()) < 5e-2
+
+
+@pytest.mark.cuda
+def test_pipeline_picks_match_the_plain_route(card):
+    """selection="ss" (FeatureCoverage): the kernel route's picks equal the
+    plain route's under the same generator state.  (The matrix-free FL of
+    "ss_fl" computes its similarities in another order on each route, so
+    its near ties can flip: ``chip_smoke.py`` explains those.)"""
+    selection = "ss"
+    dc = DataConfig(batch_size=16, seq_len=512, vocab_size=32000,
+                    selection=selection)
+    pipe = Pipeline(dc, seed=3)
+    docs = pipe._pool()
+    W = hashed_features(docs[:, :-1], dc.feature_dim, dc.ngram)
+    state = pipe._gen.get_state()
+    got = select_documents(W, 16, selection, {"generator": pipe._gen}, device=card)
+    g2 = torch.Generator(device=card)
+    g2.set_state(state)
+    want = select_documents(W, 16, selection, {"generator": g2}, device=card,
+                            backend="reference")
+    np.testing.assert_array_equal(got, want)
