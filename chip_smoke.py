@@ -79,14 +79,17 @@ prefill against the forward (the recurrent families), a profiled prefill,
 and the FFMA kernel timed at recurrentgemma's shape beside its bound and
 ``scaled_dot_product_attention`` with the window as a mask.
 Then training (``train_phase``, on a freed card): the flash backward
-kernel against its plain version over a sweep (both dtypes, head_dim 32 to
-256, grouped KV, three masks, S from 1 to 1000, the TPU layout; the
-forward's O with and without L bitwise equal) and at llama3.2-3b's shape
-beside its bounds, the plain backward and SDPA's; llama3.2-3b at full
+kernels (the tensor-core route for bf16 at head_dim 64/128, FFMA for the
+rest) against their plain version over a sweep (both dtypes, head_dim 32
+to 256, grouped KV, three masks, S from 1 to 1000 and causal bf16 at 2048
+and 4096, the TPU layout; the forward's O with and without L bitwise
+equal) and at llama3.2-3b's shape (both routes in turns) beside the
+bounds, the plain backward and SDPA's, with flip rates; llama3.2-3b at full
 width and depth, step 0's loss and every gradient leaf on the kernel route
 against the plain attention route; 8 steps through ``launch/train.py``
 (the main path: AdamW, remat "nothing", SS-selected 4 x 2048 batches; 56
-forward and 28 backward flash launches a step, SS's kernels every batch,
+forward and 28 backward flash launches a step, the backward's all on the
+tensor-core route, SS's kernels every batch,
 the loss falling, one step profiled); checkpoint, SIGTERM and resume on
 the card; and the data pipeline at a 256 x 2048 global batch with both SS
 objectives, its picks held to the plain route's.
@@ -2819,26 +2822,34 @@ def bwd_close(out, ref, what: str, ref64=None, mag=None) -> float:
     return err
 
 
+# Long causal cases of the backward sweep (dtype, head_dim, G, mask, S):
+# the tensor-core route's rings at their full depth (64 query tiles of a
+# key block's G heads, 64 key tiles of a query block).
+BWD_LONG = tuple((torch.bfloat16, 128, 3, "causal", s) for s in (2048, 4096))
+
+
 def bwd_sweep(errs: dict) -> None:
-    """The backward kernel vs its plain version: float32 and bfloat16 x
+    """The backward kernels vs their plain version: float32 and bfloat16 x
     head_dim 32/64/128/256 x G = 1, 3, 10 query heads a KV head x causal,
-    a window shorter than S, or no mask x S = 1, 17, 64, 130, 1000, held
-    by ``bwd_close`` against the float64 plain backward (with the float32
-    rounding bound of the sums beside); the forward's O with L requested bitwise equal to O
-    without it (both routes) and its L within 1e-5 relative of the plain
-    one; then the TPU layout (BH, S, hd) through ``flash_attention_kernel``
-    under autograd."""
+    a window shorter than S, or no mask x S = 1, 17, 64, 130, 1000, and
+    ``BWD_LONG``, held by ``bwd_close`` against the float64 plain backward
+    (with the float32 rounding bound of the sums beside), each on the route
+    ``flash_route`` gives (the tensor-core kernel for bf16 at hd 64/128,
+    counted by ``launches_tc``; the FFMA kernel for the rest); the forward's
+    O with L requested bitwise equal to O without it (both routes) and its L
+    within 1e-5 relative of the plain one; then the TPU layout (BH, S, hd)
+    through ``flash_attention_kernel`` under autograd."""
     from repro_torch.kernels import (attention_bwd_ref, attention_lse_ref,
                                      flash_attention_bwd_kernel,
                                      flash_attention_kernel, flash_attention_lse,
                                      flash_route)
 
     g = torch.Generator(device="cuda").manual_seed(11)
-    cases, tc_o = 0, 0
-    for dt, hd, G, mask, S in itertools.product(
+    cases, tc_o, tc_bwd = 0, 0, 0
+    for dt, hd, G, mask, S in itertools.chain(itertools.product(
         (torch.float32, torch.bfloat16), (32, 64, 128, 256), (1, 3, 10),
         ("causal", "window", "none"), (1, 17, 64, 130, 1000),
-    ):
+    ), BWD_LONG):
         if mask == "window" and S == 1:
             continue                       # no window shorter than S
         causal, window = mask != "none", max(1, S // 3) if mask == "window" else 0
@@ -2858,8 +2869,13 @@ def bwd_sweep(errs: dict) -> None:
         l_err = float((L - L_ref).abs().max())
         check(l_err <= 1e-5 * max(1.0, float(L_ref.abs().max())),
               f"{what}: L err {l_err}")
+        n_tc = flash_attention_bwd_kernel.launches_tc
         got = flash_attention_bwd_kernel(q, k, v, o, do, L, causal=causal,
                                          window=window)
+        tc = flash_route(dt, hd) == "tc"
+        check(flash_attention_bwd_kernel.launches_tc == n_tc + tc,
+              f"{what}: not on the {'tensor-core' if tc else 'FFMA'} route")
+        tc_bwd += tc
         want = attention_bwd_ref(q, k, v, o, do, L, causal, window)
         want64 = attention_bwd_ref(*(t.double() for t in (q, k, v, o, do, L)),
                                    causal, window)
@@ -2877,11 +2893,14 @@ def bwd_sweep(errs: dict) -> None:
                    .requires_grad_() for _ in range(3))
         do = torch.randn(q.shape, generator=g, device="cuda").to(dt)
         n = flash_attention_bwd_kernel.launches
+        n_tc = flash_attention_bwd_kernel.launches_tc
         out = flash_attention_kernel(q, k, v, causal=causal, window=window)
         check(out.grad_fn is not None, "flash (BH, S, hd): no grad_fn")
         got = torch.autograd.grad(out, (q, k, v), do)
-        check(flash_attention_bwd_kernel.launches == n + 1,
-              "flash (BH, S, hd): the backward kernel did not launch")
+        check(flash_attention_bwd_kernel.launches == n + 1
+              and flash_attention_bwd_kernel.launches_tc
+              == n_tc + (flash_route(dt, hd) == "tc"),
+              "flash (BH, S, hd): the backward kernel of its route did not launch")
         o, L = flash_attention_lse(*(t.detach()[:, :, None] for t in (q, k, v)),
                                    causal=causal, window=window)
         want = attention_bwd_ref(q.detach(), k.detach(), v.detach(), o[:, :, 0],
@@ -2891,25 +2910,32 @@ def bwd_sweep(errs: dict) -> None:
                 a, b, f"flash backward (BH, S, hd) {dt} hd={hd} {mask} {name}"))
         cases += 1
     torch.cuda.synchronize()
-    print(f"flash backward kernel vs plain: {cases} cases passed (O with and "
-          f"without L bitwise equal, {tc_o} of them on the tensor-core route); "
+    print(f"flash backward kernels vs plain: {cases} cases passed (O with and "
+          f"without L bitwise equal, {tc_o} of them on the tensor-core route; "
+          f"{tc_bwd} backward cases on the tensor-core route, the rest on FFMA); "
           f"max abs err {errs['flash_attention_bwd']:.3g}; bfloat16 at most "
           f"{BWD_WORST[0]:.4f} of its tolerance", flush=True)
 
 
 def bwd_at_shape(errs: dict) -> dict:
-    """The backward kernel at llama3.2-3b's attention shape (B 4, S 2048, H
-    24, KV 8, hd 128, bf16, causal): time (``kernel_ms``) beside the
-    function's bound (``flash_bound``'s rule: QKᵀ and dO Vᵀ exact bf16
-    products, the three products with float32 P or dS at TC_PARTS parts
-    each, one exponential a pair), the FFMA design's own bound (7 hd FFMAs
-    a pair), the plain backward, and the backward of
+    """The backward at llama3.2-3b's attention shape (B 4, S 2048, H 24, KV
+    8, hd 128, bf16, causal): the tensor-core route and the FFMA kernel on
+    the same inputs, timed in turns (tc, ffma, ffma, tc; ``kernel_ms``,
+    each route's time the median of its windows), beside the function's
+    bound (``flash_bound``'s rule: QKᵀ and dO Vᵀ exact bf16 products, the
+    three products with float32 P or dS at TC_PARTS parts each, 22 hd
+    tensor-core flops and one exponential a pair), the tensor-core design's
+    own (26 hd: QKᵀ and dO Vᵀ in both of its kernels), the FFMA design's (7
+    hd FFMAs a pair), the plain backward, and the backward of
     ``scaled_dot_product_attention`` (KV expanded; it rounds P once: a
-    yardstick), with the flip rate of its bf16 gradients against the plain
-    float32 ones rounded."""
+    yardstick); the flip rates of the bf16 gradients against the plain
+    float32 ones rounded, for both kernels and for the plain version with P
+    and dS in 1, 2 and 3 bf16 parts (the tensor-core route's at most a
+    quarter of one part's); and what ptxas reported for the tensor-core
+    kernels (no spill)."""
     from repro_torch.kernels import (attention_bwd_ref, flash_attention_bwd_kernel,
                                      flash_attention_lse)
-    from repro_torch.kernels.flash_attention import TC_PARTS
+    from repro_torch.kernels.flash_attention import TC_PARTS, _bwd_launch
 
     B, S, H, KV, hd = TRAIN_B, TRAIN_S, 24, 8, 128
     g = torch.Generator(device="cuda").manual_seed(12)
@@ -2918,20 +2944,63 @@ def bwd_at_shape(errs: dict) -> dict:
             for _ in range(2))
     do = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
     o, L = flash_attention_lse(q, k, v)
-    got, t = kernel_ms(lambda: flash_attention_bwd_kernel(q, k, v, o, do, L), 5)
+
+    def tc_route():
+        return flash_attention_bwd_kernel(q, k, v, o, do, L)
+
+    def ffma():
+        # the CUDA-core kernel on the same bf16 inputs (the earlier design)
+        return _bwd_launch(q, k, v, o, do, L, True, 0, False)
+
+    n_tc = flash_attention_bwd_kernel.launches_tc
+    got, got_f = tc_route(), ffma()
+    check(flash_attention_bwd_kernel.launches_tc == n_tc + 1,
+          f"flash backward at {TRAIN_ARCH}'s shape: not on the tensor-core route")
     want, tp = kernel_ms(lambda: attention_bwd_ref(q, k, v, o, do, L), 2)
     err = 0.0
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
-        err = max(err, bwd_close(a, b, f"flash backward at {TRAIN_ARCH}'s shape {name}"))
+    for name, a, f, b in zip(("dq", "dk", "dv"), got, got_f, want):
+        err = max(err, bwd_close(a, b, f"flash backward (tensor-core) at {TRAIN_ARCH}'s "
+                                       f"shape {name}"),
+                  bwd_close(f, b, f"flash backward (FFMA) at {TRAIN_ARCH}'s shape {name}"))
     errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], err)
-    flips = sum(int((a != b.bfloat16()).sum()) for a, b in zip(got, want)) / sum(
-        a.numel() for a in got)
-    del want
+    n_out = sum(a.numel() for a in got)
+
+    def flip_rate(grads):
+        # the share of bf16 gradients that differ from the plain float32
+        # ones rounded to bf16
+        return sum(int((a.bfloat16() != b.bfloat16()).sum())
+                   for a, b in zip(grads, want)) / n_out
+
+    flips = {"tc": flip_rate(got), "ffma": flip_rate(got_f)}
+    for parts in (1, 2, 3):
+        flips[f"plain_{parts}_parts"] = flip_rate(
+            attention_bwd_ref(q, k, v, o, do, L, parts=parts))
+    del got, got_f, want
+    check(flips["tc"] <= flips["plain_1_parts"] / 4,
+          f"flash backward flip rate {flips['tc']} is over a quarter of rounding P "
+          f"and dS once ({flips['plain_1_parts']}): the products do not keep "
+          "float32 P and dS")
+    print(f"flash backward flip rates at {TRAIN_ARCH}'s shape (bf16 gradients that "
+          f"differ from the plain float32 ones rounded): tensor-core route "
+          f"({TC_PARTS} parts, summed in the wgmma accumulator across tiles) "
+          f"{flips['tc']:.6f}, FFMA kernel {flips['ffma']:.6f}; plain with P and dS "
+          f"rounded to bf16 once {flips['plain_1_parts']:.6f}, in 2 parts "
+          f"{flips['plain_2_parts']:.6f}, in 3 parts {flips['plain_3_parts']:.6f}",
+          flush=True)
+
+    # both kernels in turns (tc, ffma, ffma, tc)
+    turns = [kernel_ms(tc_route, 10)[1], kernel_ms(ffma, 2)[1],
+             kernel_ms(ffma, 2)[1], kernel_ms(tc_route, 10)[1]]
+    tc_windows = turns[0].windows + turns[3].windows
+    ffma_windows = turns[1].windows + turns[2].windows
+    ms, ffma_ms = statistics.median(tc_windows), statistics.median(ffma_windows)
     pairs = B * H * S * (S + 1) / 2
     nbytes = 8 * q.numel() * 2 + 4 * k.numel() * 2 + L.numel() * 4
     b_ms, b_by, b_pipe = bound(nbytes, sfu=pairs,
                                bf16_tc=(2 + 2 + 3 * 2 * TC_PARTS) * pairs * hd)
-    design = bound(nbytes, ffma=7 * pairs * hd, sfu=pairs)[0]
+    tc_design = bound(nbytes, sfu=pairs,
+                      bf16_tc=(2 * (2 + 2) + 3 * 2 * TC_PARTS) * pairs * hd)[0]
+    ffma_design = bound(nbytes, ffma=7 * pairs * hd, sfu=pairs)[0]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qx = q.transpose(1, 2).detach().requires_grad_()
     kx, vx = (t_.repeat_interleave(H // KV, dim=2).transpose(1, 2).detach()
@@ -2940,19 +3009,34 @@ def bwd_at_shape(errs: dict) -> dict:
     dox = do.transpose(1, 2)
     lib_ms = kernel_ms(lambda: torch.autograd.grad(out, (qx, kx, vx), dox,
                                                    retain_graph=True), 5)[1].ms
-    share = b_ms / t.ms
+    share = b_ms / ms
     check(share <= 1.05, f"flash backward runs at {share:.3f} of its bound")
+    ptxas = {}
+    for kern in ("dkdv_tc", "dq_tc"):
+        regs, store, load, _ = ptxas_report("flash_attention_bwd_tc", f"{kern}ILi{hd}E",
+                                            threads=384)
+        check(store == 0 and load == 0, f"{kern}<{hd}>: ptxas spills {store}/{load} bytes")
+        ptxas[kern] = {"registers": regs, "spill_store_bytes": store,
+                       "spill_load_bytes": load}
     print(f"flash_attention_bwd at {TRAIN_ARCH}'s shape (B={B}, S={S}, H={H}, "
-          f"KV={KV}, hd={hd}, bf16, causal; {CARD[0]}): {t.ms:.4f} ms per launch "
-          f"({fmt_windows(t)}), bound {b_ms:.4f} ms ({b_by}: {b_pipe}), share "
-          f"{share:.4f}; the FFMA design's bound {design:.4f} ms; plain "
-          f"{tp.ms:.4f} ms; library (scaled_dot_product_attention's backward, KV "
-          f"expanded, P rounded once) {lib_ms:.4f} ms; flip rate against the "
-          f"plain version {flips:.6f}; vs plain err {err:.3g}", flush=True)
-    return {"ms": t.ms, "windows": t.windows, "plain_ms": tp.ms, "bound_ms": b_ms,
-            "bound_by": b_by, "pipe": b_pipe, "share_of_bound": share,
-            "ffma_design_bound_ms": design, "library_ms": lib_ms, "flip_rate": flips,
-            "shape": [B, S, H, KV, hd]}
+          f"KV={KV}, hd={hd}, bf16, causal; {CARD[0]}): tensor-core route "
+          f"{ms:.4f} ms per launch (median of its windows; in turns "
+          f"{', '.join(f'{t_.ms:.4f}' for t_ in turns)}: tc, ffma, ffma, tc), bound "
+          f"{b_ms:.4f} ms ({b_by}: {b_pipe}), share {share:.4f}; the tensor-core "
+          f"design's bound {tc_design:.4f} ms (share {tc_design / ms:.4f}); FFMA "
+          f"kernel {ffma_ms:.4f} ms (its design's bound {ffma_design:.4f} ms); "
+          f"plain {tp.ms:.4f} ms; library (scaled_dot_product_attention's "
+          f"backward, KV expanded, P rounded once) {lib_ms:.4f} ms; vs plain err "
+          f"{err:.3g}; ptxas (launch bound 168, consumers 232 by setmaxnreg): "
+          f"{ptxas}", flush=True)
+    return {"ms": ms, "windows": tc_windows, "turns_ms": [t_.ms for t_ in turns],
+            "plain_ms": tp.ms, "bound_ms": b_ms, "bound_by": b_by, "pipe": b_pipe,
+            "share_of_bound": share, "tc_design_bound_ms": tc_design,
+            "ffma_design_bound_ms": ffma_design, "library_ms": lib_ms,
+            "flip_rates": flips, "ffma_kernel": {
+                "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                "ms": ffma_ms, "windows": ffma_windows},
+            "ptxas": ptxas, "shape": [B, S, H, KV, hd]}
 
 
 def _named_leaves(tree, prefix: str = ""):
@@ -2974,14 +3058,17 @@ def _step0_routes(cfg, params, batch) -> dict:
     tc = TrainConfig(remat="nothing")
     names, leaves = zip(*_named_leaves(params))
     flash_attention_kernel.launches = flash_attention_bwd_kernel.launches = 0
+    flash_attention_bwd_kernel.launches_tc = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     g_k, m_k = _grads(cfg, tc, params, list(leaves), batch)
     torch.cuda.synchronize()
     wall_k = time.perf_counter() - t
     fwd, bwd = flash_attention_kernel.launches, flash_attention_bwd_kernel.launches
-    check(fwd == 2 * cfg.num_layers and bwd == cfg.num_layers,
-          f"step 0 kernel route: {fwd} forward and {bwd} backward flash launches")
+    bwd_tc = flash_attention_bwd_kernel.launches_tc
+    check(fwd == 2 * cfg.num_layers and bwd == bwd_tc == cfg.num_layers,
+          f"step 0 kernel route: {fwd} forward and {bwd} backward flash launches "
+          f"({bwd_tc} on the tensor-core route)")
     t = time.perf_counter()
     with plain_attention():
         g_p, m_p = _grads(cfg, tc, params, list(leaves), batch)
@@ -3030,7 +3117,8 @@ def _instrumented_training(steps: list, profile_at: int):
     make, Pipe = train_mod.make_train_step, train_mod.Pipeline
 
     def counts():
-        return {k: f.launches for k, f in kernels.items()}
+        return {**{k: f.launches for k, f in kernels.items()},
+                "flash_attention_bwd_tc": flash_attention_bwd_kernel.launches_tc}
 
     class TimedPipeline(Pipe):
         def __call__(self):
@@ -3051,7 +3139,8 @@ def _instrumented_training(steps: list, profile_at: int):
             if len(steps) - 1 == profile_at:
                 holder = []
                 rec["profile"] = profile_run(f"{cfg.name} train step",
-                                             lambda: holder.append(step(state, batch)))
+                                             lambda: holder.append(step(state, batch)),
+                                             watch=("dkdv_tc", "dq_tc", "rows_kernel"))
                 return holder[0]
             c0 = counts()
             torch.cuda.synchronize()
@@ -3091,12 +3180,14 @@ def _train_main(cfg, tmp: str) -> dict:
     with _instrumented_training(steps, profile_at) as kernels:
         for kern in kernels.values():
             kern.launches = 0
+        kernels["flash_attention_bwd"].launches_tc = 0
         torch.cuda.synchronize()
         t = time.perf_counter()
         rc = train_mod.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        launches = {k: f.launches for k, f in kernels.items()}
+        launches = {**{k: f.launches for k, f in kernels.items()},
+                    "flash_attention_bwd_tc": kernels["flash_attention_bwd"].launches_tc}
     check(rc == 0 and len(steps) == TRAIN_STEPS, f"train: rc {rc}, {len(steps)} steps")
     L = cfg.num_layers
     for i, rec in enumerate(steps):
@@ -3106,9 +3197,10 @@ def _train_main(cfg, tmp: str) -> dict:
         if i == profile_at:
             continue
         sl = rec["step_launches"]
-        check(sl["flash_attention"] == 2 * L and sl["flash_attention_bwd"] == L,
+        check(sl["flash_attention"] == 2 * L
+              and sl["flash_attention_bwd"] == sl["flash_attention_bwd_tc"] == L,
               f"train step {i}: flash launches {sl}, want {2 * L} forward and "
-              f"{L} backward")
+              f"{L} backward, all on the tensor-core route")
         check(math.isfinite(rec["loss"]), f"train step {i}: loss {rec['loss']}")
         toks = TRAIN_B * TRAIN_S / (rec["step_ms"] / 1e3)
         rec["tokens_per_s"] = toks
@@ -3314,15 +3406,18 @@ def train_phase(errs: dict) -> tuple[dict, dict]:
     print(f"train phase: {out['phase_s']:.2f} s", flush=True)
     record = {
         "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
         "replaces": "src/repro/models/attention.py:129 (the autodiff of "
                     "blockwise_attention; no TPU kernel)",
         "launches": out["train"]["launches"]["flash_attention_bwd"],
+        "launches_tc": out["train"]["launches"]["flash_attention_bwd_tc"],
         "max_abs_err": errs["flash_attention_bwd"], "ms": shape["ms"],
         "plain_ms": shape["plain_ms"], "bound_ms": shape["bound_ms"],
         "bound_by": shape["bound_by"], "library_ms": shape["library_ms"],
+        "tc_design_bound_ms": shape["tc_design_bound_ms"],
         "ffma_design_bound_ms": shape["ffma_design_bound_ms"],
-        "share_of_bound": shape["share_of_bound"], "flip_rate": shape["flip_rate"],
+        "share_of_bound": shape["share_of_bound"], "flip_rates": shape["flip_rates"],
+        "ffma_kernel": shape["ffma_kernel"], "ptxas": shape["ptxas"],
         "shape": shape["shape"], "bf16_worst_share_of_tolerance": BWD_WORST[0],
     }
     return record, out

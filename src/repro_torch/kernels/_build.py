@@ -179,6 +179,17 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,               # stream
     ]
     lib.flash_attention_bwd_launch.restype = i
+    lib.flash_attention_bwd_tc_launch.argtypes = [
+        p, p, p, p, p,   # q, k, v, o, dout (bfloat16)
+        p, p,            # lse (the forward's L), the L and D scratch: B H 2 Spad float32
+        p, p, p,         # dq, dk, dv
+        i, i, i, i, i,   # B, S, H, KV, head_dim
+        p,               # 24 int64 (batch, seq, head) strides: q k v o dout dq dk dv
+        i, i,            # causal, window
+        ctypes.c_float,  # scale
+        p,               # stream
+    ]
+    lib.flash_attention_bwd_tc_launch.restype = i
 
 
 def load_library() -> ctypes.CDLL:

@@ -23,8 +23,10 @@ build or launch raises, and no route stands in for another.
 Training goes through :class:`FlashAttentionFn`, the autograd function
 around the kernels: its forward launches the kernel of the same route with
 each row's L = m + log(max(l, 1e-30)) requested (:func:`flash_attention_lse`),
-and its backward launches ``csrc/flash_attention_bwd.cu``
-(:func:`flash_attention_bwd_kernel`), never the plain backward.
+and its backward (:func:`flash_attention_bwd_kernel`) the backward kernel of
+the same route, never the plain backward: ``csrc/flash_attention_bwd_tc.cu``
+on ``"tc"`` (all five products on the tensor cores, P and dS float32 in
+``TC_PARTS`` bfloat16 parts), ``csrc/flash_attention_bwd.cu`` on ``"ffma"``.
 ``flash_attention_kernel`` takes that path whenever grad mode is on and an
 input requires grad; otherwise (serving, ``torch.no_grad()``) it launches
 what it always did, L not requested.
@@ -50,8 +52,12 @@ __all__ = ["HEAD_DIMS", "TC_HEAD_DIMS", "TC_PARTS", "FlashAttentionFn",
 # and the tensor-core kernel (csrc/flash_attention_tc.cu, bfloat16 only).
 HEAD_DIMS = (32, 64, 128, 256)
 TC_HEAD_DIMS = (64, 128)
-# bfloat16 parts of P in the tensor-core kernel's P·V (its PARTS).
+# bfloat16 parts of P in the tensor-core kernel's P·V (its PARTS), and of
+# P and dS in the tensor-core backward's dV, dK and dQ.
 TC_PARTS = 3
+# Rows a CTA of the tensor-core backward owns (BLK in
+# csrc/flash_attention_bwd_tc.cu): its L and D scratch pads S to a multiple.
+TC_BWD_ROWS = 128
 
 
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -75,6 +81,15 @@ def check_tc_layout(q: Tensor, k: Tensor, v: Tensor) -> None:
                     f"flash_attention: {arg}'s stride {t.stride(i)} (axis {i}) "
                     "is not a multiple of 16 bytes, which the tensor-core "
                     "route's TMA needs")
+
+
+def _tma_ready(t: Tensor) -> Tensor:
+    """``t`` if it is contiguous and 16-byte aligned (at head_dim 64 or 128
+    that meets :func:`check_tc_layout`'s rule), else a contiguous copy: the
+    backward's O and dO, which autograd may hand over in any layout."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _check(q: Tensor, k: Tensor, v: Tensor, window: int) -> None:
@@ -248,11 +263,15 @@ def flash_attention_bwd_kernel(
 ) -> tuple[Tensor, Tensor, Tensor]:
     """The flash function's gradient (dq, dk, dv), shaped and typed like q,
     k and v, from the forward's O and L and the output gradient ``do``, on
-    (B, S, H, hd) q and (B, S, KV, hd) k and v.  On CUDA tensors
-    ``csrc/flash_attention_bwd.cu`` (``.launches`` counts its launches: a
-    pre-pass and two kernels each); on CPU tensors
-    :func:`~repro_torch.kernels.ref.attention_bwd_ref`, rounded to the
-    input dtype."""
+    (B, S, H, hd) q and (B, S, KV, hd) k and v.  On CUDA tensors the
+    backward kernel of ``flash_route(q.dtype, head_dim)``: ``"tc"``,
+    ``csrc/flash_attention_bwd_tc.cu`` (q, k and v laid out as
+    :func:`check_tc_layout` requires, O and dO copied where they are not),
+    or ``"ffma"``, ``csrc/flash_attention_bwd.cu``.
+    ``.launches`` counts launches of both routes (a pre-pass and two
+    kernels each), ``.launches_tc`` those of the tensor-core route; on CPU
+    tensors :func:`~repro_torch.kernels.ref.attention_bwd_ref`, rounded to
+    the input dtype (CPU calls do not count)."""
     if q.device.type == "cpu":
         return tuple(g.to(t.dtype) for g, t in zip(
             attention_bwd_ref(q, k, v, o, do, lse, causal, window), (q, k, v)))
@@ -271,26 +290,50 @@ def flash_attention_bwd_kernel(
             or lse.device != q.device:
         raise TypeError("flash_attention_bwd: lse must be contiguous float32 on "
                         f"{q.device}")
-    o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (o, do))
+    return _bwd_launch(q, k, v, o, do, lse, causal, window,
+                       flash_route(q.dtype, hd) == "tc")
+
+
+def _bwd_launch(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor,
+                lse: Tensor, causal: bool, window: int,
+                tc: bool) -> tuple[Tensor, Tensor, Tensor]:
+    """One backward on checked (B, S, heads, hd) CUDA tensors: the
+    tensor-core kernel (``tc``: bfloat16 at head_dim 64 or 128) or the
+    CUDA-core kernel (either dtype, any head width of HEAD_DIMS)."""
+    B, S, H, hd = q.shape
+    if tc:
+        check_tc_layout(q, k, v)
+        o, do = _tma_ready(o), _tma_ready(do)
+    else:
+        o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (o, do))
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
                   for t in (q, k, v))
     if B * S * H == 0:
         return dq, dk, dv
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*[
         t.stride(i) for t in (q, k, v, o, do, dq, dk, dv) for i in range(3)])
     lib = _build.load_library()
+    if tc:
+        spad = -(-S // TC_BWD_ROWS) * TC_BWD_ROWS
+        scratch = torch.empty(B * H * 2 * spad, dtype=torch.float32, device=q.device)
+        name, fn, flag = "flash_attention_bwd_tc", lib.flash_attention_bwd_tc_launch, ()
+    else:
+        scratch = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        name, fn = "flash_attention_bwd", lib.flash_attention_bwd_launch
+        flag = (int(q.dtype == torch.bfloat16),)
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_bwd_launch(
+        rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), int(q.dtype == torch.bfloat16), B, S, H, k.shape[2], hd,
+            lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *flag, B, S, H, k.shape[2], hd,
             ctypes.addressof(strides), int(causal), int(window),
             1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream,
         )
-    _build.raise_on_error("flash_attention_bwd", rc)
+    _build.raise_on_error(name, rc)
     flash_attention_bwd_kernel.launches += 1
+    flash_attention_bwd_kernel.launches_tc += tc
     return dq, dk, dv
 
 
 flash_attention_bwd_kernel.launches = 0
+flash_attention_bwd_kernel.launches_tc = 0

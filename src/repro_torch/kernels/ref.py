@@ -489,17 +489,26 @@ def attention_bwd_ref(
     lse: Tensor,           # the forward's L: (B, H, S), or (BH, S)
     causal: bool = True,
     window: int = 0,
+    *,
+    parts: int | None = None,
 ) -> tuple[Tensor, Tensor, Tensor]:
     """The flash function's gradient (dq, dk, dv) in closed form, the plain
-    version of ``csrc/flash_attention_bwd.cu``:
+    version of ``csrc/flash_attention_bwd.cu`` and
+    ``csrc/flash_attention_bwd_tc.cu``:
 
         D = rowsum(dO ∘ O),  P = exp(S - L) (0 where masked),  dV = Pᵀ dO,
         dS = P ∘ (dO Vᵀ - D),  dQ = scale dS K,  dK = scale dSᵀ Q,
 
     with dK and dV summed over the G query heads of each KV head.  float32
     throughout (float64 on float64 inputs), and returned so: the caller
-    rounds to the input dtype.  Walks blocks of query rows like
-    :func:`attention_ref`, so its temporaries stay bounded at any S."""
+    rounds to the input dtype.  With ``parts``, P and dS pass through
+    :func:`split_bf16` and are summed back in float32 before the three
+    products that take them: at three parts that is the tensor-core
+    kernel's arithmetic (the function itself, to float32's last bit);
+    ``parts=1`` rounds P and dS to bfloat16 once, as the backward of
+    ``scaled_dot_product_attention`` does: another function, a yardstick
+    only.  Walks blocks of query rows like :func:`attention_ref`, so its
+    temporaries stay bounded at any S."""
     flat = q.dim() == 3
     if flat:
         q, k, v, o, do = (t[:, :, None] for t in (q, k, v, o, do))
@@ -524,9 +533,11 @@ def attention_bwd_ref(
         p = torch.exp(s - L[..., lo:hi, None])
         if causal:
             p = torch.where(_block_mask(lo, hi, k_lo, k_hi, window, q.device), p, 0.0)
-        dv[:, k_lo:k_hi] += torch.einsum("bkgqs,bqkgd->bskd", p, gb)
         dp = torch.einsum("bqkgd,bskd->bkgqs", gb, vb)
         ds = p * (dp - D[:, lo:hi].reshape(B, n, KV, G).permute(0, 2, 3, 1)[..., None])
+        if parts is not None:
+            p, ds = (sum(x.to(acc) for x in split_bf16(t, parts)) for t in (p, ds))
+        dv[:, k_lo:k_hi] += torch.einsum("bkgqs,bqkgd->bskd", p, gb)
         dq[:, lo:hi] = (torch.einsum("bkgqs,bskd->bqkgd", ds, kb) * scale
                         ).reshape(B, n, H, hd)
         dk[:, k_lo:k_hi] += torch.einsum("bkgqs,bqkgd->bskd", ds, qb) * scale

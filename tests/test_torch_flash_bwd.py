@@ -1,10 +1,16 @@
 """The flash attention gradient on the CPU: ``attention_bwd_ref`` (the plain
-version of ``csrc/flash_attention_bwd.cu``) against ``jax.vjp`` of the JAX
+version of ``csrc/flash_attention_bwd.cu`` and
+``csrc/flash_attention_bwd_tc.cu``) against ``jax.vjp`` of the JAX
 package's ``flash_attention_ref`` and against torch autograd of
-``attention_ref``; ``attention_lse_ref``'s O and L; ``FlashAttentionFn``
-under ``gradcheck`` in float64; and attention's gradient reaching the
-projections through the model's plain route.  Tolerance: float32 within
-1e-4 of max|want| (the model tests' rule); O bitwise."""
+``attention_ref``; its split form (``parts``: P and dS in bfloat16 parts,
+the tensor-core kernel's arithmetic) against the function and against P
+and dS rounded once; ``attention_lse_ref``'s O and L; ``FlashAttentionFn``
+under ``gradcheck`` in float64; the backward's route rule and layout
+checks; and attention's gradient reaching the projections through the
+model's plain route.  Tolerance: float32 within 1e-4 of max|want| (the
+model tests' rule), the split form within 1e-5; O bitwise."""
+
+import math
 
 import jax
 import jax.numpy as jnp
@@ -21,7 +27,9 @@ from repro_torch.kernels import (
     attention_ref,
     flash_attention_bwd_kernel,
     flash_attention_kernel,
+    flash_route,
 )
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import forward, init_params, lm_loss
 from repro_torch.models.layers import tree_leaves
 
@@ -169,3 +177,84 @@ def test_forward_under_autograd_gives_the_projections_gradients():
     lm_loss(cfg, logits, toks.roll(-1, 1)).backward()
     for name in ("w_q", "w_k", "w_v", "w_o", "q_norm", "k_norm"):
         assert attn[name].grad is not None and bool(attn[name].grad.abs().sum() > 0), name
+
+
+def _dense_bwd(q, k, v, o, do, L, causal, window, rnd):
+    """The gradient in one dense pass, KV heads expanded, with ``rnd``
+    applied to P and dS before the three products that take them."""
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    kx, vx = (t.repeat_interleave(G, dim=2) for t in (k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kx) / math.sqrt(hd)
+    p = torch.exp(s - L[..., None])
+    i = torch.arange(S)
+    keep = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        keep = (i[:, None] >= i[None]) & ((i[:, None] - i[None] < window) | (window == 0))
+    p = torch.where(keep, p, 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vx)
+    ds = p * (dp - (do * o).sum(-1).transpose(1, 2)[..., None])
+    p, ds = rnd(p), rnd(ds)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do).reshape(B, S, -1, G, hd).sum(3)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kx) / math.sqrt(hd)
+    dk = (torch.einsum("bhqk,bqhd->bkhd", ds, q) / math.sqrt(hd)
+          ).reshape(B, S, -1, G, hd).sum(3)
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_split_backward_at_three_parts_is_the_function(causal, window):
+    """P and dS in three bf16 parts summed back in float32 (the tensor-core
+    kernel's arithmetic) give the function: within 1e-5 of max|want|."""
+    q, k, v, do = (torch.from_numpy(a) for a in _qkv(2, 21, 6, 2, 16, seed=7))
+    o, L = attention_lse_ref(q, k, v, causal, window)
+    want = attention_bwd_ref(q, k, v, o, do, L, causal, window)
+    got = attention_bwd_ref(q, k, v, o, do, L, causal, window, parts=3)
+    for g, w in zip(got, want):
+        _close(g, w, 1e-5)
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_split_backward_at_one_part_rounds_p_and_ds_once(causal, window):
+    """One part is P and dS rounded to bf16 once (scaled_dot_product_attention's
+    backward): the dense closed form with that rounding, within 1e-5 of
+    max|want|, and not the function."""
+    q, k, v, do = (torch.from_numpy(a) for a in _qkv(2, 21, 6, 2, 16, seed=8))
+    o, L = attention_lse_ref(q, k, v, causal, window)
+    got = attention_bwd_ref(q, k, v, o, do, L, causal, window, parts=1)
+    want = _dense_bwd(q, k, v, o, do, L, causal, window,
+                      lambda x: x.to(torch.bfloat16).float())
+    exact = attention_bwd_ref(q, k, v, o, do, L, causal, window)
+    for g, w, e in zip(got, want, exact):
+        _close(g, w, 1e-5)
+        assert float((g - e).abs().max()) > 1e-4 * float(e.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_backward_takes_the_forwards_route(monkeypatch, dtype, hd):
+    """On a device other than the CPU the backward launches the kernel of
+    ``flash_route(dtype, head_dim)``: the tensor-core kernel for bf16 at
+    hd 64/128, the FFMA kernel for the rest (meta tensors stand in for the
+    card; the launch is recorded, not made)."""
+    seen = []
+    monkeypatch.setattr(fa, "_bwd_launch", lambda *a: seen.append(a[-1]))
+    q = torch.empty((1, 8, 4, hd), dtype=dtype, device="meta")
+    k = v = torch.empty((1, 8, 2, hd), dtype=dtype, device="meta")
+    L = torch.empty((1, 4, 8), dtype=torch.float32, device="meta")
+    flash_attention_bwd_kernel(q, k, v, q, q, L)
+    want = dtype == torch.bfloat16 and hd in (64, 128)
+    assert seen == [want] and (flash_route(dtype, hd) == "tc") == want
+
+
+def test_tma_ready_copies_what_is_not_contiguous_and_aligned():
+    """O and dO reach the tensor-core backward as they are when contiguous
+    and 16-byte aligned, else as a contiguous copy with the same values."""
+    base = torch.randn(2, 16, 4, 128).to(torch.bfloat16)
+    assert fa._tma_ready(base) is base
+    for odd in (torch.randn(2, 16, 4, 130).to(torch.bfloat16)[..., :128],
+                base.flatten()[1:1 + base.numel() // 2].view(2, 8, 4, 128),
+                torch.ones(1, 1, 1, 1).to(torch.bfloat16).expand(2, 16, 4, 128)):
+        ready = fa._tma_ready(odd)
+        assert ready is not odd and torch.equal(ready, odd)
+        fa.check_tc_layout(ready, ready, ready)      # TMA takes the copy

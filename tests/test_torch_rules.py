@@ -143,18 +143,20 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_every_kernel_source_is_built():
-    """The build compiles every ``csrc/*.cu``, the sieve's table and the
-    flash backward included, and each source has a wrapper that counts its
-    launches."""
+    """The build compiles every ``csrc/*.cu``, the sieve's table and both
+    flash backward routes included, and each source has a wrapper that
+    counts its launches."""
     from repro_torch.kernels import _build
 
     built = {p.name for p in _build.CSRC.glob("*.cu")}
     assert {"ss_divergence.cu", "feature_gains.cu", "fl_divergence.cu",
             "fl_stream.cu", "flash_attention.cu", "flash_attention_tc.cu",
-            "sieve_gains.cu", "flash_attention_bwd.cu"} == built
+            "sieve_gains.cu", "flash_attention_bwd.cu",
+            "flash_attention_bwd_tc.cu"} == built
     text = Path(_build.__file__).read_text()
     assert "lib.sieve_gains_launch.argtypes" in text
     assert "lib.flash_attention_bwd_launch.argtypes" in text
+    assert "lib.flash_attention_bwd_tc_launch.argtypes" in text
 
 
 FL_OBJECTIVES = {

@@ -1,6 +1,7 @@
 """The port's training path on the CPU against the JAX package: ``lm_loss``;
-the loss and every gradient leaf of the smoke configs of five block
-families against ``jax.value_and_grad`` of the reference ``_loss_fn``; the
+the loss and every gradient leaf of the smoke configs of ten
+architectures (every block family, qk-norm, QKV bias, top-1 routing with a
+shared expert, patch inputs) against ``jax.value_and_grad`` of the reference ``_loss_fn``; the
 remat policies; AdamW and Adafactor against the reference's ``update``;
 ``lr_schedule``; microbatching; three steps of ``make_train_step`` against
 the JAX step; the runtime's straggler guard; and ``launch/train.py`` with a
@@ -37,7 +38,8 @@ from repro_torch.train import trainer as ttr
 from repro_torch.train.checkpoint import _flatten_with_names
 
 GRAD_ARCHS = ["llama3.2-3b", "olmoe-1b-7b", "mamba2-780m", "recurrentgemma-2b",
-              "musicgen-large"]
+              "musicgen-large", "qwen3-4b", "starcoder2-3b", "qwen2-7b",
+              "llama4-maverick-400b-a17b", "internvl2-76b"]
 
 
 @pytest.fixture
@@ -83,7 +85,11 @@ def _batch(cfg, B=2, S=12, seed=1):
     toks = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
     labels = rng.integers(0, cfg.vocab_size, shape).astype(np.int32)
     labels[0, :2] = -1                     # masked positions
-    return {"tokens": toks, "labels": labels}
+    batch = {"tokens": toks, "labels": labels}
+    if cfg.input_mode == "tokens+patches":  # precomputed patch embeddings
+        batch["patches"] = rng.standard_normal(
+            (B, cfg.num_patches, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def _named(tree_np):

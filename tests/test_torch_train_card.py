@@ -1,7 +1,10 @@
-"""Training's kernels on the card: the flash backward kernel against its
-plain version, the flash forward's L, attention's gradient through
-``FlashAttentionFn`` in a 2-layer llama3.2-shaped model against the plain
-route, and the SS-selected pipeline's picks against the plain route's.
+"""Training's kernels on the card: the flash backward kernels against their
+plain version, each on its route (the tensor-core kernel for bf16 at
+head_dim 64/128, FFMA for the rest), the tensor-core route's flip rate
+against rounding P and dS once, the flash forward's L, attention's
+gradient through ``FlashAttentionFn`` in a 2-layer llama3.2-shaped model
+against the plain route, and the SS-selected pipeline's picks against the
+plain route's.
 These tests need a CUDA card (marker ``cuda``) and skip without one; they
 import nothing of JAX:
 
@@ -23,6 +26,7 @@ from repro_torch.kernels import (
     flash_attention_bwd_kernel,
     flash_attention_kernel,
     flash_attention_lse,
+    flash_route,
 )
 from repro_torch.models import forward, init_params, lm_loss
 from repro_torch.models import attention as attn
@@ -60,13 +64,41 @@ def test_backward_kernel_matches_plain(card, dtype, hd, G, S, causal, window):
     assert torch.equal(o, flash_attention_kernel(q, k, v, causal=causal,
                                                  window=window))
     do = torch.randn(q.shape, generator=g, device=card).to(dtype)
-    n = flash_attention_bwd_kernel.launches
+    n, n_tc = flash_attention_bwd_kernel.launches, flash_attention_bwd_kernel.launches_tc
     got = flash_attention_bwd_kernel(q, k, v, o, do, L, causal=causal, window=window)
     assert flash_attention_bwd_kernel.launches == n + 1
+    tc = dtype == torch.bfloat16 and hd in (64, 128)
+    assert flash_route(dtype, hd) == ("tc" if tc else "ffma")
+    assert flash_attention_bwd_kernel.launches_tc == n_tc + tc
     want = attention_bwd_ref(q, k, v, o, do, L, causal, window)
     for name, a, b in zip("qkv", got, want):
         assert a.dtype == dtype
         _bwd_close(a, b, f"d{name} {dtype} hd={hd} G={G} S={S}")
+
+
+@pytest.mark.cuda
+def test_tc_backward_flips_under_a_quarter_of_rounding_once(card):
+    """The tensor-core route keeps P and dS in float32 (three bf16 parts):
+    its bf16 gradients differ from the plain float32 ones rounded at most a
+    quarter as often as the plain version's with P and dS rounded once."""
+    g = torch.Generator(device=card).manual_seed(3)
+    B, S, H, KV, hd = 2, 1024, 6, 2, 128
+    q = torch.randn((B, S, H, hd), generator=g, device=card).bfloat16()
+    k, v = (torch.randn((B, S, KV, hd), generator=g, device=card).bfloat16()
+            for _ in range(2))
+    do = torch.randn(q.shape, generator=g, device=card).bfloat16()
+    o, L = flash_attention_lse(q, k, v)
+    n_tc = flash_attention_bwd_kernel.launches_tc
+    got = flash_attention_bwd_kernel(q, k, v, o, do, L)
+    assert flash_attention_bwd_kernel.launches_tc == n_tc + 1
+    want = [w.bfloat16() for w in attention_bwd_ref(q, k, v, o, do, L)]
+    once = attention_bwd_ref(q, k, v, o, do, L, parts=1)
+    n = sum(w.numel() for w in want)
+
+    def flips(grads):
+        return sum(int((a.bfloat16() != w).sum()) for a, w in zip(grads, want)) / n
+
+    assert flips(got) <= flips(once) / 4
 
 
 @pytest.mark.cuda
