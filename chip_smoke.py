@@ -40,7 +40,15 @@ decisions are held to the plain table's (full size on FeatureCoverage,
 n = 4096 on all three, where one shot, two halves and per-element updates
 agree bit for bit; on path B at full size an element's similarity column
 is checked to have one set of bits wherever it sits in its block), and the
-row sieve runs over 2^14 rows against the index sieve.  Batched
+row sieve runs over 2^14 rows against the index sieve.  Each path's
+``sieve_gains`` launches in the legacy run are recorded as a histogram of
+(sieves, columns, columns due from the starts), and the sieve's kernels
+timed on that mix (profiler); ``sieve_gains`` is timed at each path's
+record shape and at a re-launch the run really made, by route
+(FeatureCoverage's sparse walk over W's nonzeros, its dense blocks
+through the tile, held to each other bit for bit on the same rows at full
+size), with ptxas' registers and spills and the facility location tile's
+SASS a term.  Batched
 execution runs as the summarization service's lanes: the first 2^19
 sentences of the news day as 8 queries of 2^16 (a view, no new bytes) and
 4 queries of 2^13 frames of path A's video (cosine, 1 GiB of stacked
@@ -116,6 +124,7 @@ runs only the service's first coverage chunk in a fresh process
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import itertools
 import json
@@ -847,14 +856,16 @@ def profile_run(label: str, call, watch: tuple[str, ...] = (), top: int = 8) -> 
           f"{busy_ms:.4f} ms, idle share {1 - busy_ms / wall_ms:.4f}")
     for us, key, count in by_kernel[:top]:
         print(f"  {us / 1e3:10.4f} ms  x{count:<4d} {key[:90]}")
+    watched = {}
     for name in watch:
         if name.startswith("aten::"):
             hits = [(e.device_time_total, e.count) for e in events if e.key == name]
         else:
             hits = [(us, count) for us, key, count in by_kernel if name in key]
-        print(f"  {name}: {sum(us for us, _ in hits) / 1e3:.4f} ms of device time "
+        watched[name] = sum(us for us, _ in hits) / 1e3
+        print(f"  {name}: {watched[name]:.4f} ms of device time "
               f"over {sum(count for _, count in hits)} calls")
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms}
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "watched_ms": watched}
 
 
 def ss_bounds(n: int, f: int, m: int, nnz: int) -> tuple[float, str, str, float]:
@@ -1147,6 +1158,7 @@ def _sieve_reset() -> None:
 
     sieve_extend.chunks = sieve_extend.rounds = sieve_extend.host_reads = 0
     sieve_gains_kernel.launches = 0
+    sieve_gains_kernel.launches_sparse = sieve_gains_kernel.launches_tile = 0
 
 
 def _sieve_read() -> dict:
@@ -1155,7 +1167,9 @@ def _sieve_read() -> dict:
 
     return {"chunks": sieve_extend.chunks, "rounds": sieve_extend.rounds,
             "host_reads": sieve_extend.host_reads,
-            "sieve_gains_launches": sieve_gains_kernel.launches}
+            "sieve_gains_launches": sieve_gains_kernel.launches,
+            "sieve_gains_sparse_launches": sieve_gains_kernel.launches_sparse,
+            "sieve_gains_tile_launches": sieve_gains_kernel.launches_tile}
 
 
 def _same_bits(a, b) -> bool:
@@ -1176,6 +1190,70 @@ def _same_decisions(a, b, what: str) -> None:
              f"{b.sel[j].tolist() if j >= 0 else ''}")
 
 
+def _record_launches(call):
+    """``call()`` with each ``sieve_gains`` launch on the card recorded as
+    (sieves, columns, start): the start tensor the walk passed, kept as is
+    (no copy, no host read, so the run's timing and its launches are the
+    unrecorded run's).  Returns call's result and the records."""
+    from repro_torch.kernels import sieve_gains as sg
+
+    seen, launch = [], sg._launch
+
+    def recorded(S, el, start):
+        seen.append((S.shape[0], el.idx.shape[0], start))
+        return launch(S, el, start)
+
+    sg._launch = recorded
+    try:
+        return call(), seen
+    finally:
+        sg._launch = launch
+
+
+def launch_mix(what: str, seen) -> dict:
+    """The histogram of a run's ``sieve_gains`` launches: chunk launches
+    (every live sieve, no start) by columns, re-launches (the sieves that
+    changed in a round, with starts) by sieves and by columns, the columns
+    due in each (from the earliest start to the zero element), the entries
+    due in all, and the re-launch that ``sieve_gains_record`` times: at the
+    widest chunk any re-launch reached, one with the most frequent number
+    of sieves there (the median by columns due), its sieves and starts."""
+    first = collections.Counter((R, n) for R, n, st in seen if st is None)
+    again = [(R, n, n - int(st.min()), st) for R, n, st in seen if st is not None]
+    buckets = ("1", "2", "3-4", "5-8", "9-16", "17-32", "33+")
+    by_r = collections.Counter(
+        next(b for b in buckets if b == "33+" or R <= int(b.split("-")[-1]))
+        for R, _, _, _ in again)
+    by_n = collections.Counter(n for _, n, _, _ in again)
+    entries = sum(R * n for (R, n), c in first.items() for _ in range(c)) + sum(
+        R * due for R, _, due, _ in again)
+    widest = max((n for _, n, _, _ in again), default=0)
+    at_w = [a for a in again if a[1] == widest]
+    pick = None
+    if at_w:
+        r_mode = collections.Counter(R for R, _, _, _ in at_w).most_common(1)[0][0]
+        cands = sorted((a for a in at_w if a[0] == r_mode), key=lambda a: a[2])
+        pick = cands[len(cands) // 2]
+    mix = {"chunk_launches": {f"{R}x{n}": c for (R, n), c in sorted(first.items(),
+                                                                     key=lambda x: x[0][1])},
+           "relaunches": len(again),
+           "relaunch_sieves": {b: by_r[b] for b in buckets if by_r[b]},
+           "relaunch_columns": dict(sorted(by_n.items())),
+           "relaunch_due_share": (sum(d for _, _, d, _ in again)
+                                  / max(1, sum(n for _, n, _, _ in again))),
+           "entries_due": entries, "widest_relaunch": widest,
+           "timed_relaunch": None if pick is None else {
+               "sieves": pick[0], "columns": pick[1], "due": pick[2],
+               "starts": pick[3].tolist()}}
+    print(f"{what} launches: {sum(first.values())} chunk launches "
+          f"({', '.join(f'{k} x{v}' for k, v in mix['chunk_launches'].items())}; "
+          f"sieves x columns), {len(again)} re-launches with starts (by sieves "
+          f"{mix['relaunch_sieves']}; by columns {mix['relaunch_columns']}; "
+          f"{mix['relaunch_due_share']:.4f} of their columns due); "
+          f"{entries} entries due in all", flush=True)
+    return mix
+
+
 def sieve_phase(label: str, fn, f_full: float, wall_full: float, eps=None,
                 plain: bool = False) -> dict:
     """``sieve_streaming(fn, K)`` (legacy, 50 thresholds, or ``eps``) at
@@ -1194,8 +1272,10 @@ def sieve_phase(label: str, fn, f_full: float, wall_full: float, eps=None,
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     _sieve_reset()
-    res, wall = _synced(lambda: sieve_streaming(fn, K, eps=eps))
+    (res, wall), seen = _record_launches(
+        lambda: _synced(lambda: sieve_streaming(fn, K, eps=eps)))
     counts = _sieve_read()
+    mix = launch_mix(what, seen)
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
     T = res.thresholds.shape[0]
     rel = float(res.value) / f_full
@@ -1208,12 +1288,13 @@ def sieve_phase(label: str, fn, f_full: float, wall_full: float, eps=None,
     check(counts["sieve_gains_launches"] > 0, f"{what}: never launched sieve_gains")
     again = []
     prof = profile_run(what, lambda: again.append(sieve_streaming(fn, K, eps=eps)),
-                       watch=("sieve_gains",), top=6)
+                       watch=("::sieve_",), top=6)
     check(_same_bits(again[0], res), f"{what}: a rerun gives other bits")
     busy = prof.get("busy_ms")
+    mix["sieve_kernels_ms"] = prof.get("watched_ms", {}).get("::sieve_")
     out = {"T": T, "relative": rel, "wall_s": wall, "greedy_on_V_wall_s": wall_full,
            "busy_ms": busy, "wall_ms_profiled": prof.get("wall_ms"),
-           "peak_above_objective_gib": peak, **counts}
+           "peak_above_objective_gib": peak, **counts, "launch_mix": mix}
     line = (f"{what}: T = {T}, f(S) = {float(res.value):.6f}, relative to greedy "
             f"on V {rel:.6f}; wall {wall:.4f} s (host clock, synchronised; greedy "
             f"on V {wall_full:.4f} s); device busy "
@@ -1221,8 +1302,12 @@ def sieve_phase(label: str, fn, f_full: float, wall_full: float, eps=None,
                f"{busy:.4f} ms, idle share {1 - busy / prof['wall_ms']:.4f}")
             + f" (profiler, a rerun: same bits); {counts['chunks']} chunks, "
             f"{counts['rounds']} rounds, {counts['host_reads']} host reads, "
-            f"{counts['sieve_gains_launches']} sieve_gains launches; peak "
-            f"{peak:.3f} GiB above the objective")
+            f"{counts['sieve_gains_launches']} sieve_gains launches "
+            f"({counts['sieve_gains_sparse_launches']} sparse route, "
+            f"{counts['sieve_gains_tile_launches']} tile); the sieve's kernels "
+            + ("not measured" if mix["sieve_kernels_ms"] is None else
+               f"{mix['sieve_kernels_ms']:.4f} ms of device time on that mix")
+            + f"; peak {peak:.3f} GiB above the objective")
     if plain:
         stream = torch.arange(fn.n, device="cuda")
         card = sieve_extend(fn, sieve_init(fn, K, eps=eps), stream)
@@ -1236,20 +1321,112 @@ def sieve_phase(label: str, fn, f_full: float, wall_full: float, eps=None,
     return out
 
 
-def sieve_gains_record(label: str, fn, states) -> dict:
+def sieve_sass() -> dict:
+    """What the card issues for facility location's term: the SASS of the
+    tile's facility-location instance over columns (``cuobjdump -sass`` of
+    the built library), the loop that holds the most FMNMX (the segment
+    loop; one FMNMX a term), and in it the FMNMX, FADD and LDS counts and
+    every instruction a term: static counts, in which the staging's
+    branches count whether or not they run."""
+    from repro_torch.kernels._build import BUILD_DIR, _nvcc
+
+    sass = subprocess.run(
+        [str(Path(_nvcc()).parent / "cuobjdump"), "-sass",
+         str(BUILD_DIR / "libkernels.so")],
+        check=True, capture_output=True, text=True, timeout=300).stdout
+    body = [f for f in re.split(r"\n\s*Function : ", sass)
+            if f.split("\n", 1)[0].strip().find("sieve_tileILi0ELb1ELb1E") >= 0]
+    check(len(body) == 1, "sieve_gains: no single SASS body of the FL tile")
+    ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9]*)([^;]*);",
+        body[0])]
+    loops = []
+    for a, op, rest in ins:
+        to = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if to and int(to.group(1), 16) < a:
+            span = [o for b, o, _ in ins if int(to.group(1), 16) <= b <= a]
+            loops.append((span.count("FMNMX"), span))
+    check(loops and max(loops)[0] > 0, "sieve_gains: no loop of FMNMX in the FL tile")
+    span = max(loops, key=lambda x: x[0])[1]
+    n = {op: span.count(op) for op in ("FMNMX", "FADD", "LDS")}
+    per_term = len(span) / n["FMNMX"]
+    print(f"sieve_gains FL tile SASS: the segment loop holds {len(span)} "
+          f"instructions, FMNMX {n['FMNMX']}, FADD {n['FADD']}, LDS {n['LDS']}: "
+          f"{per_term:.4f} a term (static)", flush=True)
+    return {"loop_instructions": len(span), **n, "issued_per_term": per_term}
+
+
+def sieve_ptxas() -> dict:
+    """Registers and spills of the sieve's kernels (ptxas, this build)."""
+    out = {}
+    for name, entry, threads in (("tile FL", "sieve_tileILi0ELb1ELb1E", 256),
+                                 ("tile sqrt", "sieve_tileILi0ELb0ELb0E", 256),
+                                 ("sparse sqrt", "sieve_sparseILi0E", 256),
+                                 ("zero tree sqrt", "sieve_zero_treeILi0E", 256)):
+        regs, store, load, per_sm = ptxas_report("sieve_gains", entry, threads)
+        out[name] = {"registers": regs, "spill_store_bytes": store,
+                     "spill_load_bytes": load, "blocks_per_sm_by_registers": per_sm}
+    print("sieve_gains ptxas: " + "; ".join(
+        f"{k} {v['registers']} registers, spills {v['spill_store_bytes']}/"
+        f"{v['spill_load_bytes']} bytes" for k, v in out.items()), flush=True)
+    return out
+
+
+def sieve_routes_check(fn, el, C: int, rows) -> dict:
+    """FeatureCoverage's two routes on the same rows at full size: blocks
+    of SIEVE_SPARSE_BLOCK - 1 chunk rows and a sparse last one (every block
+    sparse), then the same blocks with a dense last row (every block dense,
+    through the tile): the kernel's own flags say so and the chunk rows'
+    entries are equal bit for bit.  Returns the routes' block counts and
+    the dense route's ms."""
+    from repro_torch.kernels import sieve_gains as sg
+    from repro_torch.kernels import sieve_gains_kernel
+
+    B = sg.SIEVE_SPARSE_BLOCK
+    nb = C // (B - 1)
+    E = torch.cat([el.E[:C], torch.ones((1, el.E.shape[1]), device="cuda")])
+    base = torch.arange(nb * (B - 1), device="cuda").reshape(nb, B - 1)
+    ia = torch.cat([base, base[:, :1]], 1).flatten()
+    ib = torch.cat([base, torch.full((nb, 1), C, device="cuda")], 1).flatten()
+    ea, eb = el._replace(E=E, idx=ia), el._replace(E=E, idx=ib)
+    out_a, fa = sg._launch(rows, ea, None)
+    out_b, fb = sg._launch(rows, eb, None)
+    torch.cuda.synchronize()
+    keep = (torch.arange(nb * B, device="cuda") % B) != B - 1
+    sparse_a, dense_b = int((fa == 0).sum()), int((fb == 1).sum())
+    check(sparse_a == nb and dense_b == nb,
+          f"FeatureCoverage sieve routes: {sparse_a} of {nb} blocks sparse, "
+          f"{dense_b} of {nb} dense where all should be")
+    check(torch.equal(out_a[:, keep], out_b[:, keep]),
+          "FeatureCoverage sieve routes: the sparse and dense loops give "
+          "different bits for the same rows")
+    _, t = kernel_ms(lambda: sieve_gains_kernel(rows, eb), 3)
+    print(f"FeatureCoverage sieve routes at full size ({rows.shape[0]} sieves x "
+          f"{nb} blocks of {B - 1} chunk rows): {nb} blocks sparse, then {nb} "
+          f"dense with a dense last row; the chunk rows' entries equal bit for "
+          f"bit; the dense route {t.ms:.4f} ms a launch", flush=True)
+    return {"blocks": nb, "dense_route_ms": t.ms}
+
+
+def sieve_gains_record(label: str, fn, states, relaunch: dict) -> dict:
     """``sieve_gains`` against its plain version at the path's shapes: the
     empty state and T sieve states (a finished run's) against the route's
-    largest chunk and the zero element, timed by ``kernel_ms``, with its
-    bound: S, the chunk's elements and the table moved once; per (sieve,
-    element, leaf) facility location's max and add.  FeatureCoverage's
-    counts what these inputs need: the tree's add per (sieve, element,
-    leaf), and phi (sqrt: a special function) with an add and a multiply
-    only where W's entry is not 0 (a zero leaf's term is w phi(s), once per
-    sieve and leaf); the dense bound (every term's phi) beside.  Facility
-    location's table must equal the plain one bit for bit (one order, exact
-    operations); FeatureCoverage's within TOL of the table's size
-    (sqrt.approx against IEEE sqrt)."""
+    largest chunk and the zero element, and a re-launch that the legacy run
+    made (``launch_mix``'s ``timed_relaunch``: its chunk's width, its number
+    of sieves, taken from those states, and its starts), timed by ``kernel_ms``,
+    with its bound: S, the chunk's elements and the table moved once; per
+    (sieve, element, leaf) facility location's max and add.
+    FeatureCoverage's (the sparse route) counts what these inputs need:
+    L/32 adds an entry, each nonzero's term (phi, an add and a multiply)
+    and the 5 adds up its path a sieve, and the zero tree once a sieve and
+    leaf; beside it the full-tree bound (the tree's add per (sieve, element,
+    leaf), phi at the nonzeros and once a sieve and leaf) and the dense bound
+    (every term's phi).  Facility location's table must equal the plain one
+    bit for bit (one order, exact operations); FeatureCoverage's within TOL
+    of the table's size (sqrt.approx against IEEE sqrt), and its sparse
+    route's blocks are counted from the kernel's flags."""
     from repro_torch.core.sieve import MAX_CHUNK
+    from repro_torch.kernels import sieve_gains as sg
     from repro_torch.kernels import sieve_gains_kernel, sieve_gains_ref
 
     C = min(fn.sieve_chunk() or MAX_CHUNK, MAX_CHUNK, fn.n)
@@ -1274,31 +1451,89 @@ def sieve_gains_record(label: str, fn, states) -> dict:
     else:
         check(bitwise, f"{label} sieve_gains: the table is not the plain one bit "
               f"for bit (max err {err})")
+    t_checks = time.perf_counter()
+    # a re-launch the run made: its chunk's width, its sieves and starts
+    check(relaunch is not None, f"{label} sieve_gains: the legacy run made no re-launch")
+    n4 = relaunch["columns"]
+    el4 = el if n4 == cols else fn.sieve_elements(torch.arange(n4 - 1, device="cuda"))
+    r4 = rows[1:1 + relaunch["sieves"]].contiguous()
+    st = torch.tensor(relaunch["starts"], device="cuda")
+    out4, t4 = kernel_ms(lambda: sieve_gains_kernel(r4, el4, st), 3)
+    due = ((torch.arange(n4, device="cuda")[None, :] >= st[:, None])
+           | (el4.idx == -1)[None, :])
+    ref4 = torch.where(due, sieve_gains_ref(r4, el4.E, el4.idx, cols=el4.cols,
+                                            phi=el4.phi, feat_w=el4.feat_w,
+                                            cap=el4.cap), 0.0)
+    got4 = torch.where(due, out4, 0.0)
+    err4 = float((got4 - ref4).abs().max())
+    if fc:
+        check(err4 <= TOL[torch.float32] * scale,
+              f"{label} sieve_gains re-launch: err {err4} > TOL x {scale}")
+    else:
+        check(torch.equal(got4, ref4), f"{label} sieve_gains re-launch: not the "
+              f"plain table bit for bit (max err {err4})")
     terms = R_ * cols * L
     bytes_ = (R_ * L + C * L + R_ * cols) * 4
+    # the re-launch needs row r's columns from its start (and the zero element)
+    due_r = [n4 - x for x in relaunch["starts"]]
+    bytes4 = (r4.shape[0] * L + relaunch["due"] * L + sum(due_r)) * 4
     sqrt = fc and el.phi == "sqrt"
+    routes = None
     if fc:
         nnz = int(torch.count_nonzero(el.E[:C]))
-        b_ms, b_by, b_pipe = bound(bytes_, fp32=terms + 2 * R_ * (nnz + L),
-                                   sfu=R_ * (nnz + L) if sqrt else 0)
+        segs = -(-L // 32)
+
+        def sparse_bound(r, b):
+            return bound(b, fp32=r * cols * segs + 7 * r * nnz + 4 * r * L,
+                         sfu=r * (nnz + L) if sqrt else 0)
+
+        b_ms, b_by, b_pipe = sparse_bound(R_, bytes_)
+        row_nnz = torch.count_nonzero(el.E[:n4 - 1], dim=1).flip(0).cumsum(0).flip(0)
+        nnz4 = sum(int(row_nnz[x]) for x in relaunch["starts"] if x < n4 - 1)
+        b4 = bound(bytes4, fp32=sum(due_r) * segs + 7 * nnz4 + 4 * r4.shape[0] * L,
+                   sfu=nnz4 + r4.shape[0] * L if sqrt else 0)[0]
+        full_tree = bound(bytes_, fp32=terms + 2 * R_ * (nnz + L),
+                          sfu=R_ * (nnz + L) if sqrt else 0)[0]
         dense = bound(bytes_, fp32=3 * terms, sfu=terms if sqrt else 0)[0]
+        _, flags = sg._launch(rows, el, None)
+        routes = {"sparse_blocks": int((flags == 0).sum()),
+                  "dense_blocks": int((flags == 1).sum())}
+        routes.update(sieve_routes_check(fn, el, C, rows))
     else:
         nnz = None
         b_ms, b_by, b_pipe = bound(bytes_, fp32=2 * terms)
-        dense = b_ms
-    SIEVE["errs"].append(err)
+        b4 = bound(bytes4, fp32=2 * sum(due_r) * L)[0]
+        full_tree = dense = b_ms
+    SIEVE["errs"].extend([err, err4])
     rec = {"sieves": R_, "columns": cols, "L": L, "nnz": nnz, "ms": t.ms,
            "plain_ms": tp.ms, "bound_ms": b_ms, "bound_by": b_by, "pipe": b_pipe,
-           "dense_bound_ms": dense, "max_abs_err": err, "bitwise": bitwise,
-           "share_of_bound": b_ms / t.ms}
+           "full_tree_bound_ms": full_tree, "dense_bound_ms": dense,
+           "max_abs_err": err, "bitwise": bitwise, "share_of_bound": b_ms / t.ms,
+           "relaunch": {"sieves": r4.shape[0], "columns": n4, "due": relaunch["due"],
+                        "ms": t4.ms,
+                        "bound_ms": b4, "share_of_bound": b4 / t4.ms,
+                        "max_abs_err": err4},
+           "routes": routes}
+    if "ptxas" not in SIEVE:
+        SIEVE["ptxas"] = sieve_ptxas()
+    if not fc and "sass" not in SIEVE:
+        SIEVE["sass"] = sieve_sass()
+    rec["checks_s"] = time.perf_counter() - t_checks
     SIEVE["paths"][label] = rec
     print(f"sieve_gains at {label}'s shapes ({R_} sieves x {cols} columns x {L} "
           f"leaves" + ("" if nnz is None else f", {nnz} nonzeros in the chunk")
           + f"): {t.ms:.4f} ms per launch ({fmt_windows(t)}), plain "
           f"{tp.ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {b_pipe}), share "
-          f"{b_ms / t.ms:.4f}; dense bound {dense:.4f} ms, share "
-          f"{dense / t.ms:.4f}; vs plain err {err:.3g} (scale {scale:.4g}), "
-          f"bitwise {bitwise}; library none", flush=True)
+          f"{b_ms / t.ms:.4f}"
+          + (f"; full-tree bound {full_tree:.4f} ms (share {full_tree / t.ms:.4f}),"
+             f" dense bound {dense:.4f} ms (share {dense / t.ms:.4f}); blocks "
+             f"{routes['sparse_blocks']} sparse, {routes['dense_blocks']} dense"
+             if fc else "")
+          + f"; vs plain err {err:.3g} (scale {scale:.4g}), bitwise {bitwise}; "
+          f"the run's re-launch of {r4.shape[0]} sieves with starts over {n4} "
+          f"columns ({relaunch['due']} due) {t4.ms:.4f} ms, bound {b4:.4f} ms, share "
+          f"{b4 / t4.ms:.4f}, err {err4:.3g}; library none; the re-launch, route, "
+          f"ptxas and SASS checks took {rec['checks_s']:.2f} s", flush=True)
     return rec
 
 
@@ -1333,7 +1568,8 @@ def sieve_path(label: str, fn, full, wall_full: float, eps_runs=(None,),
     if isinstance(fn, StreamingFacilityLocation):
         columns_check(fn)
     states = sieve_extend(fn, sieve_init(fn, K), torch.arange(fn.n, device="cuda")).states
-    out["sieve_gains"] = sieve_gains_record(label, fn, states)
+    out["sieve_gains"] = sieve_gains_record(label, fn, states,
+                                            out["legacy"]["launch_mix"]["timed_relaunch"])
     SIEVE.setdefault("launches", out["legacy"]["sieve_gains_launches"])
     return out
 
@@ -4913,7 +5149,9 @@ def sieve_record() -> dict:
         "launches": SIEVE["launches"], "max_abs_err": max(SIEVE["errs"]),
         "ms": fc["ms"], "plain_ms": fc["plain_ms"], "bound_ms": fc["bound_ms"],
         "bound_by": fc["bound_by"], "library_ms": None,
+        "full_tree_bound_ms": fc["full_tree_bound_ms"],
         "dense_bound_ms": fc["dense_bound_ms"], "paths": SIEVE["paths"],
+        "ptxas": SIEVE["ptxas"], "sass": SIEVE["sass"],
         "runs": {k: {kk: vv for kk, vv in v.items() if kk != "sieve_gains"}
                  for k, v in SIEVE.items()
                  if k in ("FeatureCoverage", "path A", "path B")},

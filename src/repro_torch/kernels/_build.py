@@ -144,10 +144,13 @@ def _declare(lib: ctypes.CDLL) -> None:
         p,               # start (or NULL): row j skips columns before start[j]
         i, i,            # facility location (max), else the phi kind
         p, p,            # feat_w (or NULL), cap (or NULL)
-        p,               # scratch: sieve_slabs(L) x R x columns floats (NULL: 1 slab)
+        i,               # the sparse route (phi over rows of E), else the tile
+        p,               # scratch: sieve_gains_scratch_floats(R, L, columns, sparse) (NULL: 0)
         p, p,            # out, stream
     ]
     lib.sieve_gains_launch.restype = i
+    lib.sieve_gains_scratch_floats.argtypes = [i, ll, i, i]
+    lib.sieve_gains_scratch_floats.restype = ll
     lib.flash_attention_launch.argtypes = [
         p, p, p, p,      # q, k, v, out
         p,               # lse (or NULL): each row's L, (B, H, S) float32

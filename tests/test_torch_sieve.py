@@ -496,6 +496,120 @@ def test_plain_table_keeps_its_order_across_slabs_and_launches():
     assert torch.equal(fl[:, 0], sieve_tree_sum(torch.maximum(S, sim[:, 5])))
 
 
+def _zero_tree_levels(Z):
+    """The fixed tree over the zero terms Z (R, L), leaves past L 0: level t
+    as numpy (R, segments, 32 >> t); level 5 holds each segment's total G."""
+    x = torch.nn.functional.pad(Z, (0, -Z.shape[1] % SIEVE_SEG))
+    x = x.reshape(Z.shape[0], -1, SIEVE_SEG)
+    levels = [x.numpy()]
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+        levels.append(x.numpy())
+    return levels
+
+
+def _closed_form(levels, j, k, mask, term):
+    """Segment k of entry j when it holds one or two nonzeros, by the
+    sparse route's closed form (``csrc/sieve_gains.cu``: ``path_sum``): the
+    nonzero at p climbs its path adding the zero tree's sibling at each
+    level; with a second at q > p, whose path meets p's at level d + 1 (d
+    the highest bit where p and q differ), each climbs to level d, the two
+    are added, and the sum climbs on with p's siblings above d."""
+    f = np.float32
+    ps = [i for i in range(SIEVE_SEG) if mask >> i & 1]
+    p, q = ps[0], ps[-1]
+    d = (p ^ q).bit_length() - 1 if len(ps) == 2 else 5
+
+    def climb(v, x, levels_):
+        for t in levels_:
+            v = f(v + levels[t][j, k, (x >> t) ^ 1])
+        return v
+
+    vp = climb(term(SIEVE_SEG * k + p), p, range(d))
+    if len(ps) == 2:
+        vq = climb(term(SIEVE_SEG * k + q), q, range(d))
+        vp = climb(f(vp + vq), p, range(d + 1, 5))
+    return vp
+
+
+def _reuse_walk(levels, j, nonzeros, term):
+    """Entry j of one element by the sparse route's walk
+    (``csrc/sieve_gains.cu``: ``sparse_entry``, ``node``): the chain of
+    segment totals, G where the element has no nonzero; in a segment that
+    holds some, node (t, q) is the zero tree's where none of its leaves is
+    a nonzero, else the sum of its children, a nonzero leaf l being
+    ``term(l)``.  No other term of the element is read.  A segment with one
+    or two nonzeros gives the node walk's bits by the closed form too."""
+    f = np.float32
+
+    def node(k, t, q, mask):
+        width = 1 << t
+        if t < 5 and not mask & (((1 << width) - 1) << (q * width)):
+            return levels[t][j, k, q]
+        if t == 0:
+            return term(SIEVE_SEG * k + q)
+        return f(node(k, t - 1, 2 * q, mask) + node(k, t - 1, 2 * q + 1, mask))
+
+    masks = {}
+    for l in nonzeros:
+        masks[l // SIEVE_SEG] = masks.get(l // SIEVE_SEG, 0) | 1 << (l % SIEVE_SEG)
+    nseg = levels[0].shape[1]
+    acc = total = f(0)
+    for k in range(nseg):
+        if k and k % 128 == 0:            # a slab ends: chain its sum
+            total, acc = f(total + acc), f(0)
+        seg = node(k, 5, 0, masks[k]) if k in masks else levels[5][j, k, 0]
+        if k in masks and bin(masks[k]).count("1") <= 2:
+            closed = _closed_form(levels, j, k, masks[k], term)
+            assert f(closed).view(np.int32) == f(seg).view(np.int32), (j, k, closed, seg)
+        acc = f(acc + seg)
+    return f(total + acc) if nseg > 128 else acc
+
+
+@pytest.mark.parametrize("density", [0.0, 0.01, 0.3])
+@pytest.mark.parametrize("phi", ["sqrt", "log1p", "setcover", "satcov", "linear"])
+@pytest.mark.parametrize("L", [1, 31, 32, 77, 1024, 2 * 4096 + 45])
+def test_sparse_route_reuses_the_zero_tree_bit_for_bit(L, phi, density):
+    """The identity of the sparse route, where no card is present: for one
+    sieve, a node whose leaves are all zero in the element's row has the
+    zero tree's value (Z = w phi(s + 0)), so the walk over the nonzeros'
+    paths, with G for empty segments, gives ``sieve_tree_sum`` of the dense
+    terms bit for bit.  W holds -0.0 at half its zeros (s + -0.0 = s), the
+    last element is the zero element, and the element's terms at its zero
+    leaves are NaN in the model: reading one would show."""
+    from repro_torch.kernels.ref import _phi
+
+    r = np.random.default_rng(L * 7 + int(density * 100))
+    R_, C_ = 3, 3
+    S = r.random((R_, L), dtype=np.float32) * (r.random((R_, L)) < 0.5)
+    S[0] = 0.0                                            # the empty state
+    W = r.random((C_, L), dtype=np.float32) * 2.0
+    W *= r.random((C_, L)) < density
+    W.flat[np.flatnonzero(W == 0)[::2]] = -0.0
+    E = torch.from_numpy(np.concatenate([W, np.zeros((1, L), np.float32)]))
+    idx = torch.tensor([0, 1, 2, -1])
+    St = torch.from_numpy(S)
+    fw = (torch.from_numpy(r.random(L, dtype=np.float32) + 0.5)
+          if phi in ("log1p", "linear") else None)
+    cap = torch.full((L,), 0.7) if phi == "satcov" else None
+
+    def terms(e):
+        H = _phi(phi, St[:, None, :] + e[None], cap)
+        return H if fw is None else H * fw
+
+    levels = _zero_tree_levels(terms(torch.zeros((1, L)))[:, 0])
+    H = terms(E).numpy()
+    want = sieve_gains_ref(St, E, idx, cols=False, phi=phi, feat_w=fw, cap=cap)
+    for c in range(E.shape[0]):
+        nz = np.flatnonzero(E[c].numpy() != 0)
+        poisoned = np.full((R_, L), np.nan, np.float32)
+        poisoned[:, nz] = H[:, c, nz]
+        for j in range(R_):
+            got = _reuse_walk(levels, j, nz, lambda l, j=j: poisoned[j, l])
+            assert np.float32(got).view(np.int32) == np.float32(
+                want[j, c]).view(np.int32), (j, c, got, float(want[j, c]))
+
+
 def test_kernel_wrapper_takes_the_plain_route_on_the_cpu_only():
     S = torch.rand((3, 40))
     W = torch.rand((7, 40))
