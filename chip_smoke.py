@@ -76,7 +76,8 @@ Then the other block types serve at full width and depth,
 each on a freed card (``lm_families_phase``): olmoe-1b-7b (16 attn_moe
 layers, 64 experts top-8; flash on the tensor-core route) and mamba2-780m
 (48 SSD layers, no kernel) on four 2048-token prompts, recurrentgemma-2b
-(26 rglru / local layers; flash on the FFMA route, window 2048) on four
+(26 rglru / local layers; flash on the tensor-core route at head_dim 256,
+window 2048) on four
 4096-token prompts, 32 new tokens each: launches, TTFT, decode, peak, the
 plain attention route's logits at every step (olmoe: the prefill's; its
 decode steps' differences are printed), the prefill layer by layer
@@ -84,11 +85,15 @@ decode steps' differences are printed), the prefill layer by layer
 same inputs, each MoE layer's top-8 under both routes with any differing
 choice shown a near tie, the pairs capacity drops), decode seeded by the
 prefill against the forward (the recurrent families), a profiled prefill,
-and the FFMA kernel timed at recurrentgemma's shape beside its bound and
-``scaled_dot_product_attention`` with the window as a mask.
+and at each attention family's shape the tensor-core and FFMA kernels
+timed in turns beside the bounds, the plain version and
+``scaled_dot_product_attention`` with the mask as a tensor
+(``_flash_at_shape``; recurrentgemma's goes into the flash record as
+``at_recurrentgemma``).
 Then training (``train_phase``, on a freed card): the flash backward
-kernels (the tensor-core route for bf16 at head_dim 64/128, FFMA for the
-rest) against their plain version over a sweep (both dtypes, head_dim 32
+kernels (by ``flash_bwd_route``: the tensor-core route for bf16 at
+head_dim 64/128, FFMA for the rest, bf16 at 256 included) against their
+plain version over a sweep (both dtypes, head_dim 32
 to 256, grouped KV, three masks, S from 1 to 1000 and causal bf16 at 2048
 and 4096, the TPU layout; the forward's O with and without L bitwise
 equal) and at llama3.2-3b's shape (both routes in turns) beside the
@@ -2259,18 +2264,18 @@ def flash_sweep(errs: dict) -> None:
     """The flash kernels vs their plain version on the card: float32 and
     bfloat16 x head_dim 32/64/128/256 x S = 96 (ragged), 128, 2048 x causal,
     a 32-wide window, or no mask x GQA groups of 1 and 4, then the TPU
-    kernel's own (BH, S, hd) form (float32, and bfloat16 at head_dim 64 and
-    128), held by ``flash_close``.  Each case goes through the route
-    ``flash_route`` names; every bfloat16 case at head_dim 64 or 128 must
-    launch the tensor-core kernel."""
+    kernel's own (BH, S, hd) form (float32, and bfloat16 at head_dim 64,
+    128 and 256), held by ``flash_close``.  Each case goes through the
+    route ``flash_route`` names; every bfloat16 case at head_dim 64, 128 or
+    256 must launch the tensor-core kernel."""
     from repro_torch.kernels import (attention_ref, flash_attention_kernel,
                                      flash_attention_ref, flash_route)
 
     g = torch.Generator(device="cuda").manual_seed(5)
-    cases, tc_cases = 0, 0
+    cases, tc_cases, tc_want = 0, 0, 0
 
     def run(*args, **kw):
-        nonlocal cases, tc_cases
+        nonlocal cases, tc_cases, tc_want
         q = args[0]
         n_tc = flash_attention_kernel.launches_tc
         out = flash_attention_kernel(*args, **kw)
@@ -2279,7 +2284,8 @@ def flash_sweep(errs: dict) -> None:
               f"flash {q.dtype} hd={q.shape[-1]}: not the {'tc' if tc else 'ffma'}"
               " route")
         cases += 1
-        tc_cases += tc
+        tc_cases += flash_attention_kernel.launches_tc - n_tc
+        tc_want += q.dtype == torch.bfloat16 and q.shape[-1] in (64, 128, 256)
         return out
 
     for dt, hd, S, (causal, window), G in itertools.product(
@@ -2296,7 +2302,8 @@ def flash_sweep(errs: dict) -> None:
                           f"causal={causal} window={window} G={G}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
     # the TPU kernel's own (BH, S, hd) form
-    for dt, hd in ((torch.float32, 64), (torch.bfloat16, 64), (torch.bfloat16, 128)):
+    for dt, hd in ((torch.float32, 64), (torch.bfloat16, 64), (torch.bfloat16, 128),
+                   (torch.bfloat16, 256)):
         q, k, v = (torch.randn((8, 200, hd), generator=g, device="cuda").to(dt)
                    for _ in range(3))
         err = flash_close(run(q, k, v, window=48),
@@ -2304,8 +2311,10 @@ def flash_sweep(errs: dict) -> None:
                           f"flash_attention (BH, S, hd) form, {dt} hd={hd}")
         errs["flash_attention"] = max(errs["flash_attention"], err)
     torch.cuda.synchronize()
+    check(tc_cases == tc_want, f"flash: {tc_cases} tensor-core launches, not one "
+          f"for each of the {tc_want} bfloat16 cases at head_dim 64, 128 and 256")
     print(f"flash kernels vs plain: {cases} cases passed, {tc_cases} of them "
-          f"(every bfloat16 case at head_dim 64 and 128) on the tensor-core "
+          f"(every bfloat16 case at head_dim 64, 128 and 256) on the tensor-core "
           f"route; max abs err {errs['flash_attention']:.3g}; bfloat16 at most "
           f"{FLASH_WORST[0]:.4f} of its tolerance", flush=True)
 
@@ -2733,8 +2742,9 @@ def lm_path(errs: dict) -> dict:
 
 # (arch, batch, prompt length): olmoe's attn_moe blocks (flash on the
 # tensor-core route), recurrentgemma's rglru / local hybrid at prompts of
-# twice its 2048 window (the FFMA route, windowed; the local caches' ring
-# buffers wrap), mamba2's SSD stack (no attention, no kernel).  Full widths
+# twice its 2048 window (the tensor-core route at head_dim 256, windowed;
+# the local caches' ring buffers wrap), mamba2's SSD stack (no attention,
+# no kernel).  Full widths
 # and depths, 32 new tokens each.
 FAMILIES = (("olmoe-1b-7b", 4, 2048), ("recurrentgemma-2b", 4, 4096),
             ("mamba2-780m", 4, 2048))
@@ -2844,61 +2854,117 @@ def _lockstep(cfg, params, prompts, errs: dict) -> dict:
     return {"first": first, "layers": layers, "capacity": C}
 
 
-def _ffma_at_shape(cfg, q, k, v, window: int, errs: dict) -> dict:
-    """The flash kernel at a windowed MQA shape on its FFMA route: time
-    (``kernel_ms``) beside its bound, the plain version and
-    ``scaled_dot_product_attention`` with the window as a boolean mask (P
-    rounded to bf16 once: another function, a yardstick), and the share of
-    its bf16 outputs that differ from the plain version's."""
-    from repro_torch.kernels import attention_ref, flash_attention_kernel, flash_route
+def _flash_at_shape(cfg, q, k, v, window: int, errs: dict) -> dict:
+    """The flash kernels at a family's first attention layer's shape
+    (recurrentgemma-2b: windowed MQA at head_dim 256): the route's kernel
+    (``flash_route``: the tensor cores) and the FFMA kernel (the first
+    design, ``_launch(..., tc=False)``) on the same inputs, timed in turns
+    (tc, ffma, ffma, tc; ``kernel_ms``), the tensor-core kernel faster in
+    each pair; beside them the function's bound (``flash_bound``), each
+    design's own, the plain version and ``scaled_dot_product_attention``
+    with the window as a boolean mask (P rounded to bf16 once: another
+    function, a yardstick); the share of each kernel's bf16 outputs that
+    differ from the plain version's, and of the plain version's with P
+    rounded once; what ptxas reported for the head width's tensor-core
+    instance (no spill allowed at head_dim 256)."""
+    from repro_torch.kernels import (attention_ref, attention_split_p_ref,
+                                     flash_attention_kernel, flash_route)
+    from repro_torch.kernels.flash_attention import TC_PARTS, _launch
 
     B, S, H, hd = q.shape
     KV = k.shape[2]
-    check(flash_route(q.dtype, hd) == "ffma", f"{cfg.name}: not the FFMA route")
+    check(q.dtype == torch.bfloat16, "flash_bound counts bfloat16 inputs")
+    check(flash_route(q.dtype, hd) == "tc", f"{cfg.name}: not the tensor-core route")
+
+    def kern():
+        return flash_attention_kernel(q, k, v, causal=True, window=window)
+
+    def ffma():
+        o = torch.empty_like(q)
+        _launch(q, k, v, o, True, window, tc=False)
+        return o
+
     n0, tc0 = flash_attention_kernel.launches, flash_attention_kernel.launches_tc
-    out = flash_attention_kernel(q, k, v, causal=True, window=window)
+    out = kern()
     check(flash_attention_kernel.launches - n0 == 1
-          and flash_attention_kernel.launches_tc == tc0, "the FFMA kernel did not launch")
+          and flash_attention_kernel.launches_tc - tc0 == 1,
+          f"{cfg.name}: the tensor-core kernel did not launch")
+    out_f = ffma()
     ref = attention_ref(q, k, v, True, window)
-    err = flash_close(out, ref, f"flash (FFMA) at {cfg.name}'s shape")
-    errs["flash_attention"] = max(errs["flash_attention"], err)
-    flips = float((out != ref).float().mean())
-    ms = kernel_ms(lambda: flash_attention_kernel(q, k, v, causal=True,
-                                                  window=window), 5)[1]
+    err = flash_close(out, ref, f"flash (tensor-core) at {cfg.name}'s shape")
+    err_f = flash_close(out_f, ref, f"flash (FFMA) at {cfg.name}'s shape")
+    errs["flash_attention"] = max(errs["flash_attention"], err, err_f)
+    once = attention_split_p_ref(q, k, v, True, window, parts=1)
+    flips = {"tc": float((out != ref).float().mean()),
+             "ffma": float((out_f != ref).float().mean()),
+             "plain_1_parts": float((once != ref).float().mean())}
+    del out_f, once
+    check(flips["tc"] <= flips["plain_1_parts"] / 4,
+          f"{cfg.name}: flash flip rate {flips['tc']} is over a quarter of "
+          f"rounding P once ({flips['plain_1_parts']})")
+    turns = [kernel_ms(kern, 10)[1], kernel_ms(ffma, 2)[1],
+             kernel_ms(ffma, 2)[1], kernel_ms(kern, 10)[1]]
+    check(turns[0].ms < turns[1].ms and turns[3].ms < turns[2].ms,
+          f"{cfg.name}: the tensor-core kernel is not faster than the FFMA kernel "
+          f"in each pair ({', '.join(f'{t.ms:.4f}' for t in turns)})")
+    ms = statistics.median(turns[0].windows + turns[3].windows)
+    ffma_ms = statistics.median(turns[1].windows + turns[2].windows)
     plain_ms = kernel_ms(lambda: attention_ref(q, k, v, True, window), 2)[1].ms
     qx, kx, vx = (t.transpose(1, 2).contiguous() for t in (
         q, k.repeat_interleave(H // KV, dim=2), v.repeat_interleave(H // KV, dim=2)))
     i = torch.arange(S, device=q.device)
-    mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+    mask = i[None, :] <= i[:, None]
+    if window:
+        mask &= i[:, None] - i[None, :] < window
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_out = sdpa(qx, kx, vx, attn_mask=mask)
     err_lib = float((out.float() - lib_out.transpose(1, 2).float()).abs().max())
     check(err_lib <= TOL[torch.bfloat16] * float(v.float().abs().max()),
           f"flash at {cfg.name}'s shape vs the library: err {err_lib}")
     lib_ms = kernel_ms(lambda: sdpa(qx, kx, vx, attn_mask=mask), 5)[1].ms
+    del qx, kx, vx, lib_out, mask
     # each query reads min(i + 1, window) keys.  The bound is the
-    # function's on bf16 inputs (``flash_bound``); the FFMA design's own,
-    # 2 hd FFMAs (Q.K, P.V) and one exponential a pair, is a yardstick.
-    pairs = B * H * sum(min(j + 1, window) for j in range(S))
+    # function's on bf16 inputs (``flash_bound``).  Yardsticks: the
+    # tensor-core design's own (at head_dim 256 each of O's two column
+    # halves computes QKᵀ and the softmax: 10 hd flops a pair, not 8) and
+    # the FFMA design's, 2 hd FFMAs (Q.K, P.V) and one exponential a pair.
+    pairs = B * H * sum(min(j + 1, window or S) for j in range(S))
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    check(q.dtype == torch.bfloat16, "flash_bound counts bfloat16 inputs")
     b_ms, b_by, b_pipe = flash_bound(nbytes, pairs, hd)
+    halves = 2 if hd == 256 else 1
+    design = bound(nbytes, sfu=halves * pairs,
+                   bf16_tc=(2 * halves + 2 * TC_PARTS) * pairs * hd)[0]
     ffma_design = bound(nbytes, ffma=2 * pairs * hd, sfu=pairs)[0]
-    share = b_ms / ms.ms
-    check(share <= 1.05, f"flash (FFMA) runs at {share:.3f} of its bound")
-    print(f"flash_attention (FFMA route) at {cfg.name}'s shape (B={B}, S={S}, "
-          f"H={H}, KV={KV}, hd={hd}, {str(q.dtype)[6:]}, window {window}; "
-          f"{CARD[0]}): {ms.ms:.4f} ms per launch ({fmt_windows(ms)}), bound "
-          f"{b_ms:.4f} ms ({b_by}: {b_pipe}), share {share:.4f}; the FFMA design's "
-          f"bound {ffma_design:.4f} ms; plain "
-          f"{plain_ms:.4f} ms; library (scaled_dot_product_attention, the window "
-          f"as a boolean mask, P rounded once) {lib_ms:.4f} ms; flip rate against "
-          f"the plain version {flips:.6f}; vs plain err {err:.3g}, vs the library "
-          f"{err_lib:.3g}", flush=True)
-    return {"ms": ms.ms, "windows": ms.windows, "bound_ms": b_ms, "bound_by": b_by,
-            "pipe": b_pipe, "share_of_bound": share,
+    share = b_ms / ms
+    check(share <= 1.05, f"flash at {cfg.name}'s shape runs at {share:.3f} of its "
+          "bound")
+    regs, store, load, _ = ptxas_report("flash_attention_tc", f"flash_kernel_tcILi{hd}E",
+                                        threads=384)
+    check(hd != 256 or store == load == 0,
+          f"flash_kernel_tc<256>: ptxas spills {store}/{load} bytes")
+    print(f"flash_attention at {cfg.name}'s shape (B={B}, S={S}, H={H}, KV={KV}, "
+          f"hd={hd}, bf16, causal, window {window}; {CARD[0]}): tensor-core route "
+          f"{ms:.4f} ms per launch (median of its 10 windows; in turns "
+          f"{', '.join(f'{t.ms:.4f}' for t in turns)}: tc, ffma, ffma, tc), bound "
+          f"{b_ms:.4f} ms ({b_by}: {b_pipe}), share {share:.4f}; the tensor-core "
+          f"design's bound {design:.4f} ms (share {design / ms:.4f}); FFMA kernel "
+          f"{ffma_ms:.4f} ms (its design's bound {ffma_design:.4f} ms); plain "
+          f"{plain_ms:.4f} ms; library (scaled_dot_product_attention, the mask as "
+          f"a boolean tensor, P rounded once) {lib_ms:.4f} ms; flip rates against "
+          f"the plain version: tensor-core {flips['tc']:.6f}, FFMA "
+          f"{flips['ffma']:.6f}, plain with P rounded once "
+          f"{flips['plain_1_parts']:.6f}; vs plain err {err:.3g}, vs the library "
+          f"{err_lib:.3g}; ptxas flash_kernel_tc<{hd}>: {regs} registers (launch "
+          f"bound; consumers 232 by setmaxnreg), spill stores/loads {store}/{load} "
+          "bytes", flush=True)
+    return {"route": "tc", "ms": ms, "windows": turns[0].windows + turns[3].windows,
+            "turns_ms": [t.ms for t in turns], "ffma_ms": ffma_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "pipe": b_pipe,
+            "share_of_bound": share, "tc_design_bound_ms": design,
             "ffma_design_bound_ms": ffma_design, "plain_ms": plain_ms,
-            "library_ms": lib_ms, "flip_rate": flips, "max_abs_err": err,
+            "library_ms": lib_ms, "flip_rates": flips, "max_abs_err": err,
+            "ptxas": {"registers": regs, "spill_store_bytes": store,
+                      "spill_load_bytes": load},
             "shape": [B, S, H, KV, hd], "window": window}
 
 
@@ -2938,7 +3004,8 @@ def _family(arch: str, B: int, S: int, errs: dict) -> dict:
     path (``Engine.generate``, counts from 0), the same path step by step
     (TTFT, decode, peak), the plain attention route's logits
     (``_plain_route``), the prefill layer by layer, decode seeded by the
-    prefill (recurrent families) and a profiled prefill."""
+    prefill (recurrent families), the flash kernels at the first attention
+    layer's shape (``_flash_at_shape``) and a profiled prefill."""
     from repro_torch import configs
 
     cfg = configs.get(arch)
@@ -2958,9 +3025,9 @@ def _family(arch: str, B: int, S: int, errs: dict) -> dict:
         lock = _lockstep(cfg, params, prompts, errs)
         out.update(plain_rel=rel, layers=lock["layers"],
                    capacity=lock["capacity"])
-        if out["route"] == "ffma":
-            q, k, v, w = lock["first"]
-            out["ffma"] = _ffma_at_shape(cfg, q, k, v, w, errs)
+        q, k, v, w = lock["first"]
+        out["flash_at_shape"] = _flash_at_shape(cfg, q, k, v, w, errs)
+        del q, k, v
         del lock
     if {"mamba2", "rglru"} & set(cfg.block_pattern):
         # (not olmoe: its prefill drops pairs past capacity, its decode has
@@ -3070,15 +3137,17 @@ def bwd_sweep(errs: dict) -> None:
     a window shorter than S, or no mask x S = 1, 17, 64, 130, 1000, and
     ``BWD_LONG``, held by ``bwd_close`` against the float64 plain backward
     (with the float32 rounding bound of the sums beside), each on the route
-    ``flash_route`` gives (the tensor-core kernel for bf16 at hd 64/128,
-    counted by ``launches_tc``; the FFMA kernel for the rest); the forward's
-    O with L requested bitwise equal to O without it (both routes) and its L
+    ``flash_bwd_route`` gives (the tensor-core kernel for bf16 at hd 64/128,
+    counted by ``launches_tc``; the FFMA kernel for the rest, bf16 at hd 256
+    included, on the L of the tensor-core forward); the forward's O with L
+    requested bitwise equal to O without it (the forward's route by
+    ``flash_route``: bf16 at hd 256 on the tensor cores) and its L
     within 1e-5 relative of the plain one; then the TPU layout (BH, S, hd)
     through ``flash_attention_kernel`` under autograd."""
     from repro_torch.kernels import (attention_bwd_ref, attention_lse_ref,
                                      flash_attention_bwd_kernel,
                                      flash_attention_kernel, flash_attention_lse,
-                                     flash_route)
+                                     flash_bwd_route, flash_route)
 
     g = torch.Generator(device="cuda").manual_seed(11)
     cases, tc_o, tc_bwd = 0, 0, 0
@@ -3095,12 +3164,17 @@ def bwd_sweep(errs: dict) -> None:
                 for _ in range(2))
         do = torch.randn(q.shape, generator=g, device="cuda").to(dt)
         what = f"flash backward {dt} hd={hd} G={G} {mask} S={S}"
+        n_ftc = flash_attention_kernel.launches_tc
         o, L = flash_attention_lse(q, k, v, causal=causal, window=window)
         with torch.no_grad():
             check(torch.equal(o, flash_attention_kernel(q, k, v, causal=causal,
                                                         window=window)),
                   f"{what}: O with L requested differs from O without")
-        tc_o += flash_route(dt, hd) == "tc"
+        tc_f = flash_route(dt, hd) == "tc"
+        check(flash_attention_kernel.launches_tc - n_ftc == 2 * tc_f,
+              f"{what}: the forward is not on the "
+              f"{'tensor-core' if tc_f else 'FFMA'} route")
+        tc_o += tc_f
         o_ref, L_ref = attention_lse_ref(q, k, v, causal, window)
         l_err = float((L - L_ref).abs().max())
         check(l_err <= 1e-5 * max(1.0, float(L_ref.abs().max())),
@@ -3108,7 +3182,7 @@ def bwd_sweep(errs: dict) -> None:
         n_tc = flash_attention_bwd_kernel.launches_tc
         got = flash_attention_bwd_kernel(q, k, v, o, do, L, causal=causal,
                                          window=window)
-        tc = flash_route(dt, hd) == "tc"
+        tc = flash_bwd_route(dt, hd) == "tc"
         check(flash_attention_bwd_kernel.launches_tc == n_tc + tc,
               f"{what}: not on the {'tensor-core' if tc else 'FFMA'} route")
         tc_bwd += tc
@@ -3135,7 +3209,7 @@ def bwd_sweep(errs: dict) -> None:
         got = torch.autograd.grad(out, (q, k, v), do)
         check(flash_attention_bwd_kernel.launches == n + 1
               and flash_attention_bwd_kernel.launches_tc
-              == n_tc + (flash_route(dt, hd) == "tc"),
+              == n_tc + (flash_bwd_route(dt, hd) == "tc"),
               "flash (BH, S, hd): the backward kernel of its route did not launch")
         o, L = flash_attention_lse(*(t.detach()[:, :, None] for t in (q, k, v)),
                                    causal=causal, window=window)
@@ -5237,6 +5311,7 @@ def main() -> int:
     # 14. the other block types: olmoe, recurrentgemma, mamba2, each served
     # at full width and depth on a freed card
     families = lm_families_phase(errs)
+    records[-1]["at_recurrentgemma"] = families["recurrentgemma-2b"]["flash_at_shape"]
     records.append(sieve_record())
     # 15. training: the flash backward kernel, llama3.2-3b at full width and
     # depth through launch/train.py, checkpoints, the pipeline at scale

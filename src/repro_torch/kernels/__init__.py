@@ -7,6 +7,7 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_bwd_kernel,
     flash_attention_kernel,
     flash_attention_lse,
+    flash_bwd_route,
     flash_route,
 )
 from repro_torch.kernels.fl_divergence import (
@@ -61,6 +62,7 @@ __all__ = [
     "flash_attention_kernel",
     "flash_attention_lse",
     "flash_attention_ref",
+    "flash_bwd_route",
     "flash_route",
     "load_library",
     "sieve_gains_kernel",

@@ -1,5 +1,5 @@
 // Fused online-softmax attention (prefill) on Hopper's tensor cores, for
-// bfloat16 inputs at head_dim 64 and 128 (sm_90a).
+// bfloat16 inputs at head_dim 64, 128 and 256 (sm_90a).
 //
 // Replaces: src/repro/kernels/flash_attention.py:flash_attention (the Pallas
 // TPU kernel, body _flash_kernel) on the route that kernels/flash_attention.py
@@ -35,10 +35,13 @@
 // What bounds it on this card: the tensor cores.  Each unmasked (i, j) pair
 // costs 2 hd flops for QKᵀ and 2 hd PARTS for P V at 989 TFLOP/s, and one
 // exponential; at B = 4, S = 2048, H = 32, hd = 128, causal, that is 0.278
-// ms, against 0.05 ms for the bytes of q, k, v and o.
+// ms, against 0.05 ms for the bytes of q, k, v and o.  At B = 4, S = 4096,
+// H = 10, KV = 1, hd = 256, window 2048 (recurrentgemma-2b's local layers)
+// it is 0.521 ms.
 //
-// What the design does about it: one CTA per (b, h, 128-row query tile),
-// heavy (late) causal tiles launched first; a producer warpgroup (one
+// What the design does about it: one CTA per (b, h, 128-row query tile,
+// column range of O), heavy (late) causal tiles launched first; a producer
+// warpgroup (one
 // thread issues every load; its registers go to the consumers with
 // setmaxnreg) and two consumer warpgroups of 64 query rows each.  The
 // producer loads the Q tile once and streams 64-key tiles of K and V
@@ -58,6 +61,17 @@
 // is computed all the same (its p are 0, or wiped by alpha = 0 when the
 // rows' first real key arrives, as in the TPU kernel), so that no wgmma
 // sits in a divergent branch.
+//
+// Head_dim 256.  O's 64 rows x 256 columns in both the running sum and the
+// tile's fresh P V would take 256 of a consumer thread's registers, and a
+// Q tile with 4 stages of K and V 320 KiB of shared memory.  So O is split
+// into NH = 2 column halves, one CTA each (the grid's third axis): both
+// compute the whole S = Q Kᵀ over all 256 features, so they take the same
+// m, l and P bit for bit (wgmma sums in a fixed order), and each runs P V
+// over its 128 columns of V only, which keeps the registers at hd 128's.
+// A stage holds K whole (32 KiB) and V's half (16 KiB); 3 stages and the Q
+// tile take 208 KiB.  QKᵀ is computed twice: 10 hd flops a pair in all
+// against the function's 8 hd.  Only half 0 writes L.
 
 #include "flash_tc.cuh"
 
@@ -67,7 +81,6 @@ using namespace repro::tc;
 
 constexpr int BQ = 128;           // query rows per CTA (two warpgroups)
 constexpr int BK = 64;            // keys per tile
-constexpr int STAGES = 4;         // K/V ring depth
 constexpr int PARTS = 3;          // bf16 parts of P
 constexpr int NCONS = 256;        // consumer threads
 constexpr int NT = NCONS + 128;   // and one producer warpgroup
@@ -77,16 +90,22 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory, from a 1024-byte aligned base (the 128-byte swizzle's
 // period): the Q tile, then STAGES K tiles, STAGES V tiles, the barriers.
-// Every tile is stored as hd / 64 column chunks of rows x 128 bytes.
+// Every tile is stored as column chunks of rows x 128 bytes: hd / 64 of Q
+// and K, CV of V (the CTA's column range of O).
 template <int HD>
 struct Smem {
-  static constexpr int CH = HD / 64;
+  static constexpr int CH = HD / 64;              // chunks of Q and K
+  static constexpr int CV = HD == 256 ? 2 : CH;   // chunks of V and O a CTA owns
+  static constexpr int NH = CH / CV;              // CTAs per query tile
+  static constexpr int STAGES = HD == 256 ? 3 : 4;  // K/V ring depth
   static constexpr uint32_t q_bytes = CH * BQ * 128;
-  static constexpr uint32_t kv_bytes = CH * BK * 128;
+  static constexpr uint32_t k_bytes = CH * BK * 128;
+  static constexpr uint32_t v_bytes = CV * BK * 128;
   static constexpr uint32_t k_off = q_bytes;
-  static constexpr uint32_t v_off = k_off + STAGES * kv_bytes;
-  static constexpr uint32_t bar_off = v_off + STAGES * kv_bytes;
+  static constexpr uint32_t v_off = k_off + STAGES * k_bytes;
+  static constexpr uint32_t bar_off = v_off + STAGES * v_bytes;
   static constexpr size_t bytes = bar_off + 8 * (1 + 3 * STAGES) + 1024;
+  static_assert(bytes <= 232448, "over a block's shared memory");
 };
 
 // The registers of an in-flight P V: its accumulator and P's parts.
@@ -117,9 +136,12 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // Issue S = Q Kᵀ for one 64-key tile: hd / 16 steps of 16 features, both
 // operands K-major in shared memory (the 16 features at 32-byte offsets
-// inside a 128-byte swizzled row).
+// inside a 128-byte swizzled row).  At hd 256 Q's address is made opaque
+// at each call, so that its 16 descriptors are formed where they are used:
+// hoisted out of the tile loop, they would hold 32 registers and spill.
 template <int HD>
 __device__ __forceinline__ void qk(float (&sc)[32], uint32_t sQw, uint32_t sKs) {
+  if constexpr (HD == 256) keep(sQw);
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
@@ -244,46 +266,52 @@ __device__ __forceinline__ void release(uint32_t bar, int lane) {
 // [16 kk, 16 kk + 16): {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]},
 // {d[8kk+4], d[8kk+5]}, {d[8kk+6], d[8kk+7]}.
 
-// What one CTA works on: its shared-memory ring and barriers, its head and
-// query tile, and the key tiles [kt_lo, kt_hi] its mask reaches.
+// What one CTA works on: its shared-memory ring and barriers, its head,
+// query tile and column range of O (half), and the key tiles [kt_lo,
+// kt_hi] its mask reaches.
 template <int HD>
 struct Cta {
   using L = Smem<HD>;
   uint32_t sQ, sK, sV, qbar;
-  int b, h, q0, kt_lo, kt_hi;
+  int b, h, q0, half, kt_lo, kt_hi;
 
   __device__ uint32_t kfull(int s) const { return qbar + 8u * (1 + s); }
-  __device__ uint32_t vfull(int s) const { return qbar + 8u * (1 + STAGES + s); }
-  __device__ uint32_t empty(int s) const { return qbar + 8u * (1 + 2 * STAGES + s); }
-  __device__ uint32_t k_slot(int s) const { return sK + s * L::kv_bytes; }
-  __device__ uint32_t v_slot(int s) const { return sV + s * L::kv_bytes; }
+  __device__ uint32_t vfull(int s) const { return qbar + 8u * (1 + L::STAGES + s); }
+  __device__ uint32_t empty(int s) const {
+    return qbar + 8u * (1 + 2 * L::STAGES + s);
+  }
+  __device__ uint32_t k_slot(int s) const { return sK + s * L::k_bytes; }
+  __device__ uint32_t v_slot(int s) const { return sV + s * L::v_bytes; }
 };
 
-// The producer's one thread: the Q tile, then every K and V tile in turn,
-// each into the next ring slot once both consumer warpgroups have freed it.
+// The producer's one thread: the Q tile, then every K tile and the CTA's
+// columns of every V tile in turn, each into the next ring slot once both
+// consumer warpgroups have freed it.
 template <int HD>
 __device__ __forceinline__ void produce(const Cta<HD>& t, const CUtensorMap* qmap,
                                         const CUtensorMap* kmap,
                                         const CUtensorMap* vmap, int kvh) {
   using L = Smem<HD>;
+  constexpr int STAGES = L::STAGES;
   mbar_expect_tx(t.qbar, L::q_bytes);
   for (int c = 0; c < L::CH; ++c)
     tma_load(t.sQ + c * BQ * 128, qmap, t.qbar, 64 * c, t.h, t.q0, t.b);
   for (int kt = t.kt_lo, i = 0; kt <= t.kt_hi; ++kt, ++i) {
     const int s = i % STAGES;
     if (i >= STAGES) mbar_wait(t.empty(s), (i / STAGES - 1) & 1);
-    mbar_expect_tx(t.kfull(s), L::kv_bytes);
+    mbar_expect_tx(t.kfull(s), L::k_bytes);
     for (int c = 0; c < L::CH; ++c)
       tma_load(t.k_slot(s) + c * BK * 128, kmap, t.kfull(s), 64 * c, kvh, kt * BK,
                t.b);
-    mbar_expect_tx(t.vfull(s), L::kv_bytes);
-    for (int c = 0; c < L::CH; ++c)
-      tma_load(t.v_slot(s) + c * BK * 128, vmap, t.vfull(s), 64 * c, kvh, kt * BK,
-               t.b);
+    mbar_expect_tx(t.vfull(s), L::v_bytes);
+    for (int c = 0; c < L::CV; ++c)
+      tma_load(t.v_slot(s) + c * BK * 128, vmap, t.vfull(s),
+               64 * (L::CV * t.half + c), kvh, kt * BK, t.b);
   }
 }
 
-// A consumer warpgroup: 64 query rows from qa = q0 + 64 wg.  Iteration i
+// A consumer warpgroup: 64 query rows from qa = q0 + 64 wg, the CTA's CV
+// column chunks of O.  Iteration i
 // issues S(i) = Q K(i)ᵀ and P(i-1) V(i-1) back to back in its turn at the
 // tensor cores, passes the turn, runs the softmax of S(i) while the
 // products run, then adds P(i-1) V(i-1) into O and splits P(i).  Every tile
@@ -296,7 +324,7 @@ __device__ __forceinline__ void consume(const Cta<HD>& t, __nv_bfloat16* o,
                                         float* lse, int H, int S,
                                         long long osb, long long oss, long long osh,
                                         int causal, int window, float scale_log2) {
-  constexpr int CH = Smem<HD>::CH;
+  constexpr int CV = Smem<HD>::CV, STAGES = Smem<HD>::STAGES;
   const int wg = threadIdx.x / 128;
   const int lane = threadIdx.x % 32;
   const int qa = t.q0 + 64 * wg;
@@ -305,11 +333,11 @@ __device__ __forceinline__ void consume(const Cta<HD>& t, __nv_bfloat16* o,
   const uint32_t sQw = t.sQ + wg * 64 * 128;
   const int n = t.kt_hi - t.kt_lo + 1;
 
-  float acc[CH][32], tile[CH][32], sc[32];
+  float acc[CV][32], tile[CV][32], sc[32];
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
   uint32_t pa[PARTS][BK / 16][4];
 #pragma unroll
-  for (int c = 0; c < CH; ++c)
+  for (int c = 0; c < CV; ++c)
 #pragma unroll
     for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
 
@@ -337,7 +365,7 @@ __device__ __forceinline__ void consume(const Cta<HD>& t, __nv_bfloat16* o,
     wg_fence();
     qk<HD>(sc, sQw, t.k_slot(s));
     wg_commit();
-    pv<CH>(tile, pa, t.v_slot(sp));
+    pv<CV>(tile, pa, t.v_slot(sp));
     wg_commit();
     // The pass count matches the other warpgroup's takes.
     if (wg == 0 || i < n - 1) turn_pass(1 - wg);
@@ -356,14 +384,14 @@ __device__ __forceinline__ void consume(const Cta<HD>& t, __nv_bfloat16* o,
   keep_operands(tile, pa);
   warp_wait(t.vfull(sp), ((n - 1) / STAGES) & 1);
   wg_fence();
-  pv<CH>(tile, pa, t.v_slot(sp));
+  pv<CV>(tile, pa, t.v_slot(sp));
   wg_commit();
   wg_wait<0>();
   keep_operands(tile, pa);
   release(t.empty(sp), lane);
   merge(acc, alpha, tile);
 
-  // O / max(l, 1e-30) in bfloat16, rows below S.
+  // O / max(l, 1e-30) in bfloat16, rows below S, the CTA's columns.
 #pragma unroll
   for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
 #pragma unroll
@@ -371,16 +399,16 @@ __device__ __forceinline__ void consume(const Cta<HD>& t, __nv_bfloat16* o,
     const int row = r0 + 8 * r;
     if (row >= S) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    __nv_bfloat16* orow = o + t.b * osb + row * oss + t.h * osh;
+    __nv_bfloat16* orow = o + t.b * osb + row * oss + t.h * osh + 64 * CV * t.half;
 #pragma unroll
-    for (int c = 0; c < CH; ++c)
+    for (int c = 0; c < CV; ++c)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(orow + 64 * c + 8 * j + cq) =
             __floats2bfloat162_rn(acc[c][4 * j + 2 * r] / den,
                                   acc[c][4 * j + 2 * r + 1] / den);
-    // m and l are the same in the 4 threads of the quad
-    if (lse != nullptr && lane % 4 == 0)
+    // m and l are the same in the 4 threads of the quad, and in both halves
+    if (lse != nullptr && lane % 4 == 0 && t.half == 0)
       lse[(static_cast<long long>(t.b) * H + t.h) * S + row] =
           m[r] * kLn2 + logf(den);
   }
@@ -403,6 +431,7 @@ __global__ void __launch_bounds__(NT, 1) flash_kernel_tc(
   t.b = blockIdx.x / H;
   t.h = blockIdx.x % H;
   t.q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  t.half = blockIdx.z;
   t.kt_lo = 0;
   t.kt_hi = (S - 1) / BK;
   if (causal) {
@@ -412,7 +441,7 @@ __global__ void __launch_bounds__(NT, 1) flash_kernel_tc(
 
   if (threadIdx.x == 0) {
     mbar_init(t.qbar, 1);
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(t.kfull(s), 1);
       mbar_init(t.vfull(s), 1);
       mbar_init(t.empty(s), NCONS / 32);  // one arrival per consumer warp
@@ -448,7 +477,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B * H, (S + BQ - 1) / BQ);
+  const dim3 grid(B * H, (S + BQ - 1) / BQ, Smem<HD>::NH);
   kern<<<grid, NT, bytes, stream>>>(qm, km, vm, static_cast<__nv_bfloat16*>(o),
                                     lse, H, H / KV, S, st[9], st[10], st[11],
                                     causal, window, scale * kLog2e);
@@ -459,7 +488,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 // bfloat16 q, k, v, o with (batch, seq, head) element strides; every
 // pointer 16-byte aligned and every stride a multiple of 8 elements (TMA's
-// 16 bytes), head_dim 64 or 128; lse NULL, or (B, H, S) float32 for each
+// 16 bytes), head_dim 64, 128 or 256; lse NULL, or (B, H, S) float32 for each
 // row's L.  Returns a cudaError_t.
 extern "C" int flash_attention_tc_launch(
     const void* q, const void* k, const void* v, void* o, float* lse, int B,
@@ -485,6 +514,9 @@ extern "C" int flash_attention_tc_launch(
                         s);
     case 128:
       return launch<128>(q, k, v, o, lse, B, S, H, KV, st, causal, window, scale,
+                         s);
+    case 256:
+      return launch<256>(q, k, v, o, lse, B, S, H, KV, st, causal, window, scale,
                          s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

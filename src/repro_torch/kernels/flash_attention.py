@@ -8,12 +8,13 @@ window, causal only) or no mask: the counterpart of the Pallas
 wrapper launches one of two hand-written kernels, chosen by
 :func:`flash_route` from the dtype and head width alone:
 
-- ``"tc"`` (bfloat16 at head_dim 64 or 128): ``csrc/flash_attention_tc.cu``,
-  both products on the tensor cores (wgmma), TMA-fed.  P stays float32: P·V
-  is summed over ``TC_PARTS`` bfloat16 parts of P (:func:`split_bf16
-  <repro_torch.kernels.ref.split_bf16>`).  TMA needs 16-byte aligned
-  tensors with strides of 16 bytes; anything else raises.
-- ``"ffma"`` (float32, and bfloat16 at head_dim 32 or 256):
+- ``"tc"`` (bfloat16 at head_dim 64, 128 or 256):
+  ``csrc/flash_attention_tc.cu``, both products on the tensor cores
+  (wgmma), TMA-fed; at 256 each half of O's columns is one CTA.  P stays
+  float32: P·V is summed over ``TC_PARTS`` bfloat16 parts of P
+  (:func:`split_bf16 <repro_torch.kernels.ref.split_bf16>`).  TMA needs
+  16-byte aligned tensors with strides of 16 bytes; anything else raises.
+- ``"ffma"`` (float32, and bfloat16 at head_dim 32):
   ``csrc/flash_attention.cu``, IEEE float32 FFMA on the CUDA cores.
 
 On CPU tensors it runs the plain version,
@@ -23,10 +24,13 @@ build or launch raises, and no route stands in for another.
 Training goes through :class:`FlashAttentionFn`, the autograd function
 around the kernels: its forward launches the kernel of the same route with
 each row's L = m + log(max(l, 1e-30)) requested (:func:`flash_attention_lse`),
-and its backward (:func:`flash_attention_bwd_kernel`) the backward kernel of
-the same route, never the plain backward: ``csrc/flash_attention_bwd_tc.cu``
-on ``"tc"`` (all five products on the tensor cores, P and dS float32 in
-``TC_PARTS`` bfloat16 parts), ``csrc/flash_attention_bwd.cu`` on ``"ffma"``.
+and its backward (:func:`flash_attention_bwd_kernel`) the backward kernel
+that :func:`flash_bwd_route` names, a rule of its own, never the plain
+backward: ``csrc/flash_attention_bwd_tc.cu`` on ``"tc"`` (bfloat16 at
+head_dim 64 or 128; all five products on the tensor cores, P and dS float32
+in ``TC_PARTS`` bfloat16 parts), ``csrc/flash_attention_bwd.cu`` on
+``"ffma"`` (the rest, bfloat16 at head_dim 256 included: it reads the L
+that the tensor-core forward writes, the same natural log).
 ``flash_attention_kernel`` takes that path whenever grad mode is on and an
 input requires grad; otherwise (serving, ``torch.no_grad()``) it launches
 what it always did, L not requested.
@@ -44,14 +48,18 @@ from repro_torch.kernels.ref import attention_bwd_ref, attention_lse_ref, attent
 
 Tensor = torch.Tensor
 
-__all__ = ["HEAD_DIMS", "TC_HEAD_DIMS", "TC_PARTS", "FlashAttentionFn",
-           "flash_attention_bwd_kernel", "flash_attention_kernel",
-           "flash_attention_lse", "flash_route"]
+__all__ = ["HEAD_DIMS", "TC_BWD_HEAD_DIMS", "TC_HEAD_DIMS", "TC_PARTS",
+           "FlashAttentionFn", "flash_attention_bwd_kernel",
+           "flash_attention_kernel", "flash_attention_lse", "flash_bwd_route",
+           "flash_route"]
 
-# The head widths the FFMA kernel is compiled for (csrc/flash_attention.cu),
-# and the tensor-core kernel (csrc/flash_attention_tc.cu, bfloat16 only).
+# The head widths the FFMA kernels are compiled for (csrc/flash_attention.cu,
+# csrc/flash_attention_bwd.cu), the tensor-core forward
+# (csrc/flash_attention_tc.cu, bfloat16 only) and the tensor-core backward
+# (csrc/flash_attention_bwd_tc.cu, bfloat16 only).
 HEAD_DIMS = (32, 64, 128, 256)
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 128, 256)
+TC_BWD_HEAD_DIMS = (64, 128)
 # bfloat16 parts of P in the tensor-core kernel's P·V (its PARTS), and of
 # P and dS in the tensor-core backward's dV, dK and dQ.
 TC_PARTS = 3
@@ -62,9 +70,17 @@ TC_BWD_ROWS = 128
 
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that computes attention on these inputs: ``"tc"`` for
-    bfloat16 at head_dim 64 or 128, ``"ffma"`` for the rest.  A fixed rule:
-    the wrapper never reroutes on failure."""
+    bfloat16 at head_dim 64, 128 or 256, ``"ffma"`` for the rest.  A fixed
+    rule: the wrapper never reroutes on failure."""
     return "tc" if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS else "ffma"
+
+
+def flash_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that computes the gradient on these inputs: ``"tc"`` for
+    bfloat16 at head_dim 64 or 128, ``"ffma"`` for the rest (bfloat16 at
+    256 too, whose forward is ``"tc"``).  A fixed rule, like
+    :func:`flash_route`."""
+    return "tc" if dtype == torch.bfloat16 and head_dim in TC_BWD_HEAD_DIMS else "ffma"
 
 
 def check_tc_layout(q: Tensor, k: Tensor, v: Tensor) -> None:
@@ -84,8 +100,9 @@ def check_tc_layout(q: Tensor, k: Tensor, v: Tensor) -> None:
 
 
 def _tma_ready(t: Tensor) -> Tensor:
-    """``t`` if it is contiguous and 16-byte aligned (at head_dim 64 or 128
-    that meets :func:`check_tc_layout`'s rule), else a contiguous copy: the
+    """``t`` if it is contiguous and 16-byte aligned (at the tensor-core
+    backward's head widths that meets :func:`check_tc_layout`'s rule), else
+    a contiguous copy: the
     backward's O and dO, which autograd may hand over in any layout."""
     if t.is_contiguous() and t.data_ptr() % 16 == 0:
         return t
@@ -264,7 +281,7 @@ def flash_attention_bwd_kernel(
     """The flash function's gradient (dq, dk, dv), shaped and typed like q,
     k and v, from the forward's O and L and the output gradient ``do``, on
     (B, S, H, hd) q and (B, S, KV, hd) k and v.  On CUDA tensors the
-    backward kernel of ``flash_route(q.dtype, head_dim)``: ``"tc"``,
+    backward kernel of ``flash_bwd_route(q.dtype, head_dim)``: ``"tc"``,
     ``csrc/flash_attention_bwd_tc.cu`` (q, k and v laid out as
     :func:`check_tc_layout` requires, O and dO copied where they are not),
     or ``"ffma"``, ``csrc/flash_attention_bwd.cu``.
@@ -291,7 +308,7 @@ def flash_attention_bwd_kernel(
         raise TypeError("flash_attention_bwd: lse must be contiguous float32 on "
                         f"{q.device}")
     return _bwd_launch(q, k, v, o, do, lse, causal, window,
-                       flash_route(q.dtype, hd) == "tc")
+                       flash_bwd_route(q.dtype, hd) == "tc")
 
 
 def _bwd_launch(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor,

@@ -1,6 +1,7 @@
-"""The other LM block types' kernel on the card: the flash kernel's FFMA
-route at recurrentgemma's head_dim 256 with a window shorter than the
-prompt and one KV head (MQA), and one olmoe-shaped attention + MoE layer
+"""The other LM block types' kernel on the card: the flash kernel at
+recurrentgemma's head_dim 256 with a window shorter than the prompt and one
+KV head (MQA), bf16 on the tensor-core route and float32 on the FFMA
+route, and one olmoe-shaped attention + MoE layer
 routed from either attention route's output (the kernel's and the plain
 version's) picking the same experts but for near ties.  These tests need a
 CUDA card (marker ``cuda``) and skip without one; they import nothing of
@@ -33,19 +34,21 @@ def card():
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_ffma_flash_windowed_mqa_at_head_dim_256(card, dtype):
     """recurrentgemma's local attention: 10 query heads on one KV head,
-    head_dim 256, a window of 128 over 640 positions.  Per element within
-    one bfloat16 rounding of the plain version (2^-7 |ref| plus 1e-3 of the
-    row's largest), float32 within 2e-4."""
+    head_dim 256, a window of 128 over 640 positions; bf16 launches the
+    tensor-core kernel (O in two column halves), float32 the FFMA kernel.
+    Per element within one bfloat16 rounding of the plain version (2^-7
+    |ref| plus 1e-3 of the row's largest), float32 within 2e-4."""
     g = torch.Generator(device=card).manual_seed(0)
     B, S, H, hd, window = 2, 640, 10, 256, 128
     q = torch.randn((B, S, H, hd), generator=g, device=card).to(dtype)
     k = torch.randn((B, S, 1, hd), generator=g, device=card).to(dtype)
     v = torch.randn((B, S, 1, hd), generator=g, device=card).to(dtype)
-    assert flash_route(dtype, hd) == "ffma"
+    tc = dtype == torch.bfloat16
+    assert flash_route(dtype, hd) == ("tc" if tc else "ffma")
     n, n_tc = flash_attention_kernel.launches, flash_attention_kernel.launches_tc
     out = flash_attention_kernel(q, k, v, causal=True, window=window)
     assert flash_attention_kernel.launches == n + 1
-    assert flash_attention_kernel.launches_tc == n_tc
+    assert flash_attention_kernel.launches_tc == n_tc + tc
     ref = attention_ref(q, k, v, True, window)
     diff = (out.float() - ref.float()).abs()
     if dtype == torch.float32:

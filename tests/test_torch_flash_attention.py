@@ -18,6 +18,7 @@ from repro_torch.kernels import (
     attention_split_p_ref,
     flash_attention_kernel,
     flash_attention_ref,
+    flash_bwd_route,
     flash_route,
     split_bf16,
 )
@@ -170,12 +171,13 @@ def _bf16_qkv(seed, shape_q, shape_kv):
     return [torch.from_numpy(a).bfloat16().float().numpy() for a in (q, k, v)]
 
 
-@pytest.mark.parametrize("S,hd", [(128, 64), (96, 128)])
+@pytest.mark.parametrize("S,hd", [(128, 64), (96, 128), (160, 256)])
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 32), (False, 0)])
 def test_split_p_matches_pallas_interpret(S, hd, causal, window):
     """P·V over three bf16 parts of float32 P is the Pallas kernel's
     function (float32 P) within 1e-5 of max|v|; P rounded to bf16 once is
-    not, on the same inputs."""
+    not, on the same inputs.  At every width of the tensor-core route,
+    head_dim 256 (recurrentgemma's local layers) included."""
     BH = 4
     q, k, v = _bf16_qkv(13, (BH, S, hd), (BH, S, hd))
     want = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -189,12 +191,15 @@ def test_split_p_matches_pallas_interpret(S, hd, causal, window):
     assert float(np.abs(once.numpy() - want).max()) > tol
 
 
-def test_split_p_grouped_matches_attention_ref():
+@pytest.mark.parametrize("H,KV,hd", [(8, 2, 64), (10, 1, 256)])
+def test_split_p_grouped_matches_attention_ref(H, KV, hd):
     """The grouped (B, S, H, hd) form at three parts is attention_ref's
-    function: the split changes nothing a float32 sum can see."""
+    function: the split changes nothing a float32 sum can see.  GQA 4:1 at
+    head_dim 64, and recurrentgemma's MQA 10:1 at head_dim 256; a window
+    shorter than S."""
     from repro_torch.kernels import attention_ref
 
-    B, S, H, KV, hd = 2, 80, 8, 2, 64
+    B, S = 2, 80
     q, k, v = _t(*_bf16_qkv(14, (B, S, H, hd), (B, S, KV, hd)))
     got = attention_split_p_ref(q, k, v, True, 24)
     torch.testing.assert_close(got, attention_ref(q, k, v, True, 24),
@@ -203,12 +208,24 @@ def test_split_p_grouped_matches_attention_ref():
 
 @pytest.mark.parametrize("dtype,hd,route", [
     (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
-    (torch.bfloat16, 32, "ffma"), (torch.bfloat16, 256, "ffma"),
+    (torch.bfloat16, 32, "ffma"), (torch.bfloat16, 256, "tc"),
     (torch.float32, 64, "ffma"), (torch.float32, 128, "ffma"),
     (torch.float32, 32, "ffma"), (torch.float32, 256, "ffma"),
 ])
 def test_flash_route_table(dtype, hd, route):
     assert flash_route(dtype, hd) == route
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 32, "ffma"), (torch.bfloat16, 256, "ffma"),
+    (torch.float32, 64, "ffma"), (torch.float32, 128, "ffma"),
+    (torch.float32, 32, "ffma"), (torch.float32, 256, "ffma"),
+])
+def test_flash_bwd_route_table(dtype, hd, route):
+    """The backward's own rule: the tensor-core backward stops at head_dim
+    128, so bf16 at 256 runs forward on "tc" and backward on "ffma"."""
+    assert flash_bwd_route(dtype, hd) == route
 
 
 def test_tc_layout_check_raises_on_misaligned_strides():

@@ -27,7 +27,8 @@ from repro_torch.kernels import (
     attention_ref,
     flash_attention_bwd_kernel,
     flash_attention_kernel,
-    flash_route,
+    flash_attention_lse,
+    flash_bwd_route,
 )
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import forward, init_params, lm_loss
@@ -234,9 +235,10 @@ def test_split_backward_at_one_part_rounds_p_and_ds_once(causal, window):
 @pytest.mark.parametrize("hd", [32, 64, 128, 256])
 def test_backward_takes_the_forwards_route(monkeypatch, dtype, hd):
     """On a device other than the CPU the backward launches the kernel of
-    ``flash_route(dtype, head_dim)``: the tensor-core kernel for bf16 at
-    hd 64/128, the FFMA kernel for the rest (meta tensors stand in for the
-    card; the launch is recorded, not made)."""
+    ``flash_bwd_route(dtype, head_dim)``, the backward's own rule: the
+    tensor-core kernel for bf16 at hd 64/128, the FFMA kernel for the rest,
+    bf16 at hd 256 included (meta tensors stand in for the card; the launch
+    is recorded, not made)."""
     seen = []
     monkeypatch.setattr(fa, "_bwd_launch", lambda *a: seen.append(a[-1]))
     q = torch.empty((1, 8, 4, hd), dtype=dtype, device="meta")
@@ -244,7 +246,35 @@ def test_backward_takes_the_forwards_route(monkeypatch, dtype, hd):
     L = torch.empty((1, 4, 8), dtype=torch.float32, device="meta")
     flash_attention_bwd_kernel(q, k, v, q, q, L)
     want = dtype == torch.bfloat16 and hd in (64, 128)
-    assert seen == [want] and (flash_route(dtype, hd) == "tc") == want
+    assert seen == [want] and (flash_bwd_route(dtype, hd) == "tc") == want
+
+
+def test_head_dim_256_runs_forward_on_tc_and_backward_on_ffma(monkeypatch):
+    """recurrentgemma's local attention (bf16, MQA 10:1, hd 256, windowed)
+    under autograd: the forward launches the tensor-core kernel with L, the
+    backward the FFMA kernel on that L (meta tensors stand in for the card;
+    each launch is recorded, not made)."""
+    fwd, bwd = [], []
+    monkeypatch.setattr(fa, "_launch", lambda *a: fwd.append((a[6], a[7] is not None)))
+
+    def bwd_launch(q, k, v, o, do, lse, causal, window, tc):
+        bwd.append(tc)
+        return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+    monkeypatch.setattr(fa, "_bwd_launch", bwd_launch)
+    q = torch.empty((2, 64, 10, 256), dtype=torch.bfloat16, device="meta",
+                    requires_grad=True)
+    k, v = (torch.empty((2, 64, 1, 256), dtype=torch.bfloat16, device="meta",
+                        requires_grad=True) for _ in range(2))
+    out = flash_attention_kernel(q, k, v, causal=True, window=16)
+    grads = torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
+    assert fwd == [(True, True)] and bwd == [False]
+    assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
+    # without grad the forward takes the same route, L not requested
+    with torch.no_grad():
+        flash_attention_kernel(q, k, v, causal=True, window=16)
+    assert fwd[-1] == (True, False)
+    assert flash_attention_lse(q.detach(), k.detach(), v.detach())[1].shape == (2, 10, 64)
 
 
 def test_tma_ready_copies_what_is_not_contiguous_and_aligned():

@@ -1,6 +1,8 @@
 """Training's kernels on the card: the flash backward kernels against their
-plain version, each on its route (the tensor-core kernel for bf16 at
-head_dim 64/128, FFMA for the rest), the tensor-core route's flip rate
+plain version, each on its route (``flash_bwd_route``: the tensor-core
+kernel for bf16 at head_dim 64/128, FFMA for the rest), recurrentgemma's
+head_dim 256 under autograd (the tensor-core forward, the FFMA backward on
+its L), the tensor-core route's flip rate
 against rounding P and dS once, the flash forward's L, attention's
 gradient through ``FlashAttentionFn`` in a 2-layer llama3.2-shaped model
 against the plain route, and the SS-selected pipeline's picks against the
@@ -26,6 +28,7 @@ from repro_torch.kernels import (
     flash_attention_bwd_kernel,
     flash_attention_kernel,
     flash_attention_lse,
+    flash_bwd_route,
     flash_route,
 )
 from repro_torch.models import forward, init_params, lm_loss
@@ -68,12 +71,44 @@ def test_backward_kernel_matches_plain(card, dtype, hd, G, S, causal, window):
     got = flash_attention_bwd_kernel(q, k, v, o, do, L, causal=causal, window=window)
     assert flash_attention_bwd_kernel.launches == n + 1
     tc = dtype == torch.bfloat16 and hd in (64, 128)
-    assert flash_route(dtype, hd) == ("tc" if tc else "ffma")
+    assert flash_bwd_route(dtype, hd) == ("tc" if tc else "ffma")
     assert flash_attention_bwd_kernel.launches_tc == n_tc + tc
     want = attention_bwd_ref(q, k, v, o, do, L, causal, window)
     for name, a, b in zip("qkv", got, want):
         assert a.dtype == dtype
         _bwd_close(a, b, f"d{name} {dtype} hd={hd} G={G} S={S}")
+
+
+@pytest.mark.cuda
+def test_head_dim_256_trains_on_tc_forward_and_ffma_backward(card):
+    """recurrentgemma's local attention under autograd (bf16, 10 query heads
+    on one KV head, head_dim 256, a window of 96 over 320 positions): the
+    forward launches the tensor-core kernel with L, the backward the FFMA
+    kernel on that L, and the gradients match the plain backward's."""
+    assert flash_route(torch.bfloat16, 256) == "tc"
+    assert flash_bwd_route(torch.bfloat16, 256) == "ffma"
+    g = torch.Generator(device=card).manual_seed(256)
+    B, S, H, hd, window = 2, 320, 10, 256, 96
+    q = torch.randn((B, S, H, hd), generator=g, device=card).bfloat16()
+    k, v = (torch.randn((B, S, 1, hd), generator=g, device=card).bfloat16()
+            for _ in range(2))
+    do = torch.randn(q.shape, generator=g, device=card).bfloat16()
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    n_f, n_ftc = flash_attention_kernel.launches, flash_attention_kernel.launches_tc
+    n_b, n_btc = (flash_attention_bwd_kernel.launches,
+                  flash_attention_bwd_kernel.launches_tc)
+    out = flash_attention_kernel(qg, kg, vg, causal=True, window=window)
+    assert flash_attention_kernel.launches == n_f + 1
+    assert flash_attention_kernel.launches_tc == n_ftc + 1
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    assert flash_attention_bwd_kernel.launches == n_b + 1
+    assert flash_attention_bwd_kernel.launches_tc == n_btc
+    o, L = flash_attention_lse(q, k, v, causal=True, window=window)
+    assert torch.equal(o, out.detach())
+    want = attention_bwd_ref(q, k, v, o, do, L, True, window)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == torch.bfloat16
+        _bwd_close(a, b, f"d{name} bf16 hd=256 MQA window={window}")
 
 
 @pytest.mark.cuda
