@@ -28,8 +28,8 @@ the plain path, times each kernel at the path's shapes beside its bound and
 its plain version, and profiles the path.  On each SS path's objective at
 full size it also runs stochastic greedy over V' and over V (k = 32, s from
 the live count: the gains kernel once a step), and on FeatureCoverage lazy
-greedy over V and V' (every evaluation through the kernel, f(S) equal to
-greedy's); the §3.4 post-reduction runs after SS on a 2^16-sentence news
+greedy over the first eighth of V and over V' (every evaluation through
+the kernel, f(S) equal to greedy's on the same set); the §3.4 post-reduction runs after SS on a 2^16-sentence news
 day.  At n = 4096 the three objectives hold stochastic and lazy greedy to
 the plain backend and ``postreduce`` on the card to the host under the same
 draws, and ``examples/quickstart_torch.py`` runs on the card.  After each
@@ -62,7 +62,7 @@ to the core's run, with no recovery, no degradation and the kernels'
 launches counted; seeded faults (retries bit-identical, a failover to the
 plain route on the card within TOL, the watchdog, a crash); and a traced
 run that changes no bit.  The durable session tier follows
-(``session_phase``): 16 sessions of 512 news rows (F = 1024, k = 32)
+(``session_phase``): 16 sessions of 384 news rows (F = 1024, k = 32)
 appended round robin on a durable root, each final state and summary equal
 to a B = 1 replay bit for bit, every SS compaction and summary held to the
 plain route on the same inputs, then a crash, two restarts, a torn WAL
@@ -92,18 +92,22 @@ timed in turns beside the bounds, the plain version and
 ``at_recurrentgemma``).
 Then training (``train_phase``, on a freed card): the flash backward
 kernels (by ``flash_bwd_route``: the tensor-core route for bf16 at
-head_dim 64/128, FFMA for the rest, bf16 at 256 included) against their
+head_dim 64/128/256, FFMA for float32 and bf16 at 32) against their
 plain version over a sweep (both dtypes, head_dim 32
-to 256, grouped KV, three masks, S from 1 to 1000 and causal bf16 at 2048
-and 4096, the TPU layout; the forward's O with and without L bitwise
-equal) and at llama3.2-3b's shape (both routes in turns) beside the
-bounds, the plain backward and SDPA's, with flip rates; llama3.2-3b at full
-width and depth, step 0's loss and every gradient leaf on the kernel route
-against the plain attention route; 8 steps through ``launch/train.py``
-(the main path: AdamW, remat "nothing", SS-selected 4 x 2048 batches; 56
-forward and 28 backward flash launches a step, the backward's all on the
-tensor-core route, SS's kernels every batch,
-the loss falling, one step profiled); checkpoint, SIGTERM and resume on
+to 256, grouped KV, three masks, S from 1 to 1000, causal bf16 at 2048
+and 4096, MQA 10:1 at head_dim 256 with window 2048 at S 3000 and 4096,
+the TPU layout; the forward's O with and without L bitwise equal), ptxas'
+report of the tensor-core instances, and at llama3.2-3b's and
+recurrentgemma-2b's shapes (both routes in turns) beside the bounds, the
+plain backward and SDPA's, with flip rates; then llama3.2-3b and
+recurrentgemma-2b, each at full width and depth: step 0's loss and every
+gradient leaf on the kernel route against the plain attention route, and
+8 steps through ``launch/train.py`` (the main path: AdamW, remat
+"nothing", SS-selected batches of 4 x 2048 and 2 x 4096; 56 forward and
+28 backward flash launches a llama step, 16 and 8 a recurrentgemma step
+(its eight local layers), all on the tensor-core route, SS's kernels
+every batch, the loss falling, one step profiled); checkpoint, SIGTERM
+and resume on
 the card; and the data pipeline at a 256 x 2048 global batch with both SS
 objectives, its picks held to the plain route's.
 The
@@ -184,6 +188,11 @@ FLASH_WORST = [0.0]  # largest |out - ref| / tolerance of a bfloat16 flash check
 
 def fail(msg: str) -> None:
     raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def mark(what: str) -> None:
+    """The script's elapsed time (host clock) as a phase ends."""
+    print(f"[{time.perf_counter() - T0[0]:.1f} s] {what} done", flush=True)
 
 
 def check(cond, msg: str) -> None:
@@ -749,18 +758,29 @@ def stochastic_phase(label: str, fn, ss, full, wall_full: float, kernel,
     return out
 
 
-def lazy_phase(fn, ss, full, res) -> dict:
-    """Lazy greedy on FeatureCoverage at full size, on V and on V', with
-    feature_gains' count set to 0 just before and read just after: every
-    evaluation goes through the kernel (one full-width bound pass, then one
-    one-slot call per re-evaluation), and f(S) equals greedy's to 1e-5
-    relative (news_day has duplicate rows, so picks may differ where gains
-    tie: the differing positions are printed)."""
-    from repro_torch import lazy_greedy
+# Lazy greedy's ground set on FeatureCoverage: the first LAZY_PREFIX of the
+# 2^20 sentences (on all of V it re-evaluates about 395000 times, one
+# launch each, for about a minute; an eighth takes about an eighth).
+LAZY_PREFIX = N // 8
+
+
+def lazy_phase(fn, ss, res) -> dict:
+    """Lazy greedy on FeatureCoverage at full size, on the first
+    ``LAZY_PREFIX`` sentences of V (against greedy on the same prefix) and
+    on V' (against greedy on V'), with feature_gains' count set to 0 just
+    before and read just after: every evaluation goes through the kernel
+    (one full-width bound pass, then one one-slot call per re-evaluation),
+    and f(S) equals greedy's to 1e-5 relative (news_day has duplicate rows,
+    so picks may differ where gains tie: the differing positions are
+    printed)."""
+    from repro_torch import greedy, lazy_greedy
     from repro_torch.kernels import feature_gains_kernel
 
+    prefix = torch.arange(fn.n, device="cuda") < LAZY_PREFIX
     out = {}
-    for where, alive, ref in (("V", None, full), ("V'", ss.vprime, res)):
+    where_v = f"the first {LAZY_PREFIX} of V"
+    for where, alive, ref in ((where_v, prefix, greedy(fn, K, alive=prefix)),
+                              ("V'", ss.vprime, res)):
         feature_gains_kernel.launches = 0
         lz, wall = _synced(lambda: lazy_greedy(fn, K, alive=alive))
         launches = feature_gains_kernel.launches
@@ -1138,17 +1158,21 @@ def fc_path(errs: dict) -> list[dict]:
     # the paper's other selectors at full size, on the same objective
     records[1]["stochastic"] = stochastic_phase(
         "FeatureCoverage", fn, ss, full, wall_full, feature_gains_kernel)
-    records[1]["lazy"] = lazy_phase(fn, ss, full, res)
+    records[1]["lazy"] = lazy_phase(fn, ss, res)
     # the streaming baseline on the same objective
     SIEVE["FeatureCoverage"] = sieve_path("FeatureCoverage", fn, full, wall_full,
                                           eps_runs=(None, 0.1), plain=True)
     SIEVE["row_sieve"] = row_sieve_phase(fn)
     # the service's coverage lane: the same news day as 8 queries of 2^16
+    mark("FeatureCoverage path and its selectors")
     records[0]["lane"] = coverage_lane(fn, errs)
     # the summarization service over the lanes, on the same news day
+    mark("coverage lane")
     records[0]["service"] = service_phase(fn)
+    mark("service")
     # durable streaming sessions over the news rows
     records[0]["sessions"] = session_phase(errs)
+    mark("sessions")
     return records
 
 
@@ -3053,13 +3077,16 @@ def lm_families_phase(errs: dict) -> dict:
 
 # -- training: the flash backward kernel, llama3.2-3b at full width -----------
 
-TRAIN_ARCH, TRAIN_B, TRAIN_S, TRAIN_STEPS = "llama3.2-3b", 4, 2048, 8
+TRAIN_ARCH, TRAIN_STEPS = "llama3.2-3b", 8   # (d)'s smoke config; steps a run
 TRAIN_LOSS_REL, TRAIN_GRAD_REL = 1e-3, 5e-2   # (b): kernel vs plain route
-# Candidates a batch: TRAIN_POOL x TRAIN_B = 64, above SS's probe count
-# (8 log2 64 = 48), so SS prunes (one round, ``ss_divergence`` launched)
-# before greedy picks 4; the launcher's default 4 (16 candidates, under
-# 8 log2 16 = 32) would leave the pool whole and never launch it.
-TRAIN_POOL = 16
+# The trained models: (arch, batch, sequence, pool factor).  Candidates a
+# batch, pool factor x batch = 64, lie above SS's probe count (8 log2 64 =
+# 48), so SS prunes (one round, ``ss_divergence`` launched) before greedy
+# picks the batch; the launcher's default 4 (16 or 8 candidates, under 8
+# log2 n) would leave the pool whole and never launch it.  recurrentgemma's
+# local layers see a window of 2048 keys, which bites only past 2048
+# positions: hence 2 x 4096.
+TRAIN_RUNS = (("llama3.2-3b", 4, 2048, 16), ("recurrentgemma-2b", 2, 4096, 32))
 POOL_B, POOL_S = 256, 2048                    # (e): a 0.5 M-token global batch
 BWD_WORST = [0.0]  # largest |out - ref| / tolerance of a bfloat16 backward check
 
@@ -3125,10 +3152,14 @@ def bwd_close(out, ref, what: str, ref64=None, mag=None) -> float:
     return err
 
 
-# Long causal cases of the backward sweep (dtype, head_dim, G, mask, S):
-# the tensor-core route's rings at their full depth (64 query tiles of a
-# key block's G heads, 64 key tiles of a query block).
-BWD_LONG = tuple((torch.bfloat16, 128, 3, "causal", s) for s in (2048, 4096))
+# Long cases of the backward sweep (dtype, head_dim, G, mask, S, KV; a mask
+# that is a number is a causal window of that many keys): the tensor-core
+# route's rings at their full depth (64 query tiles of a key block's G
+# heads, 64 key tiles of a query block), and recurrentgemma-2b's local
+# layers (MQA 10:1 at head_dim 256, window 2048; at S 4096 the window
+# bites, at 3000 S is not a multiple of a tile).
+BWD_LONG = (tuple((torch.bfloat16, 128, 3, "causal", s, 2) for s in (2048, 4096))
+            + tuple((torch.bfloat16, 256, 10, 2048, s, 1) for s in (3000, 4096)))
 
 
 def bwd_sweep(errs: dict) -> None:
@@ -3137,13 +3168,12 @@ def bwd_sweep(errs: dict) -> None:
     a window shorter than S, or no mask x S = 1, 17, 64, 130, 1000, and
     ``BWD_LONG``, held by ``bwd_close`` against the float64 plain backward
     (with the float32 rounding bound of the sums beside), each on the route
-    ``flash_bwd_route`` gives (the tensor-core kernel for bf16 at hd 64/128,
-    counted by ``launches_tc``; the FFMA kernel for the rest, bf16 at hd 256
-    included, on the L of the tensor-core forward); the forward's O with L
-    requested bitwise equal to O without it (the forward's route by
-    ``flash_route``: bf16 at hd 256 on the tensor cores) and its L
-    within 1e-5 relative of the plain one; then the TPU layout (BH, S, hd)
-    through ``flash_attention_kernel`` under autograd."""
+    ``flash_bwd_route`` gives (the tensor-core kernel for bf16 at hd
+    64/128/256, counted by ``launches_tc``; the FFMA kernel for the rest);
+    the forward's O with L requested bitwise equal to O without it (the
+    forward's route by ``flash_route``) and its L within 1e-5 relative of
+    the plain one; then the TPU layout (BH, S, hd) through
+    ``flash_attention_kernel`` under autograd."""
     from repro_torch.kernels import (attention_bwd_ref, attention_lse_ref,
                                      flash_attention_bwd_kernel,
                                      flash_attention_kernel, flash_attention_lse,
@@ -3151,19 +3181,22 @@ def bwd_sweep(errs: dict) -> None:
 
     g = torch.Generator(device="cuda").manual_seed(11)
     cases, tc_o, tc_bwd = 0, 0, 0
-    for dt, hd, G, mask, S in itertools.chain(itertools.product(
+    for dt, hd, G, mask, S, KV in itertools.chain(((*c, 2) for c in itertools.product(
         (torch.float32, torch.bfloat16), (32, 64, 128, 256), (1, 3, 10),
         ("causal", "window", "none"), (1, 17, 64, 130, 1000),
-    ), BWD_LONG):
+    )), BWD_LONG):
         if mask == "window" and S == 1:
             continue                       # no window shorter than S
-        causal, window = mask != "none", max(1, S // 3) if mask == "window" else 0
-        B, KV = 2, 2
+        causal = mask != "none"
+        window = (mask if isinstance(mask, int)
+                  else max(1, S // 3) if mask == "window" else 0)
+        B = 2
         q = torch.randn((B, S, KV * G, hd), generator=g, device="cuda").to(dt)
         k, v = (torch.randn((B, S, KV, hd), generator=g, device="cuda").to(dt)
                 for _ in range(2))
         do = torch.randn(q.shape, generator=g, device="cuda").to(dt)
-        what = f"flash backward {dt} hd={hd} G={G} {mask} S={S}"
+        what = (f"flash backward {dt} hd={hd} G={G} KV={KV} "
+                f"{f'window {mask}' if isinstance(mask, int) else mask} S={S}")
         n_ftc = flash_attention_kernel.launches_tc
         o, L = flash_attention_lse(q, k, v, causal=causal, window=window)
         with torch.no_grad():
@@ -3227,51 +3260,86 @@ def bwd_sweep(errs: dict) -> None:
           f"{BWD_WORST[0]:.4f} of its tolerance", flush=True)
 
 
-def bwd_at_shape(errs: dict) -> dict:
-    """The backward at llama3.2-3b's attention shape (B 4, S 2048, H 24, KV
-    8, hd 128, bf16, causal): the tensor-core route and the FFMA kernel on
-    the same inputs, timed in turns (tc, ffma, ffma, tc; ``kernel_ms``,
-    each route's time the median of its windows), beside the function's
-    bound (``flash_bound``'s rule: QKᵀ and dO Vᵀ exact bf16 products, the
-    three products with float32 P or dS at TC_PARTS parts each, 22 hd
-    tensor-core flops and one exponential a pair), the tensor-core design's
-    own (26 hd: QKᵀ and dO Vᵀ in both of its kernels), the FFMA design's (7
-    hd FFMAs a pair), the plain backward, and the backward of
-    ``scaled_dot_product_attention`` (KV expanded; it rounds P once: a
-    yardstick); the flip rates of the bf16 gradients against the plain
-    float32 ones rounded, for both kernels and for the plain version with P
-    and dS in 1, 2 and 3 bf16 parts (the tensor-core route's at most a
-    quarter of one part's); and what ptxas reported for the tensor-core
-    kernels (no spill)."""
+# The backward's timed shapes: (arch, B, S, H, KV, hd, window) of an
+# attention layer in each trained model's step (window 0: plain causal).
+BWD_SHAPES = (("llama3.2-3b", 4, 2048, 24, 8, 128, 0),
+              ("recurrentgemma-2b", 2, 4096, 10, 1, 256, 2048))
+
+
+def bwd_ptxas() -> dict:
+    """What ptxas reported for the tensor-core backward's instances
+    (``dkdv_tc`` and ``dq_tc`` at head_dim 64, 128 and 256): registers at
+    the launch bound and spill bytes; no spill allowed at 128 and 256, the
+    widths training runs."""
+    out = {}
+    for hd in (64, 128, 256):
+        for kern in ("dkdv_tc", "dq_tc"):
+            regs, store, load, _ = ptxas_report("flash_attention_bwd_tc",
+                                                f"{kern}ILi{hd}E", threads=384)
+            check(hd == 64 or store == load == 0,
+                  f"{kern}<{hd}>: ptxas spills {store}/{load} bytes")
+            out[f"{kern}<{hd}>"] = {"registers": regs, "spill_store_bytes": store,
+                                    "spill_load_bytes": load}
+    print(f"flash_attention_bwd_tc ptxas (launch bound 168, consumers 232 by "
+          f"setmaxnreg): {out}", flush=True)
+    return out
+
+
+def _sdpa_backend(q, k, v, **kw) -> str:
+    """The backend ``scaled_dot_product_attention`` picks on these inputs."""
+    from torch.nn.attention import SDPBackend
+
+    choice = int(torch._fused_sdp_choice(q, k, v, **kw))
+    return next((name for name, b in SDPBackend.__members__.items()
+                 if int(b) == choice), f"backend {choice}")
+
+
+def bwd_at_shape(errs: dict, arch: str, B: int, S: int, H: int, KV: int, hd: int,
+                 window: int) -> dict:
+    """The backward at a trained model's attention shape (``BWD_SHAPES``;
+    bf16, causal, ``window`` > 0 a sliding window): the tensor-core route
+    and the FFMA kernel on the same inputs, timed in turns (tc, ffma, ffma,
+    tc; ``kernel_ms``, each route's time the median of its windows), the
+    tensor-core route faster in each pair, beside the function's bound
+    (``flash_bound``'s rule: QKᵀ and dO Vᵀ exact bf16 products, the three
+    products with float32 P or dS at TC_PARTS parts each, 22 hd tensor-core
+    flops and one exponential a pair), the tensor-core design's own (26 hd:
+    QKᵀ and dO Vᵀ in both of its kernels; 34 hd at head_dim 256, where both
+    column halves compute them too), the FFMA design's (7 hd FFMAs a pair),
+    the plain backward, and the backward of ``scaled_dot_product_attention``
+    (KV expanded, the window as a boolean mask; it rounds P once: a
+    yardstick) with the backend it took; the flip rates of the bf16
+    gradients against the plain float32 ones rounded, for both kernels and
+    for the plain version with P and dS in 1, 2 and 3 bf16 parts (the
+    tensor-core route's at most a quarter of one part's)."""
     from repro_torch.kernels import (attention_bwd_ref, flash_attention_bwd_kernel,
                                      flash_attention_lse)
     from repro_torch.kernels.flash_attention import TC_PARTS, _bwd_launch
 
-    B, S, H, KV, hd = TRAIN_B, TRAIN_S, 24, 8, 128
     g = torch.Generator(device="cuda").manual_seed(12)
     q = torch.randn((B, S, H, hd), generator=g, device="cuda").bfloat16()
     k, v = (torch.randn((B, S, KV, hd), generator=g, device="cuda").bfloat16()
             for _ in range(2))
     do = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
-    o, L = flash_attention_lse(q, k, v)
+    o, L = flash_attention_lse(q, k, v, window=window)
 
     def tc_route():
-        return flash_attention_bwd_kernel(q, k, v, o, do, L)
+        return flash_attention_bwd_kernel(q, k, v, o, do, L, window=window)
 
     def ffma():
         # the CUDA-core kernel on the same bf16 inputs (the earlier design)
-        return _bwd_launch(q, k, v, o, do, L, True, 0, False)
+        return _bwd_launch(q, k, v, o, do, L, True, window, False)
 
     n_tc = flash_attention_bwd_kernel.launches_tc
     got, got_f = tc_route(), ffma()
     check(flash_attention_bwd_kernel.launches_tc == n_tc + 1,
-          f"flash backward at {TRAIN_ARCH}'s shape: not on the tensor-core route")
-    want, tp = kernel_ms(lambda: attention_bwd_ref(q, k, v, o, do, L), 2)
+          f"flash backward at {arch}'s shape: not on the tensor-core route")
+    want, tp = kernel_ms(lambda: attention_bwd_ref(q, k, v, o, do, L, True, window), 2)
     err = 0.0
     for name, a, f, b in zip(("dq", "dk", "dv"), got, got_f, want):
-        err = max(err, bwd_close(a, b, f"flash backward (tensor-core) at {TRAIN_ARCH}'s "
+        err = max(err, bwd_close(a, b, f"flash backward (tensor-core) at {arch}'s "
                                        f"shape {name}"),
-                  bwd_close(f, b, f"flash backward (FFMA) at {TRAIN_ARCH}'s shape {name}"))
+                  bwd_close(f, b, f"flash backward (FFMA) at {arch}'s shape {name}"))
     errs["flash_attention_bwd"] = max(errs["flash_attention_bwd"], err)
     n_out = sum(a.numel() for a in got)
 
@@ -3284,13 +3352,13 @@ def bwd_at_shape(errs: dict) -> dict:
     flips = {"tc": flip_rate(got), "ffma": flip_rate(got_f)}
     for parts in (1, 2, 3):
         flips[f"plain_{parts}_parts"] = flip_rate(
-            attention_bwd_ref(q, k, v, o, do, L, parts=parts))
+            attention_bwd_ref(q, k, v, o, do, L, True, window, parts=parts))
     del got, got_f, want
     check(flips["tc"] <= flips["plain_1_parts"] / 4,
-          f"flash backward flip rate {flips['tc']} is over a quarter of rounding P "
-          f"and dS once ({flips['plain_1_parts']}): the products do not keep "
-          "float32 P and dS")
-    print(f"flash backward flip rates at {TRAIN_ARCH}'s shape (bf16 gradients that "
+          f"flash backward flip rate {flips['tc']} at {arch}'s shape is over a "
+          f"quarter of rounding P and dS once ({flips['plain_1_parts']}): the "
+          "products do not keep float32 P and dS")
+    print(f"flash backward flip rates at {arch}'s shape (bf16 gradients that "
           f"differ from the plain float32 ones rounded): tensor-core route "
           f"({TC_PARTS} parts, summed in the wgmma accumulator across tiles) "
           f"{flips['tc']:.6f}, FFMA kernel {flips['ffma']:.6f}; plain with P and dS "
@@ -3301,52 +3369,59 @@ def bwd_at_shape(errs: dict) -> dict:
     # both kernels in turns (tc, ffma, ffma, tc)
     turns = [kernel_ms(tc_route, 10)[1], kernel_ms(ffma, 2)[1],
              kernel_ms(ffma, 2)[1], kernel_ms(tc_route, 10)[1]]
+    check(turns[0].ms < turns[1].ms and turns[3].ms < turns[2].ms,
+          f"flash backward at {arch}'s shape: the tensor-core route is not faster "
+          f"than the FFMA kernel in each pair ({', '.join(f'{t.ms:.4f}' for t in turns)})")
     tc_windows = turns[0].windows + turns[3].windows
     ffma_windows = turns[1].windows + turns[2].windows
     ms, ffma_ms = statistics.median(tc_windows), statistics.median(ffma_windows)
-    pairs = B * H * S * (S + 1) / 2
+    # each query reads min(i + 1, window) keys
+    pairs = B * H * sum(min(j + 1, window or S) for j in range(S))
     nbytes = 8 * q.numel() * 2 + 4 * k.numel() * 2 + L.numel() * 4
     b_ms, b_by, b_pipe = bound(nbytes, sfu=pairs,
                                bf16_tc=(2 + 2 + 3 * 2 * TC_PARTS) * pairs * hd)
+    # QKᵀ and dO Vᵀ in both kernels, and at head_dim 256 in both column halves
+    recompute = 4 if hd == 256 else 2
     tc_design = bound(nbytes, sfu=pairs,
-                      bf16_tc=(2 * (2 + 2) + 3 * 2 * TC_PARTS) * pairs * hd)[0]
+                      bf16_tc=(recompute * (2 + 2) + 3 * 2 * TC_PARTS) * pairs * hd)[0]
     ffma_design = bound(nbytes, ffma=7 * pairs * hd, sfu=pairs)[0]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qx = q.transpose(1, 2).detach().requires_grad_()
     kx, vx = (t_.repeat_interleave(H // KV, dim=2).transpose(1, 2).detach()
               .requires_grad_() for t_ in (k, v))
-    out = sdpa(qx, kx, vx, is_causal=True)
+    if window:
+        i = torch.arange(S, device=q.device)
+        mask_kw = {"attn_mask": (i[None, :] <= i[:, None])
+                   & (i[:, None] - i[None, :] < window)}
+    else:
+        mask_kw = {"is_causal": True}
+    lib_backend = _sdpa_backend(qx, kx, vx, **mask_kw)
+    out = sdpa(qx, kx, vx, **mask_kw)
     dox = do.transpose(1, 2)
     lib_ms = kernel_ms(lambda: torch.autograd.grad(out, (qx, kx, vx), dox,
                                                    retain_graph=True), 5)[1].ms
+    del out, qx, kx, vx, mask_kw
     share = b_ms / ms
-    check(share <= 1.05, f"flash backward runs at {share:.3f} of its bound")
-    ptxas = {}
-    for kern in ("dkdv_tc", "dq_tc"):
-        regs, store, load, _ = ptxas_report("flash_attention_bwd_tc", f"{kern}ILi{hd}E",
-                                            threads=384)
-        check(store == 0 and load == 0, f"{kern}<{hd}>: ptxas spills {store}/{load} bytes")
-        ptxas[kern] = {"registers": regs, "spill_store_bytes": store,
-                       "spill_load_bytes": load}
-    print(f"flash_attention_bwd at {TRAIN_ARCH}'s shape (B={B}, S={S}, H={H}, "
-          f"KV={KV}, hd={hd}, bf16, causal; {CARD[0]}): tensor-core route "
+    check(share <= 1.05, f"flash backward at {arch}'s shape runs at {share:.3f} of "
+          "its bound")
+    print(f"flash_attention_bwd at {arch}'s shape (B={B}, S={S}, H={H}, KV={KV}, "
+          f"hd={hd}, bf16, causal, window {window}; {CARD[0]}): tensor-core route "
           f"{ms:.4f} ms per launch (median of its windows; in turns "
           f"{', '.join(f'{t_.ms:.4f}' for t_ in turns)}: tc, ffma, ffma, tc), bound "
           f"{b_ms:.4f} ms ({b_by}: {b_pipe}), share {share:.4f}; the tensor-core "
           f"design's bound {tc_design:.4f} ms (share {tc_design / ms:.4f}); FFMA "
           f"kernel {ffma_ms:.4f} ms (its design's bound {ffma_design:.4f} ms); "
           f"plain {tp.ms:.4f} ms; library (scaled_dot_product_attention's "
-          f"backward, KV expanded, P rounded once) {lib_ms:.4f} ms; vs plain err "
-          f"{err:.3g}; ptxas (launch bound 168, consumers 232 by setmaxnreg): "
-          f"{ptxas}", flush=True)
+          f"backward, KV expanded, P rounded once, backend {lib_backend}) "
+          f"{lib_ms:.4f} ms; vs plain err {err:.3g}", flush=True)
     return {"ms": ms, "windows": tc_windows, "turns_ms": [t_.ms for t_ in turns],
             "plain_ms": tp.ms, "bound_ms": b_ms, "bound_by": b_by, "pipe": b_pipe,
             "share_of_bound": share, "tc_design_bound_ms": tc_design,
             "ffma_design_bound_ms": ffma_design, "library_ms": lib_ms,
-            "flip_rates": flips, "ffma_kernel": {
+            "library_backend": lib_backend, "flip_rates": flips, "ffma_kernel": {
                 "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                 "ms": ffma_ms, "windows": ffma_windows},
-            "ptxas": ptxas, "shape": [B, S, H, KV, hd]}
+            "shape": [B, S, H, KV, hd], "window": window, "pairs": pairs}
 
 
 def _named_leaves(tree, prefix: str = ""):
@@ -3357,10 +3432,22 @@ def _named_leaves(tree, prefix: str = ""):
             yield f"{prefix}/{key}", val
 
 
-def _step0_routes(cfg, params, batch) -> dict:
+def _flash_per_step(cfg) -> tuple[int, int]:
+    """(forward, backward) flash launches of one training step under remat
+    "nothing": an attention layer inside a checkpointed group of the block
+    pattern runs its forward twice (the forward, then the recompute), one in
+    the unstacked tail once; each runs its backward once."""
+    attn = ("attn", "attn_moe", "local")
+    grouped = cfg.num_groups * sum(b in attn for b in cfg.block_pattern)
+    tail = sum(b in attn for b in cfg.remainder_blocks)
+    return 2 * grouped + tail, grouped + tail
+
+
+def _step0_routes(cfg, params, batch, B: int, S: int) -> dict:
     """(b) step 0's loss and gradients through the kernel route, then the
     plain route (``attention_ref`` under autograd, one layer live at a time
-    under remat), on the same parameters and batch."""
+    under remat), on the same parameters and batch: every leaf (the RG-LRU's
+    gates and conv bias included) gets a nonzero gradient on both."""
     from repro_torch.kernels import flash_attention_bwd_kernel, flash_attention_kernel
     from repro_torch.train import TrainConfig
     from repro_torch.train.trainer import _global_norm, _grads
@@ -3376,9 +3463,10 @@ def _step0_routes(cfg, params, batch) -> dict:
     wall_k = time.perf_counter() - t
     fwd, bwd = flash_attention_kernel.launches, flash_attention_bwd_kernel.launches
     bwd_tc = flash_attention_bwd_kernel.launches_tc
-    check(fwd == 2 * cfg.num_layers and bwd == bwd_tc == cfg.num_layers,
-          f"step 0 kernel route: {fwd} forward and {bwd} backward flash launches "
-          f"({bwd_tc} on the tensor-core route)")
+    want_f, want_b = _flash_per_step(cfg)
+    check(fwd == want_f and bwd == bwd_tc == want_b,
+          f"{cfg.name} step 0 kernel route: {fwd} forward and {bwd} backward flash "
+          f"launches ({bwd_tc} on the tensor-core route), want {want_f} and {want_b}")
     t = time.perf_counter()
     with plain_attention():
         g_p, m_p = _grads(cfg, tc, params, list(leaves), batch)
@@ -3391,20 +3479,23 @@ def _step0_routes(cfg, params, batch) -> dict:
     rels = {}
     for name, a, b in zip(names, g_k, g_p):
         nb = float(b.norm())
-        check(nb > 0 and float(a.norm()) > 0, f"step 0: {name} got no gradient")
+        check(nb > 0 and float(a.norm()) > 0,
+              f"{cfg.name} step 0: {name} got no gradient")
         rels[name] = float((a - b).norm()) / nb
     del g_k, g_p
     worst = max(rels, key=rels.get)
     attn_leaves = [n for n in names if "/attn/" in n]
-    print(f"{cfg.name} step 0 ({TRAIN_B} x {TRAIN_S} tokens, SS-selected, remat "
+    print(f"{cfg.name} step 0 ({B} x {S} tokens, SS-selected, remat "
           f"nothing; {CARD[0]}): loss kernel route {loss_k:.6f}, plain route "
           f"{loss_p:.6f} (rel {rel_loss:.3g}); global grad norm {gn_k:.6f} vs "
           f"{gn_p:.6f}; worst leaf {worst} at {rels[worst]:.4g} relative; "
-          f"attention leaves ({len(attn_leaves)}: w_q, w_k, w_v, w_o) at most "
+          f"attention leaves ({len(attn_leaves)}) at most "
           f"{max(rels[n] for n in attn_leaves):.4g}; wall {wall_k:.3f} s (kernel) "
           f"vs {wall_p:.3f} s (plain)", flush=True)
-    check(rel_loss <= TRAIN_LOSS_REL, f"step 0: loss differs by {rel_loss:.3g}")
-    check(rels[worst] <= TRAIN_GRAD_REL, f"step 0: {worst} differs by {rels[worst]:.3g}")
+    check(rel_loss <= TRAIN_LOSS_REL,
+          f"{cfg.name} step 0: loss differs by {rel_loss:.3g}")
+    check(rels[worst] <= TRAIN_GRAD_REL,
+          f"{cfg.name} step 0: {worst} differs by {rels[worst]:.3g}")
     return {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_rel": rel_loss,
             "grad_norm_kernel": gn_k, "grad_norm_plain": gn_p, "worst_leaf": worst,
             "worst_rel": rels[worst], "leaf_rel": rels, "wall_kernel_s": wall_k,
@@ -3473,18 +3564,18 @@ def _instrumented_training(steps: list, profile_at: int):
         train_mod.make_train_step, train_mod.Pipeline = make, Pipe
 
 
-def _train_main(cfg, tmp: str) -> dict:
-    """(c) ``launch/train.py`` on the card: llama3.2-3b at full width and
-    depth, ``TRAIN_STEPS`` steps of TRAIN_B x TRAIN_S SS-selected tokens,
-    AdamW (the launcher's rule), remat "nothing", no checkpoint; the
-    kernels' counts set to 0 just before and read just after."""
+def _train_main(cfg, tmp: str, B: int, S: int, pool: int) -> dict:
+    """(c) ``launch/train.py`` on the card: a model at full width and
+    depth, ``TRAIN_STEPS`` steps of B x S SS-selected tokens (pool factor
+    ``pool``), AdamW (the launcher's rule), remat "nothing", no checkpoint;
+    the kernels' counts set to 0 just before and read just after."""
     from repro_torch.launch import train as train_mod
 
     steps: list = []
     profile_at = TRAIN_STEPS - 2
-    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
-            str(TRAIN_B), "--seq", str(TRAIN_S), "--selection", "ss",
-            "--pool-factor", str(TRAIN_POOL),
+    argv = ["--arch", cfg.name, "--steps", str(TRAIN_STEPS), "--batch",
+            str(B), "--seq", str(S), "--selection", "ss",
+            "--pool-factor", str(pool),
             "--ckpt-every", "0", "--remat", "nothing", "--ckpt-dir", tmp,
             "--device", "cuda"]
     with _instrumented_training(steps, profile_at) as kernels:
@@ -3498,23 +3589,25 @@ def _train_main(cfg, tmp: str) -> dict:
         wall = time.perf_counter() - t
         launches = {**{k: f.launches for k, f in kernels.items()},
                     "flash_attention_bwd_tc": kernels["flash_attention_bwd"].launches_tc}
-    check(rc == 0 and len(steps) == TRAIN_STEPS, f"train: rc {rc}, {len(steps)} steps")
-    L = cfg.num_layers
+    check(rc == 0 and len(steps) == TRAIN_STEPS,
+          f"{cfg.name} train: rc {rc}, {len(steps)} steps")
+    want_f, want_b = _flash_per_step(cfg)
     for i, rec in enumerate(steps):
         pl = rec["pipeline_launches"]
         check(pl["ss_divergence"] >= 1 and pl["feature_gains"] >= 1,
-              f"train step {i}: the batch launched no SS kernels ({pl})")
+              f"{cfg.name} train step {i}: the batch launched no SS kernels ({pl})")
         if i == profile_at:
             continue
         sl = rec["step_launches"]
-        check(sl["flash_attention"] == 2 * L
-              and sl["flash_attention_bwd"] == sl["flash_attention_bwd_tc"] == L,
-              f"train step {i}: flash launches {sl}, want {2 * L} forward and "
-              f"{L} backward, all on the tensor-core route")
-        check(math.isfinite(rec["loss"]), f"train step {i}: loss {rec['loss']}")
-        toks = TRAIN_B * TRAIN_S / (rec["step_ms"] / 1e3)
+        check(sl["flash_attention"] == want_f
+              and sl["flash_attention_bwd"] == sl["flash_attention_bwd_tc"] == want_b,
+              f"{cfg.name} train step {i}: flash launches {sl}, want {want_f} "
+              f"forward and {want_b} backward, all on the tensor-core route")
+        check(math.isfinite(rec["loss"]),
+              f"{cfg.name} train step {i}: loss {rec['loss']}")
+        toks = B * S / (rec["step_ms"] / 1e3)
         rec["tokens_per_s"] = toks
-        print(f"train step {i}: loss {rec['loss']:.4f} grad norm "
+        print(f"{cfg.name} train step {i}: loss {rec['loss']:.4f} grad norm "
               f"{rec['grad_norm']:.4f} lr {rec['lr']:.3e}; step {rec['step_ms']:.2f} "
               f"ms ({toks:.1f} tokens/s), pipeline {rec['pipeline_ms']:.2f} ms (pool "
               f"{rec['pipeline_pool_ms']:.2f}, features {rec['pipeline_features_ms']:.2f}"
@@ -3523,16 +3616,26 @@ def _train_main(cfg, tmp: str) -> dict:
               f"{pl}", flush=True)
     timed = [r for i, r in enumerate(steps) if i != profile_at]
     check(timed[-1]["loss"] < timed[0]["loss"],
-          f"train: the loss did not fall ({timed[0]['loss']} -> {timed[-1]['loss']})")
+          f"{cfg.name} train: the loss did not fall ({timed[0]['loss']} -> "
+          f"{timed[-1]['loss']})")
     steady = [r["step_ms"] for r in timed[1:]]
-    print(f"{TRAIN_ARCH} training through launch/train.py ({CARD[0]}): {TRAIN_STEPS} "
-          f"steps in {wall:.2f} s (model and optimizer set-up included); step "
-          f"median {statistics.median(steady):.2f} ms after the first, peak "
-          f"{max(r['peak_gib'] for r in timed):.2f} GiB; launches in the run "
-          f"{launches}", flush=True)
+    med = statistics.median(steady)
+    prof = steps[profile_at].get("profile", {})
+    bwd_ms = sum(prof.get("watched_ms", {}).get(k_, 0.0)
+                 for k_ in ("dkdv_tc", "dq_tc", "rows_kernel"))
+    share = (f"{bwd_ms / prof['busy_ms']:.4f} of the profiled step's device time"
+             if prof else "not measured")
+    print(f"{cfg.name} training through launch/train.py ({B} x {S} tokens a step; "
+          f"{CARD[0]}): {TRAIN_STEPS} steps in {wall:.2f} s (model and optimizer "
+          f"set-up included); step median {med:.2f} ms after the first "
+          f"({B * S / (med / 1e3):.1f} tokens/s), peak "
+          f"{max(r['peak_gib'] for r in timed):.2f} GiB; flash backward "
+          f"{bwd_ms:.4f} ms a step, {share}; launches in the run {launches}",
+          flush=True)
     return {"steps": steps, "wall_s": wall, "launches": launches,
-            "step_ms_median": statistics.median(steady),
-            "peak_gib": max(r["peak_gib"] for r in timed)}
+            "batch": [B, S], "step_ms_median": med, "tokens_per_s": B * S / (med / 1e3),
+            "peak_gib": max(r["peak_gib"] for r in timed),
+            "flash_bwd_ms_profiled": bwd_ms}
 
 
 def _ckpt_resume(tmp: str) -> dict:
@@ -3675,12 +3778,14 @@ def _pipeline_at_scale() -> dict:
 
 def train_phase(errs: dict) -> tuple[dict, dict]:
     """Training on the card, on a freed card: (a) the backward kernel vs its
-    plain version (``bwd_sweep``) and at llama3.2-3b's shape
-    (``bwd_at_shape``); (b) llama3.2-3b at full width and depth, step 0 on
-    the kernel and the plain attention routes; (c) 8 steps through
-    ``launch/train.py`` (the main path: the counts from 0); (d) checkpoint
-    and resume; (e) the pipeline at a 256 x 2048 global batch.  Returns
-    (the ninth record, the phase's figures)."""
+    plain version (``bwd_sweep``), ptxas' report of its tensor-core
+    instances (``bwd_ptxas``) and the kernel at each trained model's
+    attention shape (``bwd_at_shape``); for each model of ``TRAIN_RUNS``
+    (llama3.2-3b, recurrentgemma-2b) at full width and depth, (b) step 0 on
+    the kernel and the plain attention routes, then (c) ``TRAIN_STEPS``
+    steps through ``launch/train.py`` (the main path: the counts from 0);
+    (d) checkpoint and resume; (e) the pipeline at a 256 x 2048 global
+    batch.  Returns (the ninth record, the phase's figures)."""
     import shutil
     import tempfile
 
@@ -3691,22 +3796,27 @@ def train_phase(errs: dict) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     bwd_sweep(errs)
-    shape = bwd_at_shape(errs)
+    ptxas = bwd_ptxas()
+    shapes = {spec[0]: bwd_at_shape(errs, *spec) for spec in BWD_SHAPES}
     torch.cuda.empty_cache()
-    out = {"card": CARD[0], "bwd": shape}
+    out = {"card": CARD[0], "bwd": shapes, "ptxas": ptxas, "step0": {}, "train": {}}
 
-    cfg = configs.get(TRAIN_ARCH)
-    params, n_params = _params_on_card(cfg)
-    pipe = Pipeline(DataConfig(batch_size=TRAIN_B, seq_len=TRAIN_S, selection="ss",
-                               pool_factor=TRAIN_POOL, feature_dim=512,
-                               vocab_size=cfg.vocab_size), seed=0, device="cuda")
-    out["step0"] = _step0_routes(cfg, params, pipe())
-    del params
-    torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
-        out["train"] = _train_main(cfg, tmp)
-        torch.cuda.empty_cache()
+        for arch, B, S, pool in TRAIN_RUNS:
+            t = time.perf_counter()
+            cfg = configs.get(arch)
+            params, _ = _params_on_card(cfg)
+            pipe = Pipeline(DataConfig(batch_size=B, seq_len=S, selection="ss",
+                                       pool_factor=pool, feature_dim=512,
+                                       vocab_size=cfg.vocab_size), seed=0,
+                            device="cuda")
+            out["step0"][arch] = _step0_routes(cfg, params, pipe(), B, S)
+            del params, pipe
+            torch.cuda.empty_cache()
+            out["train"][arch] = _train_main(cfg, tmp, B, S, pool)
+            torch.cuda.empty_cache()
+            print(f"{arch} training: {time.perf_counter() - t:.2f} s", flush=True)
         out["ckpt"] = _ckpt_resume(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3714,21 +3824,30 @@ def train_phase(errs: dict) -> tuple[dict, dict]:
     out["pipeline"] = _pipeline_at_scale()
     out["phase_s"] = time.perf_counter() - t0
     print(f"train phase: {out['phase_s']:.2f} s", flush=True)
+    runs = {arch: out["train"][arch]["launches"] for arch, *_ in TRAIN_RUNS}
+    shape, rg = shapes[TRAIN_ARCH], shapes["recurrentgemma-2b"]
     record = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu",
         "replaces": "src/repro/models/attention.py:129 (the autodiff of "
                     "blockwise_attention; no TPU kernel)",
-        "launches": out["train"]["launches"]["flash_attention_bwd"],
-        "launches_tc": out["train"]["launches"]["flash_attention_bwd_tc"],
+        "launches": sum(r["flash_attention_bwd"] for r in runs.values()),
+        "launches_tc": sum(r["flash_attention_bwd_tc"] for r in runs.values()),
+        "launches_by_run": {a: [r["flash_attention_bwd"], r["flash_attention_bwd_tc"]]
+                            for a, r in runs.items()},
         "max_abs_err": errs["flash_attention_bwd"], "ms": shape["ms"],
         "plain_ms": shape["plain_ms"], "bound_ms": shape["bound_ms"],
         "bound_by": shape["bound_by"], "library_ms": shape["library_ms"],
+        "library_backend": shape["library_backend"],
         "tc_design_bound_ms": shape["tc_design_bound_ms"],
         "ffma_design_bound_ms": shape["ffma_design_bound_ms"],
         "share_of_bound": shape["share_of_bound"], "flip_rates": shape["flip_rates"],
-        "ffma_kernel": shape["ffma_kernel"], "ptxas": shape["ptxas"],
+        "ffma_kernel": shape["ffma_kernel"], "ptxas": ptxas,
         "shape": shape["shape"], "bf16_worst_share_of_tolerance": BWD_WORST[0],
+        "at_recurrentgemma": {k_: rg[k_] for k_ in (
+            "ms", "turns_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_backend", "tc_design_bound_ms", "ffma_design_bound_ms",
+            "share_of_bound", "flip_rates", "ffma_kernel", "shape", "window")},
     }
     return record, out
 
@@ -4715,12 +4834,15 @@ def service_phase(fn) -> dict:
 
 # -- durable streaming sessions ----------------------------------------------
 
-SESS_N, SESS_ROWS = 16, 512        # 16 sessions x 512 rows of news_day(0, 2^14, 1024)
+# 16 sessions x 384 rows of news_day(0, 6144, 1024): the rows a session
+# cut from 512 (the phase took 103-127 s, host-bound) to keep the script
+# within its time; the torn-tail run below needs 300.
+SESS_N, SESS_ROWS = 16, 384
 SESS_CFG = dict(k=K, eps=0.2, n_features=F, phi="sqrt", buffer_cap=128,
                 resparsify_every=40, ss_r=4, ss_c=8.0, max_batch=8, batch_c=4.0,
                 snapshot_every=128)
-SESS_CRASH_AT = 600                # a fault draw mid-stream (about 1070 in all)
-SESS_RESTARTS = (150, 400)         # of the restart run's 4 sessions (about 540)
+SESS_CRASH_AT = 600                # a fault draw mid-stream (about 800 in all)
+SESS_RESTARTS = (150, 300)         # of the restart run's 4 sessions (about 410)
 SESS_BLOCK = 64                    # the eviction run's rows a session at a time
 
 
@@ -5071,7 +5193,8 @@ def session_phase(errs: dict) -> dict:
               f"state and summary equal to (a)'s bit for bit, no session lost; "
               f"restarts at attempts {SESS_RESTARTS} over 4 sessions, equal; a WAL "
               f"cut 7 bytes inside its last record recovered with tolerate_torn_tail "
-              f"(wal_truncate dropped {ev['dropped_bytes']} bytes), 213 later appends "
+              f"(wal_truncate dropped {ev['dropped_bytes']} bytes), {SESS_ROWS - 299} "
+              f"later appends "
               f"survive a strict reopen, equal", flush=True)
         out["b"] = {"crash_at": SESS_CRASH_AT, "applied_at_crash": sum(done.values()),
                     "recovery_ms": t_rec * 1e3, "replayed": replayed,
@@ -5271,6 +5394,7 @@ def main() -> int:
     load_library()
     print(f"build: {time.perf_counter() - t:.2f} s (nvcc, sm_90a, one process "
           "per source)", flush=True)
+    mark("build")
 
     # 3. kernel vs plain, and the small pipeline
     errs = {"ss_divergence": 0.0, "feature_gains": 0.0}
@@ -5278,6 +5402,7 @@ def main() -> int:
     sparse_sweep(errs)
     route_check()
     small_pipeline()
+    mark("FeatureCoverage sweeps and the small pipeline")
 
     # 4-7. the FeatureCoverage main path at full size, then stochastic and
     # lazy greedy on the same objective
@@ -5285,6 +5410,7 @@ def main() -> int:
     # the §3.4 post-reduction at 2^16 (PERF.md section 4 says why not 2^20)
     torch.cuda.empty_cache()
     records[1]["postreduce"] = postreduce_path()
+    mark("postreduce")
 
     # 8-9. facility location: kernel vs plain, the small pipelines; the
     # other selectors at n = 4096 on all three objectives; the quickstart
@@ -5296,27 +5422,32 @@ def main() -> int:
     selectors_small()
     sieve_small()
     quickstart_phase()
+    mark("FL sweeps, small pipelines and selectors, quickstart")
 
     # 10-11. path A and path B at full size, each on a freed card
     for path in (fl_dense_path, fl_stream_path):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         records += path(errs)
+        mark(path.__name__)
     # 12-13. flash attention: kernel vs plain, then the LM serving path
     errs["flash_attention"] = 0.0
     torch.cuda.empty_cache()
     flash_sweep(errs)
     torch.cuda.reset_peak_memory_stats()
     records.append(lm_path(errs))
+    mark("lm_path")
     # 14. the other block types: olmoe, recurrentgemma, mamba2, each served
     # at full width and depth on a freed card
     families = lm_families_phase(errs)
+    mark("lm_families_phase")
     records[-1]["at_recurrentgemma"] = families["recurrentgemma-2b"]["flash_at_shape"]
     records.append(sieve_record())
     # 15. training: the flash backward kernel, llama3.2-3b at full width and
     # depth through launch/train.py, checkpoints, the pipeline at scale
     torch.cuda.empty_cache()
     bwd_record, training = train_phase(errs)
+    mark("train_phase")
     records.append(bwd_record)
     # the lanes and the KV path held the kernels to their plain versions
     # after the records were made

@@ -1,8 +1,8 @@
 // The gradient of fused attention on Hopper's tensor cores, for bfloat16
-// q, k, v, O and dO at head_dim 64 and 128 (sm_90a): the backward pass of
-// the route that kernels/flash_attention.py calls "tc"
-// (flash_attention_tc.cu).  float32 inputs and other head widths stay on
-// the CUDA-core kernel in flash_attention_bwd.cu.
+// q, k, v, O and dO at head_dim 64, 128 and 256 (sm_90a): the backward pass
+// of the route that kernels/flash_attention.py calls "tc"
+// (flash_attention_tc.cu).  float32 inputs and head_dim 32 stay on the
+// CUDA-core kernel in flash_attention_bwd.cu.
 //
 // Replaces: no TPU kernel.  The JAX package takes this gradient by autodiff
 // of src/repro/models/attention.py:blockwise_attention;
@@ -73,6 +73,31 @@
 // Heavy causal blocks are launched first in both (early keys, late
 // queries).  The two consumer warpgroups of a CTA are not made to take
 // turns at the tensor cores.
+//
+// Head_dim 256.  A 128-row own tile of K and V (or Q and dO) would take
+// 128 KiB of shared memory, and four stages of 64-row Q and dO tiles 256
+// KiB more, against 227 KiB; the dK and dV accumulators of 64 rows x 256
+// columns would take 256 registers a thread.  Both of QKᵀ and dO Vᵀ
+// contract over all 256 features, so a CTA holds K and V (or Q and dO)
+// whole whatever share of the gradients' columns it owns.  So at 256 a CTA
+// owns 64 rows, and its two consumer warpgroups take the same 64 rows,
+// each one column half (128 columns) of dK and dV, or of dQ (SPLIT): both
+// compute the whole Sᵀ and dPᵀ (S and dP) over all 256 features, so they
+// take the same P and dS bit for bit (wgmma sums in a fixed order), and
+// each adds only its columns, dV[:, half] += Pᵀ dO[:, half], dK[:, half] +=
+// dSᵀ Q[:, half], dQ[:, half] += dS K[:, half]: hd 128's accumulators and
+// registers a thread.  The halves share one copy of every tile in shared
+// memory, which two CTAs of one half each would load twice.  Streamed tiles
+// are 32 rows, so that the ring keeps 4 stages: the own tiles take 64 KiB
+// and 4 stages of two 32-row tiles 128 KiB, 193 KiB with the rows' L and D
+// (64-row tiles would leave room for 2 stages, and the query-block kernel,
+// which holds a slot until the next tile's products are in, would wait on
+// every load).  No element's sum changes: a column half sums the same
+// terms in the same order as a full-width accumulator.  QKᵀ and dO Vᵀ run
+// in both warpgroups of both kernels, 4 (2 + 2) hd + 18 hd = 34 hd flops a
+// pair against the function's 22 hd; at B = 2, S = 4096, H = 10, KV = 1,
+// window 2048 (recurrentgemma-2b's local layers, 1.26e8 pairs) that bound
+// is 1.11 ms against the function's 0.72.
 
 #include "flash_tc.cuh"
 
@@ -80,32 +105,42 @@ namespace {
 
 using namespace repro::tc;
 
-constexpr int BLK = 128;          // rows a CTA owns: two warpgroups of 64
-constexpr int BT = 64;            // rows of a streamed tile, and of a warpgroup
+constexpr int PAD = 128;          // the L and D scratch pads S to a multiple
+constexpr int WR = 64;            // rows of a warpgroup's products (wgmma M)
+constexpr int HQ = 32;            // queries a key-block step takes
 constexpr int STAGES = 4;         // ring depth
 constexpr int PARTS = 3;          // bf16 parts of P and dS
 constexpr int NCONS = 256;        // consumer threads
 constexpr int NT = NCONS + 128;   // and one producer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory of either kernel, from a 1024-byte aligned base (the
-// 128-byte swizzle's period): the CTA's own two 128-row tiles (K and V, or
-// Q and dO), STAGES slots of each of the two streamed 64-row tiles (Q and
-// dO, or K and V), STAGES slots of the streamed rows' L and D (key-block
-// kernel), the barriers.  Every tile is stored as hd / 64 column chunks of
-// rows x 128 bytes.
+// The geometry of one head width, and the shared memory of either kernel,
+// from a 1024-byte aligned base (the 128-byte swizzle's period): the CTA's
+// own two BLK-row tiles (K and V, or Q and dO), STAGES slots of each of the
+// two streamed BT-row tiles (Q and dO, or K and V), STAGES slots of the
+// streamed rows' L and D (key-block kernel), the barriers.  Every tile is
+// stored as hd / 64 column chunks of rows x 128 bytes.  At hd 64 and 128
+// warpgroup w owns rows [64 w, 64 w + 64) of the CTA's 128 at full width;
+// at 256 (SPLIT) both own the CTA's 64 rows, warpgroup w columns
+// [128 w, 128 w + 128).
 template <int HD>
 struct Smem {
-  static constexpr int CH = HD / 64;
+  static constexpr bool SPLIT = HD == 256;
+  static constexpr int CH = HD / 64;               // column chunks of a row
+  static constexpr int CW = SPLIT ? CH / 2 : CH;   // chunks a warpgroup owns
+  static constexpr int BLK = SPLIT ? 64 : 128;     // rows a CTA owns
+  static constexpr int BT = SPLIT ? 32 : 64;       // rows of a streamed tile
   static constexpr uint32_t own_bytes = CH * BLK * 128;
   static constexpr uint32_t tile_bytes = CH * BT * 128;
-  static constexpr uint32_t rows_bytes = 2 * BT * 4;    // L and D of 64 rows
+  static constexpr uint32_t rows_bytes = 2 * BT * 4;    // L and D of BT rows
   static constexpr uint32_t own2_off = own_bytes;
   static constexpr uint32_t ring_off = 2 * own_bytes;
   static constexpr uint32_t ring2_off = ring_off + STAGES * tile_bytes;
   static constexpr uint32_t rows_off = ring2_off + STAGES * tile_bytes;
   static constexpr uint32_t bar_off = rows_off + STAGES * rows_bytes;
   static constexpr size_t bytes = bar_off + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(bytes <= 232448, "over a block's shared memory");
+  static_assert(PAD % BLK == 0 && BT % HQ == 0, "tiles do not divide");
 };
 
 template <int CH>
@@ -142,12 +177,19 @@ __device__ __forceinline__ float2 lds2(uint32_t addr) {
 // Issue X = A1 B1ᵀ and Y = A2 B2ᵀ for 64 rows of A against N = 2 M rows of
 // B: hd / 16 steps of 16 features each, all four operands K-major in shared
 // memory (the 16 features at 32-byte offsets inside a 128-byte swizzled
-// row; a column chunk of A every a_chunk bytes, of B every b_chunk).
+// row; a column chunk of A every a_chunk bytes, of B every b_chunk).  At hd
+// 256 A's addresses (the CTA's own tiles) are made opaque at each call, so
+// that their 32 descriptors are formed where they are used: hoisted out of
+// the tile loop, they would hold 64 registers and spill.
 template <int HD, int M>
 __device__ __forceinline__ void two_products(float (&x)[M], float (&y)[M],
                                              uint32_t a1, uint32_t a2,
                                              uint32_t a_chunk, uint32_t b1,
                                              uint32_t b2, uint32_t b_chunk) {
+  if constexpr (HD == 256) {
+    keep(a1);
+    keep(a2);
+  }
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
@@ -163,9 +205,10 @@ __device__ __forceinline__ void two_products(float (&x)[M], float (&y)[M],
 }
 
 // Issue acc += A B for A (64 x 16 NK) in PARTS bf16 parts from registers
-// and B 16 NK rows of a 64-row tile (MN-major in shared memory, from sB):
-// one product per part, per 16 rows of B, per 64-column chunk.
-template <int CH, int NK>
+// and B 16 NK rows of a BT-row tile (MN-major in shared memory, from sB, a
+// 64-column chunk every BT x 128 bytes): one product per part, per 16 rows
+// of B, per 64-column chunk.
+template <int CH, int NK, int BT>
 __device__ __forceinline__ void add_parts(float (&acc)[CH][32],
                                           const uint32_t (&pa)[PARTS][NK][4],
                                           uint32_t sB) {
@@ -215,9 +258,9 @@ __device__ __forceinline__ void release(uint32_t bar, int lane) {
   if (lane == 0) mbar_arrive(bar);
 }
 
-// Rows [r0, r0 + 8) and [r0 + 8, r0 + 16) of a 64 x hd accumulator (times
-// `scale`, in bfloat16) into rows below S of one head of a (.., S, .., hd)
-// tensor with row stride rs.
+// Rows [r0, r0 + 8) and [r0 + 8, r0 + 16) of a 64 x 64 CH accumulator
+// (times `scale`, in bfloat16) into rows below S of one head of a (.., S,
+// .., hd) tensor with row stride rs, from the head's column `head`.
 template <int CH>
 __device__ __forceinline__ void write_rows(__nv_bfloat16* head, long long rs,
                                            const float (&acc)[CH][32], int r0,
@@ -260,6 +303,8 @@ struct Cta {
   }
   __device__ uint32_t rows(int s) const { return base + L::rows_off + s * L::rows_bytes; }
 
+  static constexpr int BLK = L::BLK, BT = L::BT;
+
   __device__ void init(uint8_t* raw) {
     base = (smem_addr(raw) + 1023u) & ~1023u;
     bars = base + L::bar_off;
@@ -274,7 +319,7 @@ struct Cta {
     __syncthreads();
   }
 
-  // The producer's one thread: the CTA's own 128-row tiles of two tensors
+  // The producer's one thread: the CTA's own BLK-row tiles of two tensors
   // (rows r0 of head `head`).
   __device__ void load_own(const CUtensorMap* m1, const CUtensorMap* m2, int head) const {
     mbar_expect_tx(own(), 2 * L::own_bytes);
@@ -285,7 +330,7 @@ struct Cta {
   }
 
   // Tile i of the stream into slot i % STAGES once every consumer warp has
-  // freed it: 64 rows from `row` of head `head` of two tensors, and (rows
+  // freed it: BT rows from `row` of head `head` of two tensors, and (rows
   // not null) the rows' L and D.
   __device__ void load_tile(int i, const CUtensorMap* m1, const CUtensorMap* m2,
                             int head, int row, const float* rows_src,
@@ -308,7 +353,7 @@ struct Cta {
 //
 // The rows' L (log2 domain) and D come from the pre-pass's (B H, 2, Spad)
 // buffer `ld`: row (b H + h) holds Spad values of L log2(e), then Spad of
-// D, zero past S; Spad is S rounded up to BLK.
+// D, zero past S; Spad is S rounded up to PAD.
 
 template <int HD>
 __global__ void __launch_bounds__(NT, 1) dkdv_tc(
@@ -318,7 +363,8 @@ __global__ void __launch_bounds__(NT, 1) dkdv_tc(
     __nv_bfloat16* __restrict__ dv, int H, int KV, int S, int Spad, long long dksb,
     long long dkss, long long dksh, long long dvsb, long long dvss, long long dvsh,
     int causal, int window, float scale_log2, float scale) {
-  constexpr int CH = HD / 64;
+  using L = Smem<HD>;
+  constexpr int CW = L::CW, BLK = L::BLK, BT = L::BT;
   extern __shared__ uint8_t smem_raw[];
   Cta<HD> t;
   t.b = blockIdx.x / KV;
@@ -349,19 +395,20 @@ __global__ void __launch_bounds__(NT, 1) dkdv_tc(
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
 
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
-  const int kw = t.r0 + BT * wg;                                 // the warpgroup's keys
+  const int rw = L::SPLIT ? 0 : WR * wg;     // the warpgroup's first row of the CTA's
+  const int cw = L::SPLIT ? CW * wg : 0;     // and its first column chunk
+  const int kw = t.r0 + rw;                                      // the warpgroup's keys
   const int key0 = kw + 16 * ((threadIdx.x % 128) / 32) + lane / 4;  // and key0 + 8
   const int cq = 2 * (lane % 4);
-  const uint32_t sK = t.own1() + wg * BT * 128, sV = t.own2() + wg * BT * 128;
+  const uint32_t sK = t.own1() + rw * 128, sV = t.own2() + rw * 128;
 
-  // A tile's 64 queries are taken in two halves of HQ: Sᵀ and dPᵀ of a half
-  // are 64 x 32, so that their float32 P and dS and the bf16 parts of one
-  // fit beside the dK and dV accumulators without a spill at hd 128.
-  constexpr int HQ = BT / 2;
-  float dK[CH][32], dV[CH][32], sc[HQ / 2], dp[HQ / 2];
+  // A tile's BT queries are taken HQ at a time: Sᵀ and dPᵀ of a step are
+  // 64 x 32, so that their float32 P and dS and the bf16 parts of one fit
+  // beside the dK and dV accumulators without a spill at hd 128.
+  float dK[CW][32], dV[CW][32], sc[HQ / 2], dp[HQ / 2];
   uint32_t pa[PARTS][HQ / 16][4];
 #pragma unroll
-  for (int c = 0; c < CH; ++c)
+  for (int c = 0; c < CW; ++c)
 #pragma unroll
     for (int e = 0; e < 32; ++e) dK[c][e] = dV[c][e] = 0.f;
 
@@ -370,11 +417,11 @@ __global__ void __launch_bounds__(NT, 1) dkdv_tc(
     const int s = i % STAGES;
     warp_wait(t.full(s), (i / STAGES) & 1);
 #pragma unroll 1
-    for (int half = 0; half < 2; ++half) {
+    for (int half = 0; half < BT / HQ; ++half) {
       const int q0 = (qt_lo + i % nq) * BT + HQ * half;
-      // Skip a half the mask wholly hides from this warpgroup's keys.
+      // Skip a step the mask wholly hides from this warpgroup's keys.
       if (kw >= S || (causal && (q0 + HQ - 1 < kw ||
-                                 (window > 0 && q0 - (kw + BT - 1) >= window))))
+                                 (window > 0 && q0 - (kw + WR - 1) >= window))))
         continue;
       const uint32_t sQ = t.slot1(s) + HQ * half * 128;
       const uint32_t sdO = t.slot2(s) + HQ * half * 128;
@@ -385,8 +432,8 @@ __global__ void __launch_bounds__(NT, 1) dkdv_tc(
       wg_wait<0>();
       keep_all(sc);
       keep_all(dp);
-      const bool full = kw + BT - 1 < S && q0 + HQ - 1 < S &&
-                        (!causal || (q0 >= kw + BT - 1 &&
+      const bool full = kw + WR - 1 < S && q0 + HQ - 1 < S &&
+                        (!causal || (q0 >= kw + WR - 1 &&
                                      (window == 0 || q0 + HQ - 1 - kw < window)));
       const uint32_t rows = t.rows(s) + 4 * (HQ * half + cq);   // L (log2), then D
 #pragma unroll
@@ -404,17 +451,18 @@ __global__ void __launch_bounds__(NT, 1) dkdv_tc(
           dp[e] = p * (dp[e] - (c ? dd.y : dd.x));
         }
       }
-      // dV += Pᵀ dO, then dK += dSᵀ Q, each over the parts.
+      // dV += Pᵀ dO, then dK += dSᵀ Q, each over the parts, on the
+      // warpgroup's columns.
       split<HQ / 16>(sc, pa);
       wg_fence();
-      add_parts<CH, HQ / 16>(dV, pa, sdO);
+      add_parts<CW, HQ / 16, BT>(dV, pa, sdO + cw * BT * 128);
       wg_commit();
       wg_wait<0>();
       keep_acc(dV);
       keep_parts(pa);
       split<HQ / 16>(dp, pa);
       wg_fence();
-      add_parts<CH, HQ / 16>(dK, pa, sQ);
+      add_parts<CW, HQ / 16, BT>(dK, pa, sQ + cw * BT * 128);
       wg_commit();
       wg_wait<0>();
       keep_acc(dK);
@@ -422,24 +470,25 @@ __global__ void __launch_bounds__(NT, 1) dkdv_tc(
     }
     release(t.empty(s), lane);
   }
-  write_rows<CH>(dk + t.b * dksb + t.h * dksh, dkss, dK, key0, cq, S, scale);
-  write_rows<CH>(dv + t.b * dvsb + t.h * dvsh, dvss, dV, key0, cq, S, 1.f);
+  write_rows<CW>(dk + t.b * dksb + t.h * dksh + 64 * cw, dkss, dK, key0, cq, S, scale);
+  write_rows<CW>(dv + t.b * dvsb + t.h * dvsh + 64 * cw, dvss, dV, key0, cq, S, 1.f);
 }
 
 // -- the query-block kernel: dQ -------------------------------------------------------
 
-// S and dP of one 64-key tile in place: sc becomes nothing, dp becomes
+// S and dP of one N-key tile in place: sc becomes nothing, dp becomes
 // dS = P (dP - D) with P = 2^(s scale log2(e) - L log2(e)) where the mask
 // keeps the pair.
-__device__ __forceinline__ void grad_tile(const float (&sc)[32], float (&dp)[32],
+template <int N>
+__device__ __forceinline__ void grad_tile(const float (&sc)[N / 2], float (&dp)[N / 2],
                                           const float (&l2)[2], const float (&dd)[2],
                                           int k0, int qa, int row0, int cq, int S,
                                           int causal, int window, float scale_log2) {
   const bool full =
-      k0 + BT <= S &&
-      (!causal || (k0 + BT - 1 <= qa && (window == 0 || qa + BT - 1 - k0 < window)));
+      k0 + N <= S &&
+      (!causal || (k0 + N - 1 <= qa && (window == 0 || qa + WR - 1 - k0 < window)));
 #pragma unroll
-  for (int e = 0; e < 32; ++e) {
+  for (int e = 0; e < N / 2; ++e) {
     const int r = (e >> 1) & 1;
     float p = ex2(fmaf(sc[e], scale_log2, -l2[r]));
     if (!full && !kept(row0 + 8 * r, k0 + 8 * (e >> 2) + cq + (e & 1), S, causal, window))
@@ -455,7 +504,8 @@ __global__ void __launch_bounds__(NT, 1) dq_tc(
     const float* __restrict__ ld, __nv_bfloat16* __restrict__ dq, int H, int KV, int S,
     int Spad, long long dqsb, long long dqss, long long dqsh, int causal, int window,
     float scale_log2, float scale) {
-  constexpr int CH = HD / 64;
+  using L = Smem<HD>;
+  constexpr int CW = L::CW, BLK = L::BLK, BT = L::BT;
   extern __shared__ uint8_t smem_raw[];
   Cta<HD> t;
   t.b = blockIdx.x / H;
@@ -482,18 +532,21 @@ __global__ void __launch_bounds__(NT, 1) dq_tc(
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
 
   const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
-  const int qa = t.r0 + BT * wg;                                  // the warpgroup's rows
+  const int rw = L::SPLIT ? 0 : WR * wg;     // the warpgroup's first row of the CTA's
+  const int cw = L::SPLIT ? CW * wg : 0;     // and its first column chunk
+  const uint32_t cb = cw * BT * 128;         // of a K tile in shared memory
+  const int qa = t.r0 + rw;                                       // the warpgroup's rows
   const int row0 = qa + 16 * ((threadIdx.x % 128) / 32) + lane / 4;  // and row0 + 8
   const int cq = 2 * (lane % 4);
-  const uint32_t sQ = t.own1() + wg * BT * 128, sdO = t.own2() + wg * BT * 128;
+  const uint32_t sQ = t.own1() + rw * 128, sdO = t.own2() + rw * 128;
   const float* ldr = ld + (static_cast<long long>(t.b) * H + t.h) * 2 * Spad;
   const float l2[2] = {ldr[row0], ldr[row0 + 8]};           // rows < Spad
   const float dd[2] = {ldr[Spad + row0], ldr[Spad + row0 + 8]};
 
-  float dQ[CH][32], sc[32], dp[32];
+  float dQ[CW][32], sc[BT / 2], dp[BT / 2];
   uint32_t pa[PARTS][BT / 16][4];   // dS's parts
 #pragma unroll
-  for (int c = 0; c < CH; ++c)
+  for (int c = 0; c < CW; ++c)
 #pragma unroll
     for (int e = 0; e < 32; ++e) dQ[c][e] = 0.f;
 
@@ -506,7 +559,7 @@ __global__ void __launch_bounds__(NT, 1) dq_tc(
   wg_wait<0>();
   keep_all(sc);
   keep_all(dp);
-  grad_tile(sc, dp, l2, dd, kt_lo * BT, qa, row0, cq, S, causal, window, scale_log2);
+  grad_tile<BT>(sc, dp, l2, dd, kt_lo * BT, qa, row0, cq, S, causal, window, scale_log2);
   split<BT / 16>(dp, pa);
   for (int i = 1; i < n; ++i) {
     const int s = i % STAGES, sp = (i - 1) % STAGES;
@@ -516,13 +569,13 @@ __global__ void __launch_bounds__(NT, 1) dq_tc(
     wg_fence();
     two_products<HD>(sc, dp, sQ, sdO, BLK * 128, t.slot1(s), t.slot2(s), BT * 128);
     wg_commit();
-    add_parts<CH, BT / 16>(dQ, pa, t.slot1(sp));     // dQ += dS(i-1) K(i-1)
+    add_parts<CW, BT / 16, BT>(dQ, pa, t.slot1(sp) + cb);   // dQ += dS(i-1) K(i-1)
     wg_commit();
     wg_wait<1>();                            // S(i) and dP(i) are in
     keep_all(sc);
     keep_all(dp);
-    grad_tile(sc, dp, l2, dd, (kt_lo + i) * BT, qa, row0, cq, S, causal, window,
-              scale_log2);
+    grad_tile<BT>(sc, dp, l2, dd, (kt_lo + i) * BT, qa, row0, cq, S, causal, window,
+                  scale_log2);
     wg_wait<0>();                            // dS(i-1) K(i-1) is in
     keep_acc(dQ);
     keep_parts(pa);
@@ -534,13 +587,13 @@ __global__ void __launch_bounds__(NT, 1) dq_tc(
   keep_acc(dQ);
   keep_parts(pa);
   wg_fence();
-  add_parts<CH, BT / 16>(dQ, pa, t.slot1(sp));
+  add_parts<CW, BT / 16, BT>(dQ, pa, t.slot1(sp) + cb);
   wg_commit();
   wg_wait<0>();
   keep_acc(dQ);
   keep_parts(pa);
   release(t.empty(sp), lane);
-  write_rows<CH>(dq + t.b * dqsb + t.h * dqsh, dqss, dQ, row0, cq, S, scale);
+  write_rows<CW>(dq + t.b * dqsb + t.h * dqsh + 64 * cw, dqss, dQ, row0, cq, S, scale);
 }
 
 // -- the pre-pass ---------------------------------------------------------------
@@ -591,6 +644,7 @@ enum { kQ, kK, kV, kO, kDO, kDQ, kDK, kDV };
 
 template <int HD>
 int launch(const Args& a, cudaStream_t stream) {
+  constexpr int BLK = Smem<HD>::BLK, BT = Smem<HD>::BT;
   const long long* st = a.st;
   // The map of tensor t (kQ, kK, kV or kDO) in boxes of `rows` positions.
   const auto map = [&](CUtensorMap* m, const void* ptr, int t, int rows) {
@@ -615,6 +669,7 @@ int launch(const Args& a, cudaStream_t stream) {
 
   const int bytes = static_cast<int>(Smem<HD>::bytes);
   const int blocks = (a.S + BLK - 1) / BLK;
+  if (blocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const float scale_log2 = a.scale * kLog2e;
   const auto kv_kern = dkdv_tc<HD>;
   err = cudaFuncSetAttribute(kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -640,8 +695,8 @@ int launch(const Args& a, cudaStream_t stream) {
 // bfloat16 q (B, S, H, hd), k and v (B, S, KV, hd), o and dout like q, with
 // the (batch, seq, head) element strides in strides[0..15) (q, k, v, o,
 // dout; the last axis contiguous); q, k, v and dout 16-byte aligned with
-// strides of a multiple of 8 elements (TMA's 16 bytes); head_dim 64 or
-// 128; lse the forward's (B, H, S) float32 L; ld a 16-byte aligned float32
+// strides of a multiple of 8 elements (TMA's 16 bytes); head_dim 64, 128
+// or 256; lse the forward's (B, H, S) float32 L; ld a 16-byte aligned float32
 // scratch of B H 2 Spad, Spad = S rounded up to a multiple of 128; dq, dk,
 // dv bfloat16 like q, k, v with even strides in strides[15..24).  Three
 // launches on `stream`.  Returns a cudaError_t.
@@ -660,15 +715,16 @@ extern "C" int flash_attention_bwd_tc_launch(
     aligned = aligned && reinterpret_cast<uintptr_t>(p) % 16 == 0;
   for (const void* p : {dq, dk, dv})
     aligned = aligned && reinterpret_cast<uintptr_t>(p) % 4 == 0;
-  if (KV <= 0 || H % KV != 0 || window < 0 || (S + BLK - 1) / BLK > 65535 || !aligned)
+  if (KV <= 0 || H % KV != 0 || window < 0 || !aligned)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int Spad = (S + BLK - 1) / BLK * BLK;
+  const int Spad = (S + PAD - 1) / PAD * PAD;
   const Args a{q, k, v, o, dout, lse, ld, dq, dk, dv, B, S, H, KV, Spad, strides,
                causal, window, scale};
   const auto s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: return launch<64>(a, s);
     case 128: return launch<128>(a, s);
+    case 256: return launch<256>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -221,11 +221,18 @@ inline EncodeTiled encode_tiled() {
 
 // The map of one (B, S, heads, hd) bfloat16 tensor with element strides
 // (sb, ss, sh, 1): boxes of 64 features x 1 head x rows positions, 128-byte
-// swizzle, zeros past the edge.
+// swizzle, zeros past the edge.  The encoder is a libcuda call that needs a
+// context current on the calling thread, which a thread that has made no
+// runtime call yet lacks (autograd's backward thread, whose allocations
+// came from the cache): cudaSetDevice makes the current device's primary
+// context current first.
 inline bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int S, int B,
               long long sb, long long ss, long long sh, int rows) {
   const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
+  int device = 0;
+  if (encode == nullptr || cudaGetDevice(&device) != cudaSuccess ||
+      cudaSetDevice(device) != cudaSuccess)
+    return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};

@@ -25,12 +25,14 @@ Training goes through :class:`FlashAttentionFn`, the autograd function
 around the kernels: its forward launches the kernel of the same route with
 each row's L = m + log(max(l, 1e-30)) requested (:func:`flash_attention_lse`),
 and its backward (:func:`flash_attention_bwd_kernel`) the backward kernel
-that :func:`flash_bwd_route` names, a rule of its own, never the plain
+that :func:`flash_bwd_route` names (the forward's rule), never the plain
 backward: ``csrc/flash_attention_bwd_tc.cu`` on ``"tc"`` (bfloat16 at
-head_dim 64 or 128; all five products on the tensor cores, P and dS float32
-in ``TC_PARTS`` bfloat16 parts), ``csrc/flash_attention_bwd.cu`` on
-``"ffma"`` (the rest, bfloat16 at head_dim 256 included: it reads the L
-that the tensor-core forward writes, the same natural log).
+head_dim 64, 128 or 256; all five products on the tensor cores, P and dS
+float32 in ``TC_PARTS`` bfloat16 parts; at 256 the two consumer warpgroups
+of a CTA each own one column half of the gradients),
+``csrc/flash_attention_bwd.cu`` on ``"ffma"`` (float32, and bfloat16 at
+head_dim 32; it reads the L that either forward writes, the same natural
+log).
 ``flash_attention_kernel`` takes that path whenever grad mode is on and an
 input requires grad; otherwise (serving, ``torch.no_grad()``) it launches
 what it always did, L not requested.
@@ -48,23 +50,22 @@ from repro_torch.kernels.ref import attention_bwd_ref, attention_lse_ref, attent
 
 Tensor = torch.Tensor
 
-__all__ = ["HEAD_DIMS", "TC_BWD_HEAD_DIMS", "TC_HEAD_DIMS", "TC_PARTS",
+__all__ = ["HEAD_DIMS", "TC_HEAD_DIMS", "TC_PARTS",
            "FlashAttentionFn", "flash_attention_bwd_kernel",
            "flash_attention_kernel", "flash_attention_lse", "flash_bwd_route",
            "flash_route"]
 
 # The head widths the FFMA kernels are compiled for (csrc/flash_attention.cu,
-# csrc/flash_attention_bwd.cu), the tensor-core forward
-# (csrc/flash_attention_tc.cu, bfloat16 only) and the tensor-core backward
-# (csrc/flash_attention_bwd_tc.cu, bfloat16 only).
+# csrc/flash_attention_bwd.cu), and those of the tensor-core kernels
+# (csrc/flash_attention_tc.cu and csrc/flash_attention_bwd_tc.cu, bfloat16
+# only).
 HEAD_DIMS = (32, 64, 128, 256)
 TC_HEAD_DIMS = (64, 128, 256)
-TC_BWD_HEAD_DIMS = (64, 128)
 # bfloat16 parts of P in the tensor-core kernel's P·V (its PARTS), and of
 # P and dS in the tensor-core backward's dV, dK and dQ.
 TC_PARTS = 3
-# Rows a CTA of the tensor-core backward owns (BLK in
-# csrc/flash_attention_bwd_tc.cu): its L and D scratch pads S to a multiple.
+# The tensor-core backward's L and D scratch pads S to a multiple of this
+# (PAD in csrc/flash_attention_bwd_tc.cu; rows a CTA owns divide it).
 TC_BWD_ROWS = 128
 
 
@@ -77,10 +78,10 @@ def flash_route(dtype: torch.dtype, head_dim: int) -> str:
 
 def flash_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that computes the gradient on these inputs: ``"tc"`` for
-    bfloat16 at head_dim 64 or 128, ``"ffma"`` for the rest (bfloat16 at
-    256 too, whose forward is ``"tc"``).  A fixed rule, like
-    :func:`flash_route`."""
-    return "tc" if dtype == torch.bfloat16 and head_dim in TC_BWD_HEAD_DIMS else "ffma"
+    bfloat16 at head_dim 64, 128 or 256, ``"ffma"`` for the rest (float32,
+    and bfloat16 at 32).  A fixed rule: the forward's, since the
+    tensor-core backward covers every width the tensor-core forward does."""
+    return flash_route(dtype, head_dim)
 
 
 def check_tc_layout(q: Tensor, k: Tensor, v: Tensor) -> None:
@@ -315,7 +316,7 @@ def _bwd_launch(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor,
                 lse: Tensor, causal: bool, window: int,
                 tc: bool) -> tuple[Tensor, Tensor, Tensor]:
     """One backward on checked (B, S, heads, hd) CUDA tensors: the
-    tensor-core kernel (``tc``: bfloat16 at head_dim 64 or 128) or the
+    tensor-core kernel (``tc``: bfloat16 at head_dim 64, 128 or 256) or the
     CUDA-core kernel (either dtype, any head width of HEAD_DIMS)."""
     B, S, H, hd = q.shape
     if tc:

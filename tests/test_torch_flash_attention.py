@@ -218,13 +218,14 @@ def test_flash_route_table(dtype, hd, route):
 
 @pytest.mark.parametrize("dtype,hd,route", [
     (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
-    (torch.bfloat16, 32, "ffma"), (torch.bfloat16, 256, "ffma"),
+    (torch.bfloat16, 32, "ffma"), (torch.bfloat16, 256, "tc"),
     (torch.float32, 64, "ffma"), (torch.float32, 128, "ffma"),
     (torch.float32, 32, "ffma"), (torch.float32, 256, "ffma"),
 ])
 def test_flash_bwd_route_table(dtype, hd, route):
-    """The backward's own rule: the tensor-core backward stops at head_dim
-    128, so bf16 at 256 runs forward on "tc" and backward on "ffma"."""
+    """The backward's own rule, which gives the forward's routes: the
+    tensor-core backward takes bf16 at head_dim 64, 128 and 256 (at 256 in
+    column halves), the FFMA backward float32 and bf16 at 32."""
     assert flash_bwd_route(dtype, hd) == route
 
 

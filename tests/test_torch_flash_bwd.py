@@ -236,24 +236,26 @@ def test_split_backward_at_one_part_rounds_p_and_ds_once(causal, window):
 def test_backward_takes_the_forwards_route(monkeypatch, dtype, hd):
     """On a device other than the CPU the backward launches the kernel of
     ``flash_bwd_route(dtype, head_dim)``, the backward's own rule: the
-    tensor-core kernel for bf16 at hd 64/128, the FFMA kernel for the rest,
-    bf16 at hd 256 included (meta tensors stand in for the card; the launch
-    is recorded, not made)."""
+    tensor-core kernel for bf16 at hd 64/128/256, the FFMA kernel for the
+    rest, float32 at every width and bf16 at hd 32 (meta tensors stand in
+    for the card; the launch is recorded, not made)."""
     seen = []
     monkeypatch.setattr(fa, "_bwd_launch", lambda *a: seen.append(a[-1]))
     q = torch.empty((1, 8, 4, hd), dtype=dtype, device="meta")
     k = v = torch.empty((1, 8, 2, hd), dtype=dtype, device="meta")
     L = torch.empty((1, 4, 8), dtype=torch.float32, device="meta")
     flash_attention_bwd_kernel(q, k, v, q, q, L)
-    want = dtype == torch.bfloat16 and hd in (64, 128)
+    want = dtype == torch.bfloat16 and hd in (64, 128, 256)
     assert seen == [want] and (flash_bwd_route(dtype, hd) == "tc") == want
 
 
 def test_head_dim_256_runs_forward_on_tc_and_backward_on_ffma(monkeypatch):
     """recurrentgemma's local attention (bf16, MQA 10:1, hd 256, windowed)
-    under autograd: the forward launches the tensor-core kernel with L, the
-    backward the FFMA kernel on that L (meta tensors stand in for the card;
-    each launch is recorded, not made)."""
+    under autograd: the forward launches the tensor-core kernel with L, and
+    the backward the tensor-core backward on that L (both routes of bf16 at
+    hd 256 are the tensor cores'; float32 at hd 256 stays on the FFMA
+    kernels both ways).  Meta tensors stand in for the card; each launch is
+    recorded, not made."""
     fwd, bwd = [], []
     monkeypatch.setattr(fa, "_launch", lambda *a: fwd.append((a[6], a[7] is not None)))
 
@@ -268,13 +270,18 @@ def test_head_dim_256_runs_forward_on_tc_and_backward_on_ffma(monkeypatch):
                         requires_grad=True) for _ in range(2))
     out = flash_attention_kernel(q, k, v, causal=True, window=16)
     grads = torch.autograd.grad(out, (q, k, v), torch.empty_like(out))
-    assert fwd == [(True, True)] and bwd == [False]
+    assert fwd == [(True, True)] and bwd == [True]
     assert [g.shape for g in grads] == [q.shape, k.shape, v.shape]
     # without grad the forward takes the same route, L not requested
     with torch.no_grad():
         flash_attention_kernel(q, k, v, causal=True, window=16)
     assert fwd[-1] == (True, False)
     assert flash_attention_lse(q.detach(), k.detach(), v.detach())[1].shape == (2, 10, 64)
+    # float32 at the same width: FFMA forward with L, FFMA backward
+    q32, k32, v32 = (t.detach().float().requires_grad_() for t in (q, k, v))
+    out = flash_attention_kernel(q32, k32, v32, causal=True, window=16)
+    torch.autograd.grad(out, (q32, k32, v32), torch.empty_like(out))
+    assert fwd[-1] == (False, True) and bwd == [True, False]
 
 
 def test_tma_ready_copies_what_is_not_contiguous_and_aligned():

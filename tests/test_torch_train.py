@@ -10,6 +10,7 @@ with ``model_params_from_numpy``.  Tolerance: 1e-4 of max|want| (float32
 through a few layers in other summation orders), tighter where the
 arithmetic is the same."""
 
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -156,6 +157,38 @@ def test_loss_and_every_gradient_leaf_match_jax(arch):
     want = _named({"params": jgrads})
     assert sorted(want) == sorted(names)
     for name, g in zip(names, grads):
+        _close(g, want[name])
+
+
+def test_head_dim_256_local_attention_loss_and_gradients_match_jax():
+    """recurrentgemma's local attention at its published head width, 256:
+    the smoke config cut to one group of its pattern (rglru, rglru, local)
+    with head_dim 256 and a window of 8 over 12 positions (MQA 2:1).  The
+    loss and every gradient leaf against ``jax.value_and_grad`` of the
+    reference ``_loss_fn``, as at the smoke config's head_dim 32 (on the
+    CPU the flash function's backward is its plain version, the one the
+    card's tensor-core backward at 256 is held to)."""
+    arch = "recurrentgemma-2b"
+    jcfg = dataclasses.replace(jconfigs.smoke(arch), head_dim=256, num_layers=3)
+    cfg = dataclasses.replace(configs.smoke(arch), head_dim=256, num_layers=3)
+    assert cfg.layer_types == ("rglru", "rglru", "local")
+    assert 0 < cfg.local_window < 12
+    pnp = _np_params(jcfg)
+    batch = _batch(cfg)
+    tc = jtr.TrainConfig()
+    (jtotal, jm), jgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: jtr._loss_fn(jcfg, tc, p, b), has_aux=True))(
+        pnp, {k: jnp.asarray(v) for k, v in batch.items()})
+    params = model_params_from_numpy(pnp, cfg, device="cpu")
+    assert params["blocks"]["p2"]["attn"]["w_q"].shape[-1] == 2 * 256
+    names, leaves = _flatten_with_names({"params": params})
+    grads, m = ttr._grads(cfg, TrainConfig(), params, list(leaves),
+                          {k: torch.from_numpy(v) for k, v in batch.items()})
+    _close(m["loss"], jm["loss"])
+    want = _named({"params": jgrads})
+    assert sorted(want) == sorted(names)
+    for name, g in zip(names, grads):
+        assert float(g.abs().max()) > 0, f"{name} got no gradient"
         _close(g, want[name])
 
 

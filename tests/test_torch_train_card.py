@@ -1,8 +1,9 @@
 """Training's kernels on the card: the flash backward kernels against their
 plain version, each on its route (``flash_bwd_route``: the tensor-core
-kernel for bf16 at head_dim 64/128, FFMA for the rest), recurrentgemma's
-head_dim 256 under autograd (the tensor-core forward, the FFMA backward on
-its L), the tensor-core route's flip rate
+kernel for bf16 at head_dim 64/128/256, FFMA for the rest), recurrentgemma's
+head_dim 256 under autograd (the tensor-core forward and the tensor-core
+backward on its L), both tensor-core directions launched from a fresh thread, the
+tensor-core route's flip rate
 against rounding P and dS once, the flash forward's L, attention's
 gradient through ``FlashAttentionFn`` in a 2-layer llama3.2-shaped model
 against the plain route, and the SS-selected pipeline's picks against the
@@ -14,6 +15,7 @@ import nothing of JAX:
 """
 
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -56,7 +58,7 @@ def _bwd_close(got, want, what):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,G,S,causal,window", [
     (32, 1, 17, True, 0), (64, 3, 130, True, 40), (128, 3, 1000, True, 0),
-    (256, 10, 64, False, 0), (128, 1, 130, True, 64)])
+    (256, 10, 64, False, 0), (128, 1, 130, True, 64), (256, 10, 200, True, 72)])
 def test_backward_kernel_matches_plain(card, dtype, hd, G, S, causal, window):
     g = torch.Generator(device=card).manual_seed(hd + S)
     B, KV = 2, 2
@@ -70,7 +72,7 @@ def test_backward_kernel_matches_plain(card, dtype, hd, G, S, causal, window):
     n, n_tc = flash_attention_bwd_kernel.launches, flash_attention_bwd_kernel.launches_tc
     got = flash_attention_bwd_kernel(q, k, v, o, do, L, causal=causal, window=window)
     assert flash_attention_bwd_kernel.launches == n + 1
-    tc = dtype == torch.bfloat16 and hd in (64, 128)
+    tc = dtype == torch.bfloat16 and hd in (64, 128, 256)
     assert flash_bwd_route(dtype, hd) == ("tc" if tc else "ffma")
     assert flash_attention_bwd_kernel.launches_tc == n_tc + tc
     want = attention_bwd_ref(q, k, v, o, do, L, causal, window)
@@ -83,10 +85,13 @@ def test_backward_kernel_matches_plain(card, dtype, hd, G, S, causal, window):
 def test_head_dim_256_trains_on_tc_forward_and_ffma_backward(card):
     """recurrentgemma's local attention under autograd (bf16, 10 query heads
     on one KV head, head_dim 256, a window of 96 over 320 positions): the
-    forward launches the tensor-core kernel with L, the backward the FFMA
-    kernel on that L, and the gradients match the plain backward's."""
+    forward launches the tensor-core kernel with L, the backward the
+    tensor-core backward on that L (bf16 at 256 is the tensor cores' both
+    ways; float32 stays on FFMA), and the gradients match the plain
+    backward's."""
     assert flash_route(torch.bfloat16, 256) == "tc"
-    assert flash_bwd_route(torch.bfloat16, 256) == "ffma"
+    assert flash_bwd_route(torch.bfloat16, 256) == "tc"
+    assert flash_bwd_route(torch.float32, 256) == "ffma"
     g = torch.Generator(device=card).manual_seed(256)
     B, S, H, hd, window = 2, 320, 10, 256, 96
     q = torch.randn((B, S, H, hd), generator=g, device=card).bfloat16()
@@ -102,13 +107,51 @@ def test_head_dim_256_trains_on_tc_forward_and_ffma_backward(card):
     assert flash_attention_kernel.launches_tc == n_ftc + 1
     got = torch.autograd.grad(out, (qg, kg, vg), do)
     assert flash_attention_bwd_kernel.launches == n_b + 1
-    assert flash_attention_bwd_kernel.launches_tc == n_btc
+    assert flash_attention_bwd_kernel.launches_tc == n_btc + 1
     o, L = flash_attention_lse(q, k, v, causal=True, window=window)
     assert torch.equal(o, out.detach())
     want = attention_bwd_ref(q, k, v, o, do, L, True, window)
     for name, a, b in zip("qkv", got, want):
         assert a.dtype == torch.bfloat16
         _bwd_close(a, b, f"d{name} bf16 hd=256 MQA window={window}")
+
+
+@pytest.mark.cuda
+def test_tensor_core_kernels_launch_from_a_thread_that_made_no_cuda_call(card):
+    """The tensor-core kernels encode their TMA maps with a libcuda call that
+    needs a context current on the calling thread.  A fresh thread whose
+    tensors come from the allocator's cache (autograd's backward thread, a
+    serving worker) has made no runtime call; the forward with L and the
+    backward launch there all the same, with the main thread's bits."""
+    g = torch.Generator(device=card).manual_seed(5)
+    B, S, H, KV, hd = 1, 160, 4, 1, 256
+    q = torch.randn((B, S, H, hd), generator=g, device=card).bfloat16()
+    k, v = (torch.randn((B, S, KV, hd), generator=g, device=card).bfloat16()
+            for _ in range(2))
+    do = torch.randn(q.shape, generator=g, device=card).bfloat16()
+
+    def both():
+        o, L = flash_attention_lse(q, k, v, window=64)
+        return (o, L, *flash_attention_bwd_kernel(q, k, v, o, do, L, window=64))
+
+    want = both()
+    del_me = both()          # freed: the thread's allocations hit the cache
+    del del_me
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def work():
+        try:
+            got.extend(both())
+            torch.cuda.synchronize()
+        except Exception as e:   # reported on the main thread below
+            errors.append(e)
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join()
+    assert not errors, errors
+    assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda
