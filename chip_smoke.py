@@ -109,7 +109,14 @@ gradient leaf on the kernel route against the plain attention route, and
 every batch, the loss falling, one step profiled); checkpoint, SIGTERM
 and resume on
 the card; and the data pipeline at a 256 x 2048 global batch with both SS
-objectives, its picks held to the plain route's.
+objectives, its picks held to the plain route's.  Last, each timed LM
+step (the four prefills and decode steps, the two train steps) beside its
+bound: counted on fake tensors (``repro_torch.launch``: FLOPs by dtype,
+the eager program's bytes, the live-bytes peak) by a process of its own
+that starts after the build, with the card hidden, while the card runs
+the rest; the line of each step prints the bound and what binds it, mfu,
+the share (bound / measured, at most 1.05) and the counted peak against
+the measured (within 25 %).
 The
 FeatureCoverage kernels sum only the terms W's nonzeros make nonzero, so
 they are also swept over sparse W and their bounds count what these inputs
@@ -121,14 +128,17 @@ CUDA events, each window queued behind a sleep on the card where Python's
 enqueue takes at least half of it, so that the events time the card alone.
 
 The last lines of its output are JSON: the block types' figures
-(``lm_families``), training's (``training``), the kernels' records (nine),
-then ``{"ok": true, "device": {...}}``.  Any failure raises before them, and the
+(``lm_families``), training's (``training``), the steps' bounds
+(``roofline``), the kernels' records (nine), then ``{"ok": true,
+"device": {...}}``.  Any failure raises before them, and the
 script exits non-zero without a CUDA device or outside a checkout.
 
     python3 chip_smoke.py --first-chunk cold|warmed
 
 runs only the service's first coverage chunk in a fresh process
-(``first_chunk_probe``) and prints its numbers, the last line as JSON.
+(``first_chunk_probe``) and prints its numbers, the last line as JSON;
+``--count-roofline PATH`` only counts the LM steps on fake tensors into
+PATH (``count_cells``: host work, no card).
 """
 
 from __future__ import annotations
@@ -138,6 +148,7 @@ import contextlib
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -154,15 +165,11 @@ N, F, K, R, C = 1 << 20, 1024, 32, 8, 8.0
 # Path A (dense FL over video frames) and path B (matrix-free FL).
 N_A, F_A = 1 << 16, 256
 N_B, D_B = 1 << 18, 16
-# H100 SXM published peaks: HBM bandwidth, the float32 FFMA rate (an FMA
-# counted as two operations), and the rate of other float32 instructions
-# (add, max, min: one per lane per clock, 132 SMs x 128 lanes x 1.98 GHz).
-# The special-function units (sqrt.approx, lg2) issue 16 per clock per SM:
-# that rate comes from the card's SM count and maximum SM clock.
-HBM_BYTES_PER_S = 3.35e12
-FFMA_FLOPS_PER_S = 67e12
-BF16_TENSOR_FLOPS_PER_S = 989e12
-FP32_INSTR_PER_S = 33.5e12
+# The H100 SXM's published peaks (HBM bandwidth, bf16 tensor-core and
+# float32 FFMA FLOP/s, other float32 instructions a second) are
+# ``repro_torch.launch.mesh.HW``, the roofline's own.  The special-function
+# units (sqrt.approx, lg2) issue 16 per clock per SM: that rate comes from
+# the card's SM count and maximum SM clock.
 SFU_PER_CLOCK_PER_SM = 16
 # Tolerances of kernel vs plain, relative to the size of the sums involved.
 # Both accumulate in float32, in different orders; the result is a difference
@@ -286,14 +293,17 @@ def bound(bytes_moved: float, fp32: float = 0.0, ffma: float = 0.0,
     rate and each instruction class over its own rate (FFMA at 67 TFLOP/s,
     other float32 instructions at 33.5e12/s, special functions at 16 per
     clock per SM, products of bfloat16 operands with float32 accumulation
-    (``bf16_tc`` flops) on the tensor cores at 989 TFLOP/s).  Returns (ms,
-    "bytes" or "operations", the binding one)."""
+    (``bf16_tc`` flops) on the tensor cores at 989 TFLOP/s; the rates of
+    ``repro_torch.launch.mesh.HW`` but the card's own special-function
+    rate).  Returns (ms, "bytes" or "operations", the binding one)."""
+    from repro_torch.launch.mesh import HW
+
     times = {
-        "bytes": bytes_moved / HBM_BYTES_PER_S,
-        "fp32": fp32 / FP32_INSTR_PER_S,
-        "ffma": 2.0 * ffma / FFMA_FLOPS_PER_S,
+        "bytes": bytes_moved / HW["hbm_bw"],
+        "fp32": fp32 / HW["fp32_instr_per_s"],
+        "ffma": 2.0 * ffma / HW["peak_flops_f32"],
         "sfu": sfu / RATES["sfu"],
-        "bf16_tc": bf16_tc / BF16_TENSOR_FLOPS_PER_S,
+        "bf16_tc": bf16_tc / HW["peak_flops_bf16"],
     }
     pipe = max(times, key=times.get)
     return times[pipe] * 1e3, ("bytes" if pipe == "bytes" else "operations"), pipe
@@ -2470,6 +2480,8 @@ def _serve(cfg, params, B: int, S: int, NEW: int) -> dict:
     prefill_launches = flash_attention_kernel.launches
     prefill_tc = flash_attention_kernel.launches_tc
     flash_attention_kernel.launches = 0
+    prefill_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
     step_logits, toks = [logits], [tok]
     t = time.perf_counter()
     for n in range(S, S + NEW - 1):
@@ -2480,7 +2492,8 @@ def _serve(cfg, params, B: int, S: int, NEW: int) -> dict:
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t
     decode_launches = flash_attention_kernel.launches
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    decode_peak = torch.cuda.max_memory_allocated() / 2**30
+    peak = max(prefill_peak, decode_peak)
     check(prefill_launches == n_attn and prefill_tc == n_tc and decode_launches == 0,
           f"{cfg.name} launches: prefill {prefill_launches} ({prefill_tc} "
           f"tensor-core), decode {decode_launches}")
@@ -2490,14 +2503,16 @@ def _serve(cfg, params, B: int, S: int, NEW: int) -> dict:
     print(f"{cfg.name} ({CARD[0]}): prefill {prefill_ms:.4f} ms, time to first "
           f"token {ttft_ms:.4f} ms; decode {ms_tok:.4f} ms per step "
           f"({B * (NEW - 1) / decode_s:.1f} tokens/s over {B} requests); peak "
-          f"device memory {peak:.2f} GiB; flash launches: prefill "
+          f"device memory {peak:.2f} GiB (prefill {prefill_peak:.2f}, decode "
+          f"{decode_peak:.2f}); flash launches: prefill "
           f"{prefill_launches}, decode {decode_launches}", flush=True)
     return {"eng": eng, "sc": sc, "gen": gen, "prompts": prompts, "tokens": tokens,
             "toks": toks, "step_logits": step_logits, "cache": cache,
             "n_attn": n_attn, "route": route, "launches": launches,
             "launches_tc": launches_tc, "prefill_ms": prefill_ms,
             "ttft_ms": ttft_ms, "decode_ms_per_step": ms_tok,
-            "tokens_per_s": B * (NEW - 1) / decode_s, "peak_gib": peak}
+            "tokens_per_s": B * (NEW - 1) / decode_s, "peak_gib": peak,
+            "prefill_peak_gib": prefill_peak, "decode_peak_gib": decode_peak}
 
 
 @contextlib.contextmanager
@@ -2689,7 +2704,7 @@ def lm_path(errs: dict) -> dict:
         tc = flash_bound(nbytes, pairs, hd)
         ffma_design = bound(nbytes, ffma=pairs * hd, sfu=pairs,
                             bf16_tc=2 * pairs * hd)[0]
-        return tc, ffma_design, 4 * pairs * hd / BF16_TENSOR_FLOPS_PER_S * 1e3
+        return tc, ffma_design, bound(0.0, bf16_tc=4 * pairs * hd)[0]
 
     (b_ms, b_by, b_pipe), ffma_bound, tc_ms = flash_bounds(B, S)
     share = b_ms / ms
@@ -2755,9 +2770,11 @@ def lm_path(errs: dict) -> dict:
                    "ffma_design_bound_ms": ffma_bound_l,
                    "tensor_core_bound_ms": tc_l, "library_ms": lib_long},
         "lm_path": {"arch": cfg.name, "batch": B, "prompt": S, "new": NEW,
-                    "prefill_ms": run["prefill_ms"], "ttft_ms": run["ttft_ms"],
-                    "decode_ms_per_step": run["decode_ms_per_step"],
-                    "peak_gib": run["peak_gib"], "profile": prof,
+                    **{k_: run[k_] for k_ in ("prefill_ms", "ttft_ms",
+                                              "decode_ms_per_step", "peak_gib",
+                                              "prefill_peak_gib",
+                                              "decode_peak_gib")},
+                    "profile": prof,
                     "kv_prune": kv_prune},
     }
 
@@ -3041,7 +3058,8 @@ def _family(arch: str, B: int, S: int, errs: dict) -> dict:
     out = {"arch": cfg.name, "batch": B, "prompt": S, "new": NEW, "params": n_params,
            **{k: run[k] for k in ("n_attn", "launches", "launches_tc", "route",
                                   "prefill_ms", "ttft_ms", "decode_ms_per_step",
-                                  "tokens_per_s", "peak_gib")}}
+                                  "tokens_per_s", "peak_gib", "prefill_peak_gib",
+                                  "decode_peak_gib")}}
     del run
     if out["n_attn"]:
         rel = _plain_route(cfg, params, prompts, toks, step_logits, S + NEW + 8)
@@ -5333,6 +5351,120 @@ def first_chunk_probe(warm_first: bool) -> dict:
     return out
 
 
+# -- the roofline: each timed LM step beside its counted bound -----------------
+
+# (arch, kind, batch, sequence): the steps the script times, at their own
+# shapes: the prefill and a decode step of each served model (the decode
+# against a cache of the prompt's depth), the train step of each trained
+# one (AdamW, remat "nothing", µ = 1, as run).
+ROOFLINE_CELLS = tuple(
+    [(LM_ARCH, kind, LM_B, LM_S) for kind in ("prefill", "decode")]
+    + [(arch, kind, B, S) for arch, B, S in FAMILIES for kind in ("prefill", "decode")]
+    + [(arch, "train", B, S) for arch, B, S, _ in TRAIN_RUNS])
+ROOFLINE_SHARE_MAX = 1.05   # a step faster than its bound: the count is wrong
+PEAK_TOL = 0.25             # the counted peak against max_memory_allocated
+PROCS: list = []            # (process, output file) the script starts, cleared at its end
+
+
+def count_cells(path: str) -> None:
+    """``--count-roofline PATH``: each of ``ROOFLINE_CELLS`` counted on fake
+    tensors (``repro_torch.launch.dryrun.run_cell``: FLOPs by dtype, bytes,
+    the peak of live bytes, the bound), written to ``path`` as JSON.  Host
+    work only: the script runs it in a process of its own, with the card
+    hidden, while the card runs the other phases."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.models import ShapeConfig
+
+    recs = [run_cell(arch, ShapeConfig(f"{kind}_{B}x{S}", S, B, kind))
+            for arch, kind, B, S in ROOFLINE_CELLS]
+    Path(path).write_text(json.dumps(recs))
+
+
+def start_counter() -> tuple:
+    """The counter's process (``count_cells``) and the file it writes."""
+    import tempfile
+
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_roofline_"), "cells.json")
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--count-roofline", path],
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    PROCS.append((proc, path))
+    return proc, path
+
+
+def roofline_phase(counter: tuple, lm: dict, families: dict, training: dict) -> dict:
+    """Each step of ``ROOFLINE_CELLS`` beside its bound: the counter's
+    records (``start_counter``) with the times and peaks that the LM phases
+    measured (``_serve``'s prefill and decode, ``_train_main``'s median
+    step); nothing more runs on the card.  Each line: the bound and what
+    binds it, mfu (the model's FLOPs over the bf16 peak for the measured
+    time), the share (bound / measured) and the counted peak against
+    ``max_memory_allocated``.  Fails if a share exceeds
+    ``ROOFLINE_SHARE_MAX`` or a counted peak is off by more than
+    ``PEAK_TOL``."""
+    from repro_torch.launch.roofline import mfu
+
+    t = time.perf_counter()
+    proc, path = counter
+    rc = proc.wait(timeout=600)
+    waited = time.perf_counter() - t
+    check(rc == 0, f"the roofline counter exited {rc}")
+    recs = json.loads(Path(path).read_text())
+    measured = {(lm["arch"], "prefill"): (lm["prefill_ms"], lm["prefill_peak_gib"]),
+                (lm["arch"], "decode"): (lm["decode_ms_per_step"], lm["decode_peak_gib"])}
+    for arch, *_ in FAMILIES:
+        f = families[arch]
+        measured[arch, "prefill"] = (f["prefill_ms"], f["prefill_peak_gib"])
+        measured[arch, "decode"] = (f["decode_ms_per_step"], f["decode_peak_gib"])
+    for arch, *_ in TRAIN_RUNS:
+        tr = training["train"][arch]
+        measured[arch, "train"] = (tr["step_ms_median"], tr["peak_gib"])
+    rows, bad = [], []
+    for rec, (arch, kind, B, S) in zip(recs, ROOFLINE_CELLS, strict=True):
+        ms, peak_gib = measured[arch, kind]
+        rl, mem = rec["roofline"], rec["memory"]
+        bound_ms = rl["step_time_lower_bound_s"] * 1e3
+        row = {
+            "arch": arch, "kind": kind, "batch": B, "seq": S, "ms": ms,
+            "bound_ms": bound_ms, "dominant": rl["dominant"],
+            "compute_ms": rl["compute_s"] * 1e3, "memory_ms": rl["memory_s"] * 1e3,
+            "share": bound_ms / ms,
+            "mfu": mfu(rec["model_flops_total"], ms / 1e3),
+            "flops": rec["cost"]["flops_per_chip"],
+            "flops_by_dtype": rec["cost"]["flops_by_dtype"],
+            "bytes": rec["cost"]["bytes_per_chip"],
+            "attention_pairs": rec["cost"]["attention_pairs"],
+            "model_flops": rec["model_flops_total"],
+            "peak_gib": mem["peak_bytes"] / 2**30, "measured_peak_gib": peak_gib,
+            "state_gib": mem["analytic_state_bytes"] / 2**30,
+            "count_s": rec["count_s"], "meta": rec["meta"],
+        }
+        rows.append(row)
+        print(f"roofline {arch} {kind} {B} x {S} ({CARD[0]}): measured {ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({row['dominant']}: compute "
+              f"{row['compute_ms']:.4f}, memory {row['memory_ms']:.4f}), share "
+              f"{row['share']:.4f}, mfu {row['mfu']:.4f}; peak counted "
+              f"{row['peak_gib']:.2f} GiB, measured {peak_gib:.2f} GiB; "
+              f"{row['flops']:.4g} FLOPs {row['flops_by_dtype']}, "
+              f"{row['bytes']:.4g} bytes; counted in {row['count_s']:.2f} s",
+              flush=True)
+        if not (math.isfinite(bound_ms) and bound_ms > 0
+                and row["share"] <= ROOFLINE_SHARE_MAX):
+            bad.append(f"{arch} {kind}: share {row['share']:.4f}")
+        if abs(row["peak_gib"] / peak_gib - 1) > PEAK_TOL:
+            bad.append(f"{arch} {kind}: peak counted {row['peak_gib']:.2f} GiB, "
+                       f"measured {peak_gib:.2f}")
+        if kind == "train" and (rec["meta"]["optimizer"], rec["meta"]["remat"],
+                                rec["meta"]["microbatches"]) != ("adamw", "nothing", 1):
+            bad.append(f"{arch} train: the counted step is not the run's {rec['meta']}")
+    check(not bad, "roofline: " + "; ".join(bad))
+    print(f"roofline phase: {time.perf_counter() - t:.2f} s ({waited:.2f} s waiting "
+          f"for the counter; counting took {sum(r['count_s'] for r in rows):.2f} s "
+          "in its own process)", flush=True)
+    return {"card": CARD[0], "cells": rows, "phase_s": time.perf_counter() - t,
+            "wait_s": waited}
+
+
 def sieve_record() -> dict:
     """The eighth record: ``sieve_gains``, timed at FeatureCoverage's shapes
     (the quickstart's and fig1's baseline), the other paths beside it;
@@ -5357,6 +5489,10 @@ def sieve_record() -> dict:
 
 
 def main() -> int:
+    if "--count-roofline" in sys.argv:
+        sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+        count_cells(sys.argv[sys.argv.index("--count-roofline") + 1])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
@@ -5395,6 +5531,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t:.2f} s (nvcc, sm_90a, one process "
           "per source)", flush=True)
     mark("build")
+    # the LM steps' counts on fake tensors, host work in a process of its
+    # own while the card runs the phases below (``roofline_phase``)
+    counter = start_counter()
 
     # 3. kernel vs plain, and the small pipeline
     errs = {"ss_divergence": 0.0, "feature_gains": 0.0}
@@ -5449,6 +5588,10 @@ def main() -> int:
     bwd_record, training = train_phase(errs)
     mark("train_phase")
     records.append(bwd_record)
+    # 16. each timed LM step beside its bound (nothing more on the card)
+    flash = next(r_ for r_ in records if r_["name"] == "flash_attention")
+    roof = roofline_phase(counter, flash["lm_path"], families, training)
+    mark("roofline_phase")
     # the lanes and the KV path held the kernels to their plain versions
     # after the records were made
     for r_ in records:
@@ -5457,11 +5600,11 @@ def main() -> int:
         math.isfinite(r_[k]) for r_ in records
         for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")),
         "a measurement is missing or not finite")
-    flash = next(r_ for r_ in records if r_["name"] == "flash_attention")
     check(math.isfinite(flash["library_ms"]), "flash: no library time")
 
     print(json.dumps({"lm_families": families}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"roofline": roof}))
     print(f"chip_smoke: {time.perf_counter() - T0[0]:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
@@ -5470,4 +5613,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    import shutil
+
+    try:
+        rc = main()
+    finally:
+        for proc_, path_ in PROCS:
+            if proc_.poll() is None:
+                proc_.kill()
+                proc_.wait()
+            shutil.rmtree(os.path.dirname(path_), ignore_errors=True)
+    sys.exit(rc)

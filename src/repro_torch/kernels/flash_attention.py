@@ -36,6 +36,15 @@ log).
 ``flash_attention_kernel`` takes that path whenever grad mode is on and an
 input requires grad; otherwise (serving, ``torch.no_grad()``) it launches
 what it always did, L not requested.
+
+Each launch is an operator the dispatcher sees (``torch.library.custom_op``):
+``repro_torch::flash_attention`` (O), ``repro_torch::flash_attention_lse``
+(O and L) and ``repro_torch::flash_attention_bwd`` (dq, dk, dv).  On CPU
+tensors an operator's body is the plain version; on any other device
+(the card, or a meta tensor) it launches the route's kernel.  Under
+``FakeTensorMode`` each returns empty outputs of the right shapes and
+dtypes and builds and launches nothing, so a whole step can be traced and
+counted without a card (``repro_torch.launch.cost``).
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ import ctypes
 import math
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_bwd_ref, attention_lse_ref, attention_ref
@@ -179,7 +189,7 @@ def flash_attention_kernel(
                                     or v.requires_grad):
         out = FlashAttentionFn.apply(q, k, v, causal, window)
     else:
-        out = _forward(q, k, v, causal, window, lse=False)[0]
+        out = _flash_op(q, k, v, causal, window)
     return out[:, :, 0] if flat else out
 
 
@@ -194,12 +204,13 @@ def flash_attention_lse(
     _check(q, k, v, window)
     if q.dim() != 4:
         raise ValueError("flash_attention_lse: q, k and v must be (B, S, heads, hd)")
-    return _forward(q, k, v, causal, window, lse=True)
+    return _flash_lse_op(q, k, v, causal, window)
 
 
 def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
              lse: bool) -> tuple[Tensor, Tensor | None]:
-    """O (and L when ``lse``) on checked (B, S, heads, hd) inputs."""
+    """O (and L when ``lse``) on checked (B, S, heads, hd) inputs: the body
+    of the forward operators."""
     tc = flash_route(q.dtype, q.shape[-1]) == "tc"
     if tc:
         check_tc_layout(q, k, v)
@@ -214,6 +225,41 @@ def _forward(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int,
         L = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     _launch(q, k, v, out, causal, window, tc, L)
     return out, L
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: Tensor, k: Tensor, v: Tensor, causal: bool, window: int) -> Tensor:
+    """The forward launch, L not requested: O."""
+    return _forward(q, k, v, causal, window, lse=False)[0]
+
+
+@torch.library.custom_op("repro_torch::flash_attention_lse", mutates_args=())
+def _flash_lse_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                  window: int) -> tuple[Tensor, Tensor]:
+    """The forward launch with each row's L: (O, L)."""
+    return _forward(q, k, v, causal, window, lse=True)
+
+
+# The fake versions serve FakeTensorMode: empty outputs, nothing built or
+# launched.  The dispatcher also sends a plain meta tensor to them; it takes
+# the card's branch (the launch), as it did before the launches were
+# operators.
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal, window):
+    if not is_fake(q):
+        return _forward(q, k, v, causal, window, lse=False)[0]
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@_flash_lse_op.register_fake
+def _(q, k, v, causal, window):
+    if not is_fake(q):
+        return _forward(q, k, v, causal, window, lse=True)
+    B, S, H, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty((B, H, S), dtype=torch.promote_types(q.dtype, torch.float32)))
 
 
 def _launch(q: Tensor, k: Tensor, v: Tensor, out: Tensor, causal: bool,
@@ -258,10 +304,9 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int):
-        if q.device.type == "cpu":
-            o, L = attention_lse_ref(q, k, v, causal, window)
-        else:
-            o, L = flash_attention_lse(q, k, v, causal=causal, window=window)
+        if q.device.type != "cpu":
+            _check(q, k, v, window)
+        o, L = _flash_lse_op(q, k, v, causal, window)
         ctx.save_for_backward(q, k, v, o, L)
         ctx.causal, ctx.window = causal, window
         return o
@@ -291,8 +336,7 @@ def flash_attention_bwd_kernel(
     tensors :func:`~repro_torch.kernels.ref.attention_bwd_ref`, rounded to
     the input dtype (CPU calls do not count)."""
     if q.device.type == "cpu":
-        return tuple(g.to(t.dtype) for g, t in zip(
-            attention_bwd_ref(q, k, v, o, do, lse, causal, window), (q, k, v)))
+        return _flash_bwd_op(q, k, v, o, do, lse, causal, window)
     _check(q, k, v, window)
     if q.dim() != 4:
         raise ValueError("flash_attention_bwd: q, k and v must be (B, S, heads, hd)")
@@ -308,8 +352,34 @@ def flash_attention_bwd_kernel(
             or lse.device != q.device:
         raise TypeError("flash_attention_bwd: lse must be contiguous float32 on "
                         f"{q.device}")
+    return _flash_bwd_op(q, k, v, o, do, lse, causal, window)
+
+
+def _bwd_body(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor,
+              lse: Tensor, causal: bool, window: int) -> tuple[Tensor, Tensor, Tensor]:
+    """The backward operator's body: on CPU tensors the plain backward
+    rounded to the input dtype, else the kernel of ``flash_bwd_route``."""
+    if q.device.type == "cpu":
+        return tuple(g.to(t.dtype) for g, t in zip(
+            attention_bwd_ref(q, k, v, o, do, lse, causal, window), (q, k, v)))
     return _bwd_launch(q, k, v, o, do, lse, causal, window,
-                       flash_bwd_route(q.dtype, hd) == "tc")
+                       flash_bwd_route(q.dtype, q.shape[-1]) == "tc")
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor,
+                  lse: Tensor, causal: bool, window: int
+                  ) -> tuple[Tensor, Tensor, Tensor]:
+    """The backward launch: (dq, dk, dv)."""
+    return _bwd_body(q, k, v, o, do, lse, causal, window)
+
+
+@_flash_bwd_op.register_fake
+def _(q, k, v, o, do, lse, causal, window):
+    if not is_fake(q):
+        return _bwd_body(q, k, v, o, do, lse, causal, window)
+    return tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
+                 for t in (q, k, v))
 
 
 def _bwd_launch(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor,

@@ -1,1 +1,2 @@
-"""Command-line drivers of the port."""
+"""Command-line drivers of the port (serving, training, the dry run) and the
+launch analysis of one H100: each step counted on fake tensors and bounded."""

@@ -12,6 +12,8 @@ from repro_torch.models.config import (
     is_subquadratic,
 )
 from repro_torch.models.decoder import (
+    abstract_cache,
+    abstract_params,
     decode_step,
     forward,
     init_cache,
@@ -26,6 +28,8 @@ __all__ = [
     "ShapeConfig",
     "cell_supported",
     "is_subquadratic",
+    "abstract_cache",
+    "abstract_params",
     "decode_step",
     "forward",
     "init_cache",

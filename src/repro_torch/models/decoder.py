@@ -23,7 +23,9 @@ Block types: ``attn`` (full causal attention + FFN), ``attn_moe``
 :mod:`repro_torch.models.rglru`).
 
 Entry points: ``forward`` (with the reference's remat policies, for
-training), ``lm_loss``, ``prefill``, ``init_cache``, ``decode_step``.
+training), ``lm_loss``, ``prefill``, ``init_cache``, ``decode_step``;
+``abstract_params`` and ``abstract_cache`` give the trees as meta tensors
+(the dry run's inputs).
 """
 
 from __future__ import annotations
@@ -112,6 +114,22 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
                      for i, btype in enumerate(cfg.remainder_blocks)}
     params["final_norm"] = rmsnorm_init(cfg.d_model, pdt, dev)
     return params
+
+
+def _to_meta(tree: Params) -> Params:
+    return {k: _to_meta(v) if isinstance(v, dict)
+            else torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in tree.items()}
+
+
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The parameters' tree as meta tensors: shapes and dtypes, no memory
+    (built under ``FakeTensorMode``: nothing is drawn)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        fake = init_params(torch.Generator(), cfg, device="cpu")
+    return _to_meta(fake)
 
 
 # ---------------------------------------------------------------------------
@@ -380,6 +398,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
             for i, btype in enumerate(cfg.remainder_blocks)
         },
     }
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int) -> Params:
+    """``init_cache``'s tree as meta tensors: shapes and dtypes, no memory."""
+    return init_cache(cfg, batch, max_len, device="meta")
 
 
 def _block_decode(cfg: ModelConfig, btype: str, p: Params, x: Tensor, cache,

@@ -240,7 +240,13 @@ def test_backward_takes_the_forwards_route(monkeypatch, dtype, hd):
     rest, float32 at every width and bf16 at hd 32 (meta tensors stand in
     for the card; the launch is recorded, not made)."""
     seen = []
-    monkeypatch.setattr(fa, "_bwd_launch", lambda *a: seen.append(a[-1]))
+
+    def record(q, k, v, *rest):
+        # a stand-in launch: the route taken, and what a launch returns
+        seen.append(rest[-1])
+        return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+    monkeypatch.setattr(fa, "_bwd_launch", record)
     q = torch.empty((1, 8, 4, hd), dtype=dtype, device="meta")
     k = v = torch.empty((1, 8, 2, hd), dtype=dtype, device="meta")
     L = torch.empty((1, 4, 8), dtype=torch.float32, device="meta")

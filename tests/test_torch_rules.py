@@ -45,8 +45,10 @@ def _port_files():
     rel = {f.relative_to(ROOT / "src" / "repro_torch").as_posix() for f in files}
     assert {"obs/__init__.py", "obs/events.py", "obs/metrics.py", "obs/trace.py",
             "serve/faults.py", "serve/summarize_service.py", "serve/wal.py",
-            "serve/sessions.py", "api.py"} <= rel
-    return files + [ROOT / "chip_smoke.py", ROOT / "examples" / "quickstart_torch.py"]
+            "serve/sessions.py", "api.py", "launch/mesh.py", "launch/steps.py",
+            "launch/cost.py", "launch/roofline.py", "launch/dryrun.py"} <= rel
+    return files + [ROOT / "chip_smoke.py", ROOT / "chip_peak_probe.py",
+                    ROOT / "examples" / "quickstart_torch.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
