@@ -109,7 +109,21 @@ gradient leaf on the kernel route against the plain attention route, and
 every batch, the loss falling, one step profiled); checkpoint, SIGTERM
 and resume on
 the card; and the data pipeline at a 256 x 2048 global batch with both SS
-objectives, its picks held to the plain route's.  Last, each timed LM
+objectives, its picks held to the plain route's.  Then the three examples
+run through their own ``main`` (``examples_phase``), each kernel's launches
+counted from 0 for each: ``video_summarize_torch.py`` at Table 2's longest
+video (9721 frames, k = 1458; SS and greedy on the kernels against the
+plain backend under the same draws, any differing decision shown a near
+tie in float64); ``serve_kv_pruning_torch.py`` on qwen2-7b's smoke config
+at head_dim 32 (float32, the FFMA flash kernel) and on qwen2-7b at full
+width and depth (28 layers, GQA 28:4 at head_dim 128 with QKV bias, 2 x
+2048 tokens pruned to 512 positions, then to 256; the service keeps what
+``prune_kv`` keeps), whose parameters serve the LM main path (TTFT, decode, peak),
+are held to the plain attention route at every step and give the flash
+kernels their shape (``at_qwen2_7b`` in the flash record); and
+``train_lm_ss_torch.py``, 100 steps each of uniform and SS selection on
+llama3.2-3b's smoke config at head_dim 32 (the FFMA flash kernels forward
+and backward; SS keeps each pool of 32 whole).  Last, each timed LM
 step (the four prefills and decode steps, the two train steps) beside its
 bound: counted on fake tensors (``repro_torch.launch``: FLOPs by dtype,
 the eager program's bytes, the live-bytes peak) by a process of its own
@@ -128,7 +142,8 @@ CUDA events, each window queued behind a sleep on the card where Python's
 enqueue takes at least half of it, so that the events time the card alone.
 
 The last lines of its output are JSON: the block types' figures
-(``lm_families``), training's (``training``), the steps' bounds
+(``lm_families``), training's (``training``), the examples'
+(``examples``), the steps' bounds
 (``roofline``), the kernels' records (nine), then ``{"ok": true,
 "device": {...}}``.  Any failure raises before them, and the
 script exits non-zero without a CUDA device or outside a checkout.
@@ -5351,16 +5366,234 @@ def first_chunk_probe(warm_first: bool) -> dict:
     return out
 
 
+# -- the examples: video summaries, KV pruning on qwen2-7b, SS-selected training
+
+EX_FRAMES = 9721          # Table 2's longest video (benchmarks/table2_video.py:17-19)
+EX_KV_FULL = ("--config", "full", "--prompt-len", "2048", "--budget", "512")
+# the same at the reference's default budget (``KVSelectConfig``), which SS's
+# |V'| of about 300 positions can fill: at 512 greedy runs out of V'
+EX_KV_FULL_256 = EX_KV_FULL[:-1] + ("256",)
+EX_KV_B, EX_KV_NEW = 2, 32     # qwen2-7b served as the other LMs (``_serve``)
+EX_TRAIN_STEPS = 100
+
+
+def _ex_kernels() -> dict:
+    """The kernels the examples' paths launch, by record name."""
+    from repro_torch.kernels import (
+        feature_gains_kernel, flash_attention_bwd_kernel, flash_attention_kernel,
+        ss_divergence_kernel,
+    )
+
+    return {"ss_divergence": ss_divergence_kernel, "feature_gains": feature_gains_kernel,
+            "flash_attention": flash_attention_kernel,
+            "flash_attention_bwd": flash_attention_bwd_kernel}
+
+
+def _example(name: str, argv: list) -> tuple[dict, dict]:
+    """``examples/<name>.py``'s ``main(argv)`` on the card, its asserts
+    included and its output printed, with every count of ``_ex_kernels``
+    set to 0 just before and read just after.  Returns (the results its
+    ``main`` hands back, the launches: each kernel's and, for the flash
+    kernels, ``<name>_tc``)."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    kernels = _ex_kernels()
+    for k_ in kernels.values():
+        k_.launches = 0
+        if hasattr(k_, "launches_tc"):
+            k_.launches_tc = 0
+    print(f"$ python examples/{name}.py {' '.join(argv)}", flush=True)
+    results = {}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rc = mod.main(list(argv), results)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    check(rc == 0, f"examples/{name}.py exited {rc}")
+    launches = {n_: k_.launches for n_, k_ in kernels.items()}
+    launches.update({f"{n_}_tc": k_.launches_tc for n_, k_ in kernels.items()
+                     if hasattr(k_, "launches_tc")})
+    print(f"examples/{name}.py on the card ({CARD[0]}): {wall:.2f} s; launches "
+          + ", ".join(f"{n_} {v}" for n_, v in launches.items()), flush=True)
+    results["wall_s"], results["launches"] = wall, launches
+    return results, launches
+
+
+def _ex_launched(label: str, launches: dict, names: tuple, none=()) -> None:
+    """Each kernel of ``names`` launched on the example's path, those of
+    ``none`` not once."""
+    for n_ in names:
+        check(launches[n_] > 0, f"{label}: {n_} was never launched")
+    for n_ in none:
+        check(launches[n_] == 0, f"{label}: {n_} launched {launches[n_]} times")
+
+
+def _ex_video() -> dict:
+    """``video_summarize_torch.py --frames 9721``: SS and greedy on the
+    kernels; the plain backend under the same draws gives the same V' and
+    picks, or each first differing decision is shown a near tie in float64
+    (``_explain_ss``, ``_explain_greedy``); equal picks give f(S) within
+    TOL."""
+    from repro_torch.configs.paper_ss import DEFAULT
+
+    res, launches = _example("video_summarize_torch",
+                             ["--device", "cuda", "--frames", str(EX_FRAMES)])
+    _ex_launched("video", launches, ("ss_divergence", "feature_gains"),
+                 ("flash_attention", "flash_attention_bwd"))
+    fn, k, par = res["fn"], res["k"], res["parity"]
+    check(k == int(DEFAULT.summary_frac * EX_FRAMES) and par is not None,
+          "video: the budget or the route comparison is missing")
+    notes = {}
+    if not par["greedy_v"]:
+        notes["greedy_v"] = _explain_greedy("video greedy on V", fn, torch.ones(
+            fn.n, dtype=torch.bool, device="cuda"), k)
+    if not par["vprime"]:
+        notes["vprime"], _ = _explain_ss(      # SS's draws: the example's --seed 0
+            "video SS", fn, torch.Generator(device="cuda").manual_seed(0),
+            r=DEFAULT.r, c=DEFAULT.c)
+        check(notes["vprime"] is not None, "video: V' differs, but no prune cut "
+              "differs in lockstep")
+    elif not par["greedy_vprime"]:
+        notes["greedy_vprime"] = _explain_greedy("video greedy on V'", fn,
+                                                 res["ss"].vprime, k)
+    for what, value, plain in (("greedy_v", res["full"].value, par["plain_values"][0]),
+                               ("greedy_vprime", res["reduced"].value,
+                                par["plain_values"][1])):
+        if par[what] and (what == "greedy_v" or par["vprime"]):
+            check(abs(float(value) - plain) <= TOL[torch.float32] * abs(plain),
+                  f"video {what}: f(S) {float(value)} vs plain {plain}")
+    for what, note in notes.items():
+        print(f"video, kernel vs plain route, {what}: {note}", flush=True)
+    f1 = res["f1"]
+    check(all(0.0 <= v <= 1.0 for v in f1.values()) and math.isfinite(res["relative"])
+          and 0 < res["vprime_size"] < EX_FRAMES, "video: a result is out of range")
+    return {"frames": EX_FRAMES, "k": k, "vprime": res["vprime_size"],
+            "relative": res["relative"], "f1": f1, "greedy_s": res["t_full"],
+            "ss_greedy_s": res["t_ss"], "routes": {w: par[w] for w in (
+                "vprime", "greedy_v", "greedy_vprime")},
+            "near_ties": notes, "wall_s": res["wall_s"], "launches": launches}
+
+
+def _ex_kv(argv: tuple, serve: bool, errs: dict) -> dict:
+    """``serve_kv_pruning_torch.py`` (its assert: the service keeps the
+    positions ``prune_kv`` keeps, kernel against kernel); ``serve``: its
+    parameters (qwen2-7b at full width and depth) then serve the LM main
+    path (``_serve``: TTFT, decode, peaks), are held to the plain attention
+    route at every step (``_plain_route``) and give the flash kernels their
+    shape (``_flash_at_shape``)."""
+    from repro_torch.kernels import flash_route
+    from repro_torch.models.layers import dtype_of, tree_leaves
+
+    res, launches = _example("serve_kv_pruning_torch", ["--device", "cuda", *argv])
+    cfg = res["cfg"]
+    n_attn = cfg.num_layers
+    tc = n_attn if flash_route(dtype_of(cfg.compute_dtype), cfg.head_dim) == "tc" else 0
+    _ex_launched(f"KV {cfg.name}", launches,
+                 ("ss_divergence", "feature_gains", "flash_attention"),
+                 ("flash_attention_bwd",))
+    check(launches["flash_attention"] == n_attn and launches["flash_attention_tc"] == tc,
+          f"KV {cfg.name}: {launches['flash_attention']} flash launches "
+          f"({launches['flash_attention_tc']} tensor-core), not one a layer of the "
+          f"prefill ({n_attn}, {tc} tensor-core)")
+    for name in ("ref", "out_ss", "out_random"):
+        check(bool(torch.isfinite(res[name]).all()), f"KV {cfg.name}: {name} not finite")
+    out = {"arch": cfg.name, "head_dim": cfg.head_dim, "dtype": cfg.compute_dtype,
+           "prompt": int(res["tokens"].shape[1]), "budget": int(res["kept"].shape[1]),
+           "vprime": [r.vprime_size for r in res["responses"]],
+           "distinct_kept": [len(set(row.tolist())) for row in res["kept"]],
+           "mse_ss": res["mse_ss"], "mse_random": res["mse_random"],
+           "agree_ss": res["agree_ss"], "agree_random": res["agree_random"],
+           "wall_s": res["wall_s"], "launches": launches}
+    if not serve:
+        return out
+    params = res["params"]
+    res.clear()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    S = out["prompt"]
+    run = _serve(cfg, params, EX_KV_B, S, EX_KV_NEW)
+    seen = []
+    rel = _plain_route(cfg, params, run["prompts"], run["toks"], run["step_logits"],
+                       run["sc"].max_len, seen)
+    out.update({k_: run[k_] for k_ in ("prefill_ms", "ttft_ms", "decode_ms_per_step",
+                                       "tokens_per_s", "peak_gib", "prefill_peak_gib",
+                                       "decode_peak_gib")}, plain_rel=rel,
+               params=sum(t_.numel() for t_ in tree_leaves(params)))
+    del run
+    q, k, v = seen.pop()
+    out["flash_at_shape"] = _flash_at_shape(cfg, q, k, v, 0, errs)
+    del q, k, v, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ex_train() -> dict:
+    """``train_lm_ss_torch.py --steps 100``, both selections, on the FFMA
+    flash kernels (float32 at head_dim 32) forward and backward; SS keeps
+    each pool of 32 whole (``ss_divergence`` never launched), greedy on the
+    pool launches ``feature_gains``; the loss falls."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_example_")
+    try:
+        res, launches = _example("train_lm_ss_torch", [
+            "--device", "cuda", "--steps", str(EX_TRAIN_STEPS), "--ckpt-root", root])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _ex_launched("train example", launches,
+                 ("feature_gains", "flash_attention", "flash_attention_bwd"),
+                 ("ss_divergence", "flash_attention_tc", "flash_attention_bwd_tc"))
+    out = {"steps": EX_TRAIN_STEPS, "wall_s": res.pop("wall_s"),
+           "launches": res.pop("launches")}
+    for sel, r in res.items():
+        check(r["config"].head_dim == 32 and r["steps_done"] == EX_TRAIN_STEPS,
+              f"train example [{sel}]: not the head_dim-32 config or not every step")
+        losses = [h["loss"] for h in r["history"]]
+        check(all(map(math.isfinite, losses + [r["eval"]])) and losses[-1] < losses[0],
+              f"train example [{sel}]: the loss did not fall ({losses})")
+        out[sel] = {"losses": {h["step"]: h["loss"] for h in r["history"]},
+                    "train": r["train"], "eval": r["eval"]}
+    return out
+
+
+def examples_phase(errs: dict) -> dict:
+    """The three examples through their own ``main`` on a freed card
+    (``_ex_video``; ``_ex_kv`` on the smoke config at head_dim 32, on
+    qwen2-7b at full size, and on it again at the reference's budget 256;
+    ``_ex_train``), each kernel's launches counted from 0 for each; every
+    failure fails the run."""
+    t0 = time.perf_counter()
+    out = {"card": CARD[0]}
+    torch.cuda.empty_cache()
+    out["video"] = _ex_video()
+    out["kv_smoke"] = _ex_kv(("--config", "smoke"), False, errs)
+    torch.cuda.empty_cache()
+    out["kv_full"] = _ex_kv(EX_KV_FULL, True, errs)
+    out["kv_full_256"] = _ex_kv(EX_KV_FULL_256, False, errs)
+    torch.cuda.empty_cache()
+    out["train"] = _ex_train()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"examples phase: {out['phase_s']:.2f} s", flush=True)
+    return out
+
+
 # -- the roofline: each timed LM step beside its counted bound -----------------
 
 # (arch, kind, batch, sequence): the steps the script times, at their own
 # shapes: the prefill and a decode step of each served model (the decode
-# against a cache of the prompt's depth), the train step of each trained
-# one (AdamW, remat "nothing", µ = 1, as run).
+# against a cache of the prompt's depth; qwen2-7b's from the examples
+# phase), the train step of each trained one (AdamW, remat "nothing", µ = 1,
+# as run).
 ROOFLINE_CELLS = tuple(
     [(LM_ARCH, kind, LM_B, LM_S) for kind in ("prefill", "decode")]
     + [(arch, kind, B, S) for arch, B, S in FAMILIES for kind in ("prefill", "decode")]
-    + [(arch, "train", B, S) for arch, B, S, _ in TRAIN_RUNS])
+    + [(arch, "train", B, S) for arch, B, S, _ in TRAIN_RUNS]
+    + [("qwen2-7b", kind, EX_KV_B, int(EX_KV_FULL[3])) for kind in ("prefill", "decode")])
 ROOFLINE_SHARE_MAX = 1.05   # a step faster than its bound: the count is wrong
 PEAK_TOL = 0.25             # the counted peak against max_memory_allocated
 PROCS: list = []            # (process, output file) the script starts, cleared at its end
@@ -5392,11 +5625,12 @@ def start_counter() -> tuple:
     return proc, path
 
 
-def roofline_phase(counter: tuple, lm: dict, families: dict, training: dict) -> dict:
+def roofline_phase(counter: tuple, lm: dict, families: dict, training: dict,
+                   examples: dict) -> dict:
     """Each step of ``ROOFLINE_CELLS`` beside its bound: the counter's
     records (``start_counter``) with the times and peaks that the LM phases
-    measured (``_serve``'s prefill and decode, ``_train_main``'s median
-    step); nothing more runs on the card.  Each line: the bound and what
+    measured (``_serve``'s prefill and decode, qwen2-7b's in the examples
+    phase, ``_train_main``'s median step); nothing more runs on the card.  Each line: the bound and what
     binds it, mfu (the model's FLOPs over the bf16 peak for the measured
     time), the share (bound / measured) and the counted peak against
     ``max_memory_allocated``.  Fails if a share exceeds
@@ -5419,6 +5653,9 @@ def roofline_phase(counter: tuple, lm: dict, families: dict, training: dict) -> 
     for arch, *_ in TRAIN_RUNS:
         tr = training["train"][arch]
         measured[arch, "train"] = (tr["step_ms_median"], tr["peak_gib"])
+    kv = examples["kv_full"]
+    measured["qwen2-7b", "prefill"] = (kv["prefill_ms"], kv["prefill_peak_gib"])
+    measured["qwen2-7b", "decode"] = (kv["decode_ms_per_step"], kv["decode_peak_gib"])
     rows, bad = [], []
     for rec, (arch, kind, B, S) in zip(recs, ROOFLINE_CELLS, strict=True):
         ms, peak_gib = measured[arch, kind]
@@ -5588,9 +5825,18 @@ def main() -> int:
     bwd_record, training = train_phase(errs)
     mark("train_phase")
     records.append(bwd_record)
-    # 16. each timed LM step beside its bound (nothing more on the card)
+    # 16. the examples through their own main: the video at 9721 frames, KV
+    # pruning on qwen2-7b (smoke, full size at budgets 512 and 256),
+    # SS-selected training
+    examples = examples_phase(errs)
+    mark("examples_phase")
+    for r_ in records:
+        r_["examples"] = {ex: v["launches"].get(r_["name"], 0)
+                          for ex, v in examples.items() if isinstance(v, dict)}
     flash = next(r_ for r_ in records if r_["name"] == "flash_attention")
-    roof = roofline_phase(counter, flash["lm_path"], families, training)
+    flash["at_qwen2_7b"] = examples["kv_full"]["flash_at_shape"]
+    # 17. each timed LM step beside its bound (nothing more on the card)
+    roof = roofline_phase(counter, flash["lm_path"], families, training, examples)
     mark("roofline_phase")
     # the lanes and the KV path held the kernels to their plain versions
     # after the records were made
@@ -5604,6 +5850,7 @@ def main() -> int:
 
     print(json.dumps({"lm_families": families}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"examples": examples}))
     print(json.dumps({"roofline": roof}))
     print(f"chip_smoke: {time.perf_counter() - T0[0]:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))

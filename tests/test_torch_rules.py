@@ -46,9 +46,12 @@ def _port_files():
     assert {"obs/__init__.py", "obs/events.py", "obs/metrics.py", "obs/trace.py",
             "serve/faults.py", "serve/summarize_service.py", "serve/wal.py",
             "serve/sessions.py", "api.py", "launch/mesh.py", "launch/steps.py",
-            "launch/cost.py", "launch/roofline.py", "launch/dryrun.py"} <= rel
-    return files + [ROOT / "chip_smoke.py", ROOT / "chip_peak_probe.py",
-                    ROOT / "examples" / "quickstart_torch.py"]
+            "launch/cost.py", "launch/roofline.py", "launch/dryrun.py",
+            "configs/paper_ss.py", "data/video_eval.py"} <= rel
+    return files + [ROOT / "chip_smoke.py", ROOT / "chip_peak_probe.py"] + [
+        ROOT / "examples" / f"{name}_torch.py"
+        for name in ("quickstart", "video_summarize", "serve_kv_pruning",
+                     "train_lm_ss")]
 
 
 def _imported_roots(path: Path) -> set[str]:
