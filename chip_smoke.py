@@ -28,11 +28,16 @@ the plain path, times each kernel at the path's shapes beside its bound and
 its plain version, and profiles the path.  On each SS path's objective at
 full size it also runs stochastic greedy over V' and over V (k = 32, s from
 the live count: the gains kernel once a step), and on FeatureCoverage lazy
-greedy over the first eighth of V and over V' (every evaluation through
+greedy over the first sixteenth of V and over V' (every evaluation through
 the kernel, f(S) equal to greedy's on the same set); the §3.4 post-reduction runs after SS on a 2^16-sentence news
 day.  At n = 4096 the three objectives hold stochastic and lazy greedy to
 the plain backend and ``postreduce`` on the card to the host under the same
-draws, and ``examples/quickstart_torch.py`` runs on the card.  After each
+draws, and ``examples/quickstart_torch.py`` runs on the card.  At the end
+of each SS path ``summarize_sharded`` runs on the path's own objective at
+one rank over NCCL (``sharded_one_rank``), and after path B four ranks of
+this script share the card over gloo and hold the kernel route to the
+plain route (``sharded_phase``; ``--sharded-rank R STORE OUT`` is one of
+them).  After each
 path's selectors the streaming baseline, sieve streaming (k = 32, the
 legacy 50 thresholds; on FeatureCoverage also eps = 0.1), runs at full size
 in exact chunks over its gain-table kernel ``sieve_gains``: the card's
@@ -40,7 +45,7 @@ decisions are held to the plain table's (full size on FeatureCoverage,
 n = 4096 on all three, where one shot, two halves and per-element updates
 agree bit for bit; on path B at full size an element's similarity column
 is checked to have one set of bits wherever it sits in its block), and the
-row sieve runs over 2^14 rows against the index sieve.  Each path's
+row sieve runs over 2^12 rows against the index sieve.  Each path's
 ``sieve_gains`` launches in the legacy run are recorded as a histogram of
 (sieves, columns, columns due from the starts), and the sieve's kernels
 timed on that mix (profiler); ``sieve_gains`` is timed at each path's
@@ -144,7 +149,8 @@ enqueue takes at least half of it, so that the events time the card alone.
 The last lines of its output are JSON: the block types' figures
 (``lm_families``), training's (``training``), the examples'
 (``examples``), the steps' bounds
-(``roofline``), the kernels' records (nine), then ``{"ok": true,
+(``roofline``), the sharded phase's (``sharded``), the kernels' records
+(nine), then ``{"ok": true,
 "device": {...}}``.  Any failure raises before them, and the
 script exits non-zero without a CUDA device or outside a checkout.
 
@@ -785,8 +791,9 @@ def stochastic_phase(label: str, fn, ss, full, wall_full: float, kernel,
 
 # Lazy greedy's ground set on FeatureCoverage: the first LAZY_PREFIX of the
 # 2^20 sentences (on all of V it re-evaluates about 395000 times, one
-# launch each, for about a minute; an eighth takes about an eighth).
-LAZY_PREFIX = N // 8
+# launch each, for about a minute; an eighth took 12.1 s).  A sixteenth
+# since the sharded phase came, to keep the script within its time.
+LAZY_PREFIX = N // 16
 
 
 def lazy_phase(fn, ss, res) -> dict:
@@ -883,7 +890,8 @@ def profile_run(label: str, call, watch: tuple[str, ...] = (), top: int = 8) -> 
     own, and would count them twice) against the synchronised wall, and for
     each string of ``watch`` the total of the kernels whose names hold it,
     or for an operator ("aten::...") the device time of the kernels it
-    launched."""
+    launched.  (Without CPU activity the profiler records no NCCL kernel
+    on the card.)"""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
@@ -1179,6 +1187,11 @@ def fc_path(errs: dict) -> list[dict]:
           "(host clock, synchronised)")
     profile_summarize("FeatureCoverage", fn,
                       ("ss_divergence", "ss_probe", "feature_gains"))
+    # the sharded phase's part (a): the same objective at one rank over NCCL
+    SHARDED["FeatureCoverage"] = sharded_one_rank(
+        "FeatureCoverage", fn, full, wall_ss + wall_gr,
+        {"ss_divergence": ss_divergence_kernel, "feature_gains": feature_gains_kernel},
+        0.95)
 
     # the paper's other selectors at full size, on the same objective
     records[1]["stochastic"] = stochastic_phase(
@@ -1670,16 +1683,17 @@ def sieve_small() -> None:
 
 
 def row_sieve_phase(fn) -> dict:
-    """The row sieve over the first 2^14 rows of FeatureCoverage's W at eps
+    """The row sieve over the first 2^12 rows of FeatureCoverage's W at eps
     = 0.2, one row per ``stream_sieve_update``: µs per update (host clock,
     synchronised, over the whole stream), and the same picks as the index
-    sieve over the same elements."""
+    sieve over the same elements.  (2^14 rows took 39 s at 2.4 ms an
+    update; cut since the sharded phase came.)"""
     from repro_torch import (
         sieve_best, sieve_extend, sieve_init, stream_sieve_best, stream_sieve_init,
         stream_sieve_update,
     )
 
-    n, eps = min(1 << 14, fn.n), 0.2
+    n, eps = min(1 << 12, fn.n), 0.2
     rows = fn.W[:n]
 
     def run():
@@ -1949,7 +1963,7 @@ def _fl_drive(label: str, fn, kernels: dict) -> tuple:
     ref = greedy(fn, K, alive=ss.vprime, backend="reference")
     check(torch.equal(ref.selected, res.selected),
           f"{label}: greedy on V' through the plain backend picks another set")
-    return full, res, ss, counts, rel, wall_full
+    return full, res, ss, counts, rel, wall_full, wall_sum
 
 
 def _round1(fn, residual):
@@ -2019,7 +2033,7 @@ def fl_dense_path(errs: dict) -> list[dict]:
           f"similarity ({N_A} x {N_A} float32) on the card in "
           f"{time.perf_counter() - t:.2f} s", flush=True)
     kernels = {"fl_divergence": fl_divergence_kernel, "fl_gains": fl_gains_kernel}
-    full, res, ss, counts, rel, wall_full = _fl_drive("path A", fn, kernels)
+    full, res, ss, counts, rel, wall_full, wall_sum = _fl_drive("path A", fn, kernels)
     # greedy over V' copies V''s columns once (a panel) and reads it K times
     check(counts["summarize"]["panel_gathers"] == 1
           and counts["greedy_on_V"]["panel_gathers"] == 0,
@@ -2101,6 +2115,7 @@ def fl_dense_path(errs: dict) -> list[dict]:
           flush=True)
     profile_summarize("path A", fn, ("fl_gains_rows", "aten::index_select"))
     check(rel >= 0.95, f"path A: relative quality {rel} < 0.95")
+    SHARDED["path A"] = sharded_one_rank("path A", fn, full, wall_sum, kernels, 0.95)
     stochastic = stochastic_phase("path A", fn, ss, full, wall_full,
                                   fl_gains_kernel, panel=True)
     SIEVE["path A"] = sieve_path("path A", fn, full, wall_full)
@@ -2155,7 +2170,7 @@ def fl_stream_path(errs: dict) -> list[dict]:
           f"{t_host:.2f} s", flush=True)
     kernels = {"fl_stream_divergence": fl_stream_divergence_kernel,
                "fl_stream_gains": fl_stream_gains_kernel}
-    full, res, ss, counts, rel, wall_full = _fl_drive("path B", fn, kernels)
+    full, res, ss, counts, rel, wall_full, wall_sum = _fl_drive("path B", fn, kernels)
     check(counts["summarize"]["panel_gathers"] == 0, "path B gathered a panel")
 
     # main-path shapes against plain.  A full-width plain round 1 would take
@@ -2232,6 +2247,7 @@ def fl_stream_path(errs: dict) -> list[dict]:
           f"{counts['summarize']['fl_stream_gains']} launches in summarize; "
           "library none", flush=True)
     profile_summarize("path B", fn, ("fl_stream_gains",))
+    SHARDED["path B"] = sharded_one_rank("path B", fn, full, wall_sum, kernels, 0.93)
     stochastic = stochastic_phase("path B", fn, ss, full, wall_full,
                                   fl_stream_gains_kernel)
     SIEVE["path B"] = sieve_path("path B", fn, full, wall_full)
@@ -2239,14 +2255,15 @@ def fl_stream_path(errs: dict) -> list[dict]:
     # SS's quality at r = c = 8 falls as this data set grows, in the JAX
     # reference as in the port (they prune alike under the same draws,
     # tests/test_torch_fl_summarize.py), and at 2^18 it sits below the 0.95
-    # of path A.  Measure it over seeds and sizes; hold each run to 0.93.
+    # of path A.  Measure it at a second seed and at 2^16 (seed 2 and 2^17
+    # were cut for the sharded phase's time); hold each run to 0.93.
     rels = {"n=2^18 seed 0": rel}
-    for seed in (1, 2):
+    for seed in (1,):
         res_s, _ = summarize(fn, K, torch.Generator(device="cuda").manual_seed(seed),
                              r=R, c=C)
         rels[f"n=2^18 seed {seed}"] = float(res_s.value) / float(full.value)
     del fn
-    for log_n in (16, 17):
+    for log_n in (16,):
         fn_n = StreamingFacilityLocation.from_features(
             torch.from_numpy(clustered_embeddings(0, 1 << log_n, D_B)).cuda(), "dot")
         res_n, _ = summarize(fn_n, K, torch.Generator(device="cuda").manual_seed(0),
@@ -2278,6 +2295,420 @@ def fl_stream_path(errs: dict) -> list[dict]:
                         "launches": counts["greedy_on_V"]["fl_stream_gains"]},
          "ptxas": gains_ptxas, "stochastic": stochastic},
     ]
+
+
+# -- sharded SS and greedy over torch.distributed -----------------------------
+
+SHARDED: dict = {}     # part (a) of each SS path, then part (b) (sharded_phase)
+SHARDED_RANKS = 4
+# part (b)'s sizes: each of four ranks on the one card holds a quarter
+SH_N, SH_N_A, SH_N_B = 1 << 18, 1 << 14, 1 << 16
+
+
+@contextlib.contextmanager
+def _one_rank_group():
+    """A one-rank NCCL group in this process (a HashStore: no address),
+    destroyed on the way out."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_counts(kernels: dict) -> None:
+    from repro_torch.core import distributed as dd
+
+    for kern in kernels.values():
+        kern.launches = 0
+    dd.ss_sparsify_sharded.host_reads = 0
+    dd._select_sharded.host_reads = 0
+    for key in dd.COUNTS:
+        dd.COUNTS[key] = 0
+
+
+def _frame_gains(comm, gains, loc_counts) -> torch.Tensor:
+    """The gains of every shard's live candidates, gathered, in ground
+    order: (live,)."""
+    allg = comm.all_gather(gains.float().contiguous())
+    return torch.cat([allg[s, :c] for s, c in enumerate(loc_counts)])
+
+
+def _explain_picks(label: str, fn, cand, k: int, routes: dict) -> str:
+    """Step two greedy routes in lockstep (the first route's state) over the
+    live candidates ``cand`` (ground order) to the first argmax they take
+    differently, and bound it in float64 (``_margin``); raises where no
+    decision differs.  Each route maps a state to the gains of ``cand``."""
+    from repro_torch.core.greedy import NEG
+
+    st = fn.empty_state()
+    avail = torch.ones(cand.shape[0], dtype=torch.bool, device=cand.device)
+    for i in range(k):
+        a, b = (int(torch.argmax(torch.where(avail, route(st), NEG)))
+                for route in routes.values())
+        if a != b:
+            t, mag = _f64_pair(fn, st.double()[None], cand[[a, b]])
+            vals = t[0].sum(-1)
+            return _margin(label, f"greedy step {i}, the argmax ({' vs '.join(routes)})",
+                           int(cand[a]), int(cand[b]),
+                           (float(vals[0]), float(_f64_bound(mag[0, 0]))),
+                           (float(vals[1]), float(_f64_bound(mag[0, 1]))))
+        st = fn.add(st, cand[a])
+        avail[a] = False
+    fail(f"{label}: the routes pick other elements, but no decision differs in "
+         "lockstep")
+    return ""
+
+
+def _sharded_taken(view, vprime, comm, c: float = C):
+    """A shard's compact frame of ``vprime`` as the selection loop builds
+    it: (the taken view, the shards' live counts)."""
+    from repro_torch.core.greedy import compact_indices
+    from repro_torch.core.sparsify import bucket_schedule
+
+    n_loc = view.local_n()
+    counts = vprime.reshape(comm.size, n_loc).sum(1).tolist()
+    fits = [b for b in bucket_schedule(n_loc, c, tile=8) if b >= max(counts)]
+    lo = comm.index * n_loc
+    lidx = compact_indices(vprime[lo:lo + n_loc], min(fits) if fits else n_loc)
+    return view.shard_take(lidx), counts
+
+
+def sharded_one_rank(label: str, fn, full, dense_wall: float, kernels: dict,
+                     bar: float) -> dict:
+    """Part (a) of the sharded phase on a path's own objective at full
+    size: ``summarize_sharded`` at one rank over NCCL in this process (the
+    view is the objective's own tensor: no copy), beside the path's dense
+    summarize.  Checks the relative value against greedy on V (``bar``), one
+    divergence launch a round and K gains launches, and that sharded greedy
+    over V' picks what dense greedy over V' picks (a differing pick shown a
+    near tie in float64); prints the synchronised wall, the collectives'
+    device time (profiler), the host reads a round and the peak."""
+    from repro_torch import greedy, summarize_sharded
+    from repro_torch.core import CudaBackend, distributed as dd
+    from repro_torch.core.greedy import compact_indices, selection_bucket
+    from repro_torch.launch.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with _one_rank_group():
+        mesh = make_mesh((1,), ("data",), "cuda")
+        view = fn.shard(mesh, ("data",))
+        own = {"FeatureCoverage": "W", "path A": "sim", "path B": "X"}[label]
+        check(getattr(view, own).data_ptr() == getattr(fn, own).data_ptr(),
+              f"{label}: the one-rank view copied the objective")
+        gen = torch.Generator(device="cuda")
+
+        def run():
+            return summarize_sharded(view, K, mesh, gen.manual_seed(0), r=R, c=C)
+
+        # NCCL makes its communicator at the first collective: not in the wall
+        torch.distributed.all_reduce(torch.zeros(1, device="cuda"))
+        _sharded_counts(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        (res, ss), wall = _synced(run)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launches = {name: kern.launches for name, kern in kernels.items()}
+        reads = {"ss": dd.ss_sparsify_sharded.host_reads,
+                 "greedy": dd._select_sharded.host_reads}
+        colls = dict(dd.COUNTS)
+        div_name, gains_name = kernels
+        nv = int(ss.vprime.sum())
+        rel = float(res.value) / float(full.value)
+        check(launches[div_name] == ss.rounds and launches[gains_name] == K,
+              f"{label} sharded: launches {launches}, want {ss.rounds} "
+              f"{div_name} (one a round at one rank) and {K} {gains_name}")
+        check(reads["ss"] == ss.rounds + 1 and reads["greedy"] == 1,
+              f"{label} sharded: host reads {reads}, want one a round (+1) and one")
+        check(colls["staged"] == 0, f"{label} sharded: NCCL staged {colls['staged']}")
+        check(0 < nv < fn.n and ss.rounds > 0, f"{label} sharded: SS pruned nothing or all")
+        check(rel >= bar, f"{label} sharded: relative value {rel} < {bar}")
+        # dense greedy over the same V' on the card
+        dense = greedy(fn, K, alive=ss.vprime)
+        note = "the same picks"
+        if not torch.equal(dense.selected, res.selected):
+            size = selection_bucket(fn.n, nv)
+            cands = CudaBackend().prepare_compact(fn, compact_indices(ss.vprime, size))
+            comm = dd.Collectives(mesh, ("data",))
+            ctx = view.shard_init(comm)
+            taken, counts = _sharded_taken(view, ss.vprime, comm)
+            note = _explain_picks(label, fn, torch.nonzero(ss.vprime).flatten(), K, {
+                "dense": lambda st: CudaBackend().gains_compact(fn, st, cands)[:nv],
+                "sharded": lambda st: _frame_gains(
+                    comm, CudaBackend().shard_gains(taken, st, ctx), counts)})
+        t = time.perf_counter()
+        prof = profile_run(f"{label} summarize_sharded (1 rank, NCCL)", run,
+                           ("nccl",))
+        prof["profile_s"] = time.perf_counter() - t
+    trace = [int(x) for x in ss.alive_trace if x >= 0]
+    phase_s = time.perf_counter() - t0
+    print(f"{label} summarize_sharded, 1 rank over NCCL: |V'| = {nv}, rounds = "
+          f"{ss.rounds}, eps_hat = {float(ss.eps_hat):.6f}, f(S') = "
+          f"{float(res.value):.6f}, relative = {rel:.6f} (bar {bar}); wall "
+          f"{wall:.4f} s (the path's dense summarize: {dense_wall:.4f} s); launches "
+          f"{json.dumps(launches)}; host reads: SS {reads['ss']} over {ss.rounds} "
+          f"rounds (one a round, one at the exit), greedy {reads['greedy']}; "
+          f"collectives {json.dumps(colls)}; peak {peak:.2f} GiB; dense greedy "
+          f"over V': {note}; live counts {trace}; this part {phase_s:.2f} s "
+          f"(the profiled run {prof['profile_s']:.2f} s)",
+          flush=True)
+    return {"vprime": nv, "rounds": ss.rounds, "eps_hat": float(ss.eps_hat),
+            "trace": trace, "phase_s": phase_s,
+            "relative": rel, "bar": bar, "wall_s": wall, "dense_wall_s": dense_wall,
+            "launches": launches, "host_reads": reads, "collectives": colls,
+            "peak_gib": peak, "dense_greedy_over_vprime": note,
+            "nccl_device_ms": prof.get("watched_ms", {}).get("nccl"),
+            "profile": prof}
+
+
+def _sharded_objectives() -> dict:
+    """Part (b)'s objectives, each whole on this rank's card."""
+    from repro_torch import (
+        FeatureCoverage, StreamingFacilityLocation, clustered_embeddings,
+        facility_location_from_features, feature_coverage_from_numpy, news_day, video,
+    )
+
+    W = feature_coverage_from_numpy(news_day(0, SH_N, F)).W
+    return {
+        "news sqrt": FeatureCoverage(W=W),
+        "news satcov": FeatureCoverage(W=W, phi="satcov", alpha=0.3),
+        "path A": facility_location_from_features(video(0, SH_N_A, F_A), "cosine"),
+        "path B": StreamingFacilityLocation.from_features(
+            torch.from_numpy(clustered_embeddings(0, SH_N_B, D_B)).to("cuda"), "dot"),
+    }
+
+
+def _explain_sharded_ss(label: str, fn, view, mesh, noise, bins: int = 512) -> str:
+    """Step sharded SS on the kernel route and the plain route in lockstep
+    on every rank (the kernel route's state, the same draws) to the first
+    round whose prune they cut differently, and show in float64 that the
+    element that flips lies within float32 rounding of the cut: of the bin
+    edge it crosses where the routes' histograms differ, else of the
+    routes' thresholds.  Raises where it does not, or where no cut
+    differs.  ``fn`` is the whole objective (for the float64 values)."""
+    from repro_torch.core import CudaBackend, ReferenceBackend, distributed as dd
+    from repro_torch.core.greedy import NEG, compact_indices
+    from repro_torch.core.sparsify import (
+        INF, _scatter_min, bucket_schedule, max_rounds, probe_count,
+    )
+
+    comm = dd.Collectives(mesh, ("data",))
+    n_loc = view.local_n()
+    n, first = n_loc * comm.size, comm.index * n_loc
+    m = min(probe_count(n, R), n)
+    shrink = torch.tensor(1.0 - 1.0 / math.sqrt(C), dtype=torch.float32, device="cuda")
+    buckets = bucket_schedule(n_loc, C, tile=8)
+    ctx = view.shard_init(comm)
+    resid = view.shard_residuals(ctx).float()
+    resid_all = comm.all_gather(resid).reshape(-1)
+    routes = {"cuda": CudaBackend(), "reference": ReferenceBackend()}
+    alive = torch.ones(n_loc, dtype=torch.bool, device="cuda")
+    div = {k: torch.full((n_loc,), INF, device="cuda") for k in routes}
+    slots = torch.arange(n_loc, device="cuda")
+    zero = fn.empty_state()
+    probes_all = []
+
+    def div64(v):
+        allp = torch.cat(probes_all)
+        t, mag = _f64_pair(fn, _f64_mu(fn, allp, zero), torch.tensor([v], device="cuda"))
+        w = t.sum(-1)[:, 0] - resid_all.double()[allp]
+        u = int(torch.argmin(w))
+        return float(w[u]), float(_f64_bound(mag[u, 0]))
+
+    for rnd in range(max_rounds(n, R, C)):
+        if int(comm.all_reduce(alive.sum().to(torch.int32), "sum")) <= m:
+            break
+        g = noise[rnd] + torch.where(alive, 0.0, NEG)
+        probes, last, loc_idx, top_pos = dd._propose(view, comm, g, m, min(m, n_loc),
+                                                     resid, None)
+        ids = comm.all_gather((loc_idx + first).to(torch.int32)).reshape(-1)
+        probes_all.append(ids[top_pos].long())
+        alive &= ~(g >= last)
+        left = comm.all_gather(alive.sum().to(torch.int32)).tolist()
+        size = min(b for b in buckets if b >= max(left))
+        cut = {}
+        for k, be in routes.items():
+            if size >= n_loc:
+                div[k] = torch.minimum(div[k], be.shard_divergence(
+                    view, probes[:, :-2], probes[:, -1], ctx))
+            else:
+                cand = compact_indices(alive, size)
+                w = be.shard_divergence(view, probes[:, :-2], probes[:, -1], ctx, cand)
+                div[k] = _scatter_min(div[k], w, cand, left[comm.index], slots)
+            cut[k] = dd._cut(comm, div[k], alive, bins, shrink)
+        rm = {k: alive & (div[k] < cut[k][0]) for k in routes}
+        differs = comm.all_reduce((rm["cuda"] != rm["reference"]).any().to(torch.int32)
+                                  .reshape(1), "max")
+        if int(differs[0]):
+            (tk, lo, width, hk), (tp, _, _, hp) = cut["cuda"], cut["reference"]
+            flips = torch.nonzero(rm["cuda"] != rm["reference"]).flatten().tolist()
+            notes = []
+            if not torch.equal(hk, hp):
+                # a bin count moved: the elements whose bin differs sit on an edge
+                bk = ((div["cuda"] - lo) / width * bins).to(torch.int32)
+                bp = ((div["reference"] - cut["reference"][1]) / cut["reference"][2]
+                      * bins).to(torch.int32)
+                flips = torch.nonzero(alive & (bk != bp)).flatten().tolist()
+                for j in flips[:1]:
+                    edge = float(lo) + float(width) * max(int(bk[j]), int(bp[j])) / bins
+                    x, b = div64(first + j)
+                    gap = abs(x - edge)
+                    check(gap <= b + abs(float(tk) - float(tp)) + 4 * 2**-24 * abs(edge),
+                          f"{label}: SS round {rnd}: element {first + j} is {gap:.3g} "
+                          f"from bin edge {edge:.6g} in float64, above float32 "
+                          f"rounding {b:.3g}")
+                    notes.append(f"SS round {rnd}: element {first + j}'s bin differs; "
+                                 f"its float64 divergence is {gap:.3g} from the edge, "
+                                 f"within float32 rounding {b:.3g}")
+            else:
+                for j in flips[:1]:
+                    x, b = div64(first + j)
+                    lo_t, hi_t = sorted((float(tk), float(tp)))
+                    gap = max(lo_t - x, x - hi_t, 0.0)
+                    check(gap <= b, f"{label}: SS round {rnd}: element {first + j} "
+                          f"is {gap:.3g} outside the cut [{lo_t:.6g}, {hi_t:.6g}] in "
+                          f"float64, above float32 rounding {b:.3g}")
+                    notes.append(f"SS round {rnd}: element {first + j} flips at the "
+                                 f"cut; float64 {gap:.3g} from it, within float32 "
+                                 f"rounding {b:.3g}")
+            return "; ".join(notes) or f"SS round {rnd}: the cut differs on another rank"
+        alive &= ~rm["cuda"]
+    fail(f"{label}: the routes keep other V', but no cut differs in lockstep")
+    return ""
+
+
+def sharded_rank(rank: int, store: str, out: str) -> None:
+    """One of part (b)'s four ranks, each on the one card (gloo; every
+    collective's tensors staged through the host, by ``staged``): on each
+    objective, ``summarize_sharded`` on the kernel route and on the plain
+    route under the same draws; V', rounds, the trace, eps_hat (within TOL)
+    and the picks must agree, or the first decision that differs is shown a
+    near tie in float64.  Writes its figures to ``out`` (JSON)."""
+    import torch.distributed as dist
+
+    from repro_torch import summarize_sharded
+    from repro_torch.core import CudaBackend, ReferenceBackend, distributed as dd
+    from repro_torch.core.greedy import fold_in, gumbel
+    from repro_torch.core.sparsify import max_rounds
+    from repro_torch.kernels import (
+        feature_gains_kernel, fl_divergence_kernel, fl_gains_kernel,
+        fl_stream_divergence_kernel, fl_stream_gains_kernel, load_library,
+        ss_divergence_kernel,
+    )
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    load_library()
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=SHARDED_RANKS)
+    mesh = make_mesh((SHARDED_RANKS,), ("data",), "cpu")
+    fc = {"ss_divergence": ss_divergence_kernel, "feature_gains": feature_gains_kernel}
+    kernels = {"news sqrt": fc, "news satcov": fc,
+               "path A": {"fl_divergence": fl_divergence_kernel,
+                          "fl_gains": fl_gains_kernel},
+               "path B": {"fl_stream_divergence": fl_stream_divergence_kernel,
+                          "fl_stream_gains": fl_stream_gains_kernel}}
+    record = {}
+    for label, fn in _sharded_objectives().items():
+        view = fn.shard(mesh, ("data",))
+        n_loc = view.local_n()
+        gen = torch.Generator(device="cuda").manual_seed(fold_in(0, rank))
+        noise = torch.stack([gumbel(n_loc, gen, "cuda")
+                             for _ in range(max_rounds(fn.n, R, C))])
+        runs = {}
+        for route, be in (("cuda", CudaBackend()), ("reference", ReferenceBackend())):
+            _sharded_counts(kernels[label])
+            (res, ss), wall = _synced(lambda: summarize_sharded(
+                view, K, mesh, r=R, c=C, backend=be, noise=noise))
+            runs[route] = (res, ss, wall, {k: v.launches for k, v in kernels[label].items()},
+                           dict(dd.COUNTS))
+        (rk, sk, wk, lk, ck), (rp, sp, wp, lp, _) = runs["cuda"], runs["reference"]
+        div_name, gains_name = kernels[label]
+        check(lk[div_name] == sk.rounds and lk[gains_name] == K and not any(lp.values()),
+              f"{label} rank {rank}: launches {lk} on the kernel route (want "
+              f"{sk.rounds} and {K}), {lp} on the plain route (want none)")
+        note = "equal"
+        if not (torch.equal(sk.vprime, sp.vprime) and sk.rounds == sp.rounds
+                and torch.equal(sk.alive_trace, sp.alive_trace)):
+            note = _explain_sharded_ss(label, fn, view, mesh, noise)
+        else:
+            fin = sk.divergence < 1e29
+            ddiv = float((sk.divergence[fin] - sp.divergence[fin]).abs().max())
+            scale = max(1.0, float(sp.divergence[fin].abs().max()))
+            check(ddiv <= TOL[torch.float32] * scale and
+                  abs(float(sk.eps_hat) - float(sp.eps_hat)) <= ddiv,
+                  f"{label}: divergence err {ddiv} (scale {scale}), eps_hat "
+                  f"{float(sk.eps_hat)} vs {float(sp.eps_hat)}")
+            if not torch.equal(rk.selected, rp.selected):
+                comm = dd.Collectives(mesh, ("data",))
+                ctx = view.shard_init(comm)
+                taken, counts = _sharded_taken(view, sk.vprime, comm)
+                note = _explain_picks(label, fn, torch.nonzero(sk.vprime).flatten(), K, {
+                    route: (lambda st, be=be: _frame_gains(
+                        comm, be.shard_gains(taken, st, ctx), counts))
+                    for route, be in (("cuda", CudaBackend()),
+                                      ("reference", ReferenceBackend()))})
+        record[label] = {
+            "n": fn.n, "n_loc": n_loc, "vprime": int(sk.vprime.sum()),
+            "rounds": sk.rounds, "eps_hat": [float(sk.eps_hat), float(sp.eps_hat)],
+            "value": [float(rk.value), float(rp.value)],
+            "selected": rk.selected.tolist(), "wall_s": [wk, wp],
+            "launches": lk, "collectives": ck, "routes": note}
+    with open(out, "w") as fh:
+        json.dump(record, fh)
+    dist.destroy_process_group()
+
+
+def sharded_phase() -> dict:
+    """The sharded phase: part (a) ran at the end of each SS path
+    (``sharded_one_rank``); part (b) here: four ranks on the one card over
+    gloo, each a process of this script (``--sharded-rank``), which is
+    possible only in the card's Default compute mode.  A failing rank fails
+    the phase: its error is raised here."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"compute mode: {mode}", flush=True)
+    check(mode.splitlines()[0].strip() == "Default",
+          f"four processes share the card only in Default compute mode, not {mode}")
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(SHARDED_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--sharded-rank", str(r),
+             os.path.join(tmp, "store"), outs[r]], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "OMP_NUM_THREADS": "2"}) for r in range(SHARDED_RANKS)]
+        logs = []
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"sharded rank {r} failed:\n{log[-4000:]}")
+        recs = [json.load(open(o)) for o in outs]
+    for r, rec in enumerate(recs[1:], 1):
+        for label, v in rec.items():
+            check(v["selected"] == recs[0][label]["selected"]
+                  and v["vprime"] == recs[0][label]["vprime"],
+                  f"sharded rank {r} returned other results on {label}")
+    four = recs[0]
+    for label, v in four.items():
+        print(f"{label} summarize_sharded, 4 ranks on one card over gloo: n = "
+              f"{v['n']} ({v['n_loc']} a rank), |V'| = {v['vprime']}, rounds = "
+              f"{v['rounds']}, eps_hat {v['eps_hat'][0]:.6f} (plain "
+              f"{v['eps_hat'][1]:.6f}), f(S') {v['value'][0]:.6f} (plain "
+              f"{v['value'][1]:.6f}); wall {v['wall_s'][0]:.3f} s (plain "
+              f"{v['wall_s'][1]:.3f} s); rank 0 launches {json.dumps(v['launches'])}, "
+              f"collectives {json.dumps(v['collectives'])}; kernel route vs plain: "
+              f"{v['routes']}", flush=True)
+    SHARDED["four_ranks"] = four
+    SHARDED["four_ranks_s"] = time.perf_counter() - t0
+    SHARDED["compute_mode"] = mode
+    return SHARDED
 
 
 # -- flash attention and the LM serving path ----------------------------------
@@ -4227,28 +4658,11 @@ def _explain_greedy(label: str, fn, vprime, k: int) -> str:
     argmax they take differently and bound it in float64; raises where no
     decision differs or the gap exceeds float32 rounding."""
     from repro_torch.core import CudaBackend, ReferenceBackend
-    from repro_torch.core.greedy import NEG
 
-    kb, pb = CudaBackend(), ReferenceBackend()
     cand = torch.nonzero(vprime).flatten()
-    st = fn.empty_state()
-    avail = torch.ones(cand.shape[0], dtype=torch.bool, device="cuda")
-    for i in range(k):
-        gk = torch.where(avail, kb.gains_compact(fn, st, cand), NEG)
-        gp = torch.where(avail, pb.gains_compact(fn, st, cand), NEG)
-        a, b = int(torch.argmax(gk)), int(torch.argmax(gp))
-        if a != b:
-            t, mag = _f64_pair(fn, st.double()[None], cand[[a, b]])
-            vals = t[0].sum(-1)
-            return _margin(label, f"greedy step {i}, the argmax",
-                           int(cand[a]), int(cand[b]),
-                           (float(vals[0]), float(_f64_bound(mag[0, 0]))),
-                           (float(vals[1]), float(_f64_bound(mag[0, 1]))))
-        st = fn.add(st, cand[a])
-        avail[a] = False
-    fail(f"{label}: the routes keep other positions, but no decision differs in "
-         "lockstep")
-    return ""
+    return _explain_picks(label, fn, cand, k, {
+        route: (lambda st, be=be: be.gains_compact(fn, st, cand))
+        for route, be in (("cuda", CudaBackend()), ("reference", ReferenceBackend()))})
 
 
 def _explain_kv(label: str, fn, gen_seed: int, k: int) -> str:
@@ -5736,6 +6150,11 @@ def main() -> int:
         return 2
     T0[0] = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    if "--sharded-rank" in sys.argv:
+        # one rank of sharded_phase's part (b), started by the script itself
+        i = sys.argv.index("--sharded-rank")
+        sharded_rank(int(sys.argv[i + 1]), sys.argv[i + 2], sys.argv[i + 3])
+        return 0
     from repro_torch.kernels import build, load_library
 
     # 1. the card
@@ -5806,6 +6225,11 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         records += path(errs)
         mark(path.__name__)
+    # 11b. sharded SS and greedy over torch.distributed: part (a) ran at one
+    # rank on each path's objective; part (b), four ranks on the card
+    torch.cuda.empty_cache()
+    sharded = sharded_phase()
+    mark("sharded_phase")
     # 12-13. flash attention: kernel vs plain, then the LM serving path
     errs["flash_attention"] = 0.0
     torch.cuda.empty_cache()
@@ -5833,6 +6257,12 @@ def main() -> int:
     for r_ in records:
         r_["examples"] = {ex: v["launches"].get(r_["name"], 0)
                           for ex, v in examples.items() if isinstance(v, dict)}
+        r_["sharded"] = {
+            **{lab: v["launches"].get(r_["name"], 0)
+               for lab, v in sharded.items() if lab in ("FeatureCoverage", "path A",
+                                                         "path B")},
+            **{f"{lab}, 4 ranks (rank 0)": v["launches"].get(r_["name"], 0)
+               for lab, v in sharded["four_ranks"].items()}}
     flash = next(r_ for r_ in records if r_["name"] == "flash_attention")
     flash["at_qwen2_7b"] = examples["kv_full"]["flash_at_shape"]
     # 17. each timed LM step beside its bound (nothing more on the card)
@@ -5852,6 +6282,8 @@ def main() -> int:
     print(json.dumps({"training": training}))
     print(json.dumps({"examples": examples}))
     print(json.dumps({"roofline": roof}))
+    print(json.dumps({"sharded": {k: v for k, v in sharded.items()}},
+                     default=float))
     print(f"chip_smoke: {time.perf_counter() - T0[0]:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ improvements, one request through the summarization service's facade
 (``repro_torch.api.sessions``: appends, a summary, and the same summary from
 a reopened root), and matrix-free facility location.
 On the card, SS and greedy run once more through the plain backend under
-the same draws: the kernels must give the same V' and the same picks.
+the same draws: the kernels must give the same V' and the same picks.  SS
+and greedy also run through the sharded backend (``torch.distributed``, one
+rank in a group the script opens and closes).
 
     PYTHONPATH=src python examples/quickstart_torch.py              # the card
     PYTHONPATH=src python examples/quickstart_torch.py --device cpu  # the host
@@ -23,8 +25,10 @@ import time
 import numpy as np
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import (
+    ShardedBackend,
     StreamingFacilityLocation,
     api,
     clustered_embeddings,
@@ -100,6 +104,23 @@ if dev.type == "cuda":
           f"picks, f(S) = {float(res_k.value):.4f} / {float(res_p.value):.4f}")
 else:
     print("cuda vs reference:  not run (the cuda backend needs a card)")
+
+# --- the sharded backend: the whole SS and greedy loops over torch.distributed
+# Every rank holds its block of V and makes the same call (SPMD); here one
+# rank, in a group this script opens and closes itself (NCCL on the card,
+# gloo on the host).  With more ranks, each passes its own process group.
+dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                        store=dist.HashStore(), rank=0, world_size=1)
+try:
+    sharded = ShardedBackend()            # one "data" axis over the group
+    ss_s = ss_sparsify(fn, seeded(0), r=8, c=8.0, backend=sharded)
+    red_s = greedy(fn, K, alive=ss_s.vprime, backend=sharded)
+finally:
+    dist.destroy_process_group()
+sharded_relative = float(red_s.value / full.value)
+print(f"backend sharded:    |V'| = {int(ss_s.vprime.sum())} ({ss_s.rounds} rounds, "
+      f"1 rank), f(S) = {float(red_s.value):.4f}  (relative = {sharded_relative:.4f})")
+assert sharded_relative > 0.95
 
 # --- the paper's other selectors on V ----------------------------------------
 sg, wall = timed(lambda: stochastic_greedy(fn, K, seeded(2)))

@@ -37,6 +37,7 @@ from repro_torch.core import (
     LazyGreedyResult,
     ReferenceBackend,
     SSResult,
+    ShardedBackend,
     STREAM_PHIS,
     SieveResult,
     SieveState,
@@ -49,6 +50,7 @@ from repro_torch.core import (
     full_edge_matrix,
     greedy,
     greedy_batched,
+    greedy_sharded,
     lazy_greedy,
     postreduce,
     resolve_backend,
@@ -59,12 +61,15 @@ from repro_torch.core import (
     sieve_update,
     ss_sparsify,
     ss_sparsify_batched,
+    ss_sparsify_sharded,
     stochastic_greedy,
     stochastic_greedy_batched,
+    stochastic_greedy_sharded,
     stream_sieve_best,
     stream_sieve_init,
     stream_sieve_update,
     summarize,
+    summarize_sharded,
     threshold_grid,
 )
 from repro_torch.data import clustered_embeddings, news_day, video
@@ -73,16 +78,19 @@ from repro_torch.serve.sessions import SessionConfig, SessionEngine, SessionSumm
 __all__ = [
     "CudaBackend", "FacilityLocation", "FeatureCoverage", "GreedyResult",
     "LazyGreedyResult", "ReferenceBackend", "SSResult", "STREAM_PHIS",
+    "ShardedBackend",
     "SessionConfig", "SessionEngine", "SessionSummary",
     "SieveResult", "SieveState", "StreamSieveState",
     "StreamingFacilityLocation", "api", "auto_sample_size", "bidirectional_greedy",
     "check_triangle_inequality", "clustered_embeddings", "divergence_update",
     "facility_location_from_features", "facility_location_from_numpy",
     "feature_coverage_from_numpy", "full_edge_matrix", "greedy", "greedy_batched",
-    "lazy_greedy",
+    "greedy_sharded", "lazy_greedy",
     "news_day", "obs", "postreduce", "resolve_backend", "sieve_best", "sieve_extend",
     "sieve_init", "sieve_streaming", "sieve_update", "ss_sparsify",
-    "ss_sparsify_batched", "stochastic_greedy", "stochastic_greedy_batched", "stream_sieve_best", "stream_sieve_init",
+    "ss_sparsify_batched", "ss_sparsify_sharded", "stochastic_greedy",
+    "stochastic_greedy_batched", "stochastic_greedy_sharded", "stream_sieve_best",
+    "stream_sieve_init",
     "stream_sieve_update", "streaming_facility_location_from_numpy",
-    "summarize", "threshold_grid", "video",
+    "summarize", "summarize_sharded", "threshold_grid", "video",
 ]

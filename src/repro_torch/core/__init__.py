@@ -1,11 +1,18 @@
-"""Objectives, the submodularity graph, backends, SS, greedy (single-query
-and batched) and sieve streaming."""
+"""Objectives, the submodularity graph, backends, SS, greedy (single-query,
+batched and sharded over torch.distributed) and sieve streaming."""
 
 from repro_torch.core.backend import (
     Backend,
     CudaBackend,
     ReferenceBackend,
+    ShardedBackend,
     resolve_backend,
+)
+from repro_torch.core.distributed import (
+    greedy_sharded,
+    ss_sparsify_sharded,
+    stochastic_greedy_sharded,
+    summarize_sharded,
 )
 from repro_torch.core.functions import (
     NEG,
@@ -68,6 +75,8 @@ from repro_torch.core.sparsify import (
 __all__ = [
     "Backend", "CudaBackend", "FacilityLocation", "FeatureCoverage",
     "GreedyResult", "LazyGreedyResult", "NEG", "ReferenceBackend", "SSResult",
+    "ShardedBackend", "greedy_sharded", "ss_sparsify_sharded",
+    "stochastic_greedy_sharded", "summarize_sharded",
     "STREAM_PHIS", "SieveResult", "SieveState", "StreamSieveState",
     "StreamingFacilityLocation", "SubmodularFunction", "auto_sample_size",
     "bidirectional_greedy", "bucket_schedule", "check_triangle_inequality",

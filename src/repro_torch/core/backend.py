@@ -23,9 +23,20 @@ run:
   row, on views of the row's tensors (a kernel over the whole batch grid is
   later work).
 
+- ``sharded`` (:class:`ShardedBackend`): the whole SS, greedy and
+  stochastic greedy loops over the ranks of a ``torch.distributed``
+  DeviceMesh (:mod:`repro_torch.core.distributed`); each rank's view of the
+  objective runs through a per-rank backend of the two above.
+
+The sharded loops evaluate two primitives of their own on a rank's view,
+``shard_divergence`` and ``shard_gains`` (the objective's plain hooks, or
+its kernels under ``cuda``).  Every backend also owns three whole loops,
+``sparsify``, ``greedy`` and ``stochastic_greedy`` (and ``sparsify_batched``):
+the dense loops by default, the sharded ones under ``sharded``.
+
 ``resolve_backend(None, device)`` picks ``cuda`` for an objective on a CUDA
-device and ``reference`` for one on the CPU, never the reverse.  No
-environment variable takes part in the choice.
+device and ``reference`` for one on the CPU, never the reverse, and never
+``sharded``.  No environment variable takes part in the choice.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import graph
 from repro_torch.core.functions import SubmodularFunction
@@ -155,6 +167,45 @@ class Backend:
         return sieve_gains_ref(S, el.E, el.idx, cols=el.cols, phi=el.phi,
                                feat_w=el.feat_w, cap=el.cap)
 
+    # The sharded loops' primitives on a rank's view (``fn.shard``).
+
+    def shard_divergence(self, view: SubmodularFunction, payloads: Tensor,
+                         resid_p: Tensor, ctx, cand_idx: Tensor | None = None
+                         ) -> Tensor:
+        """min over the probes' ``payloads`` of f(v | S + u) - resid_p[u]
+        for the view's candidates (or ``cand_idx``).  (n_loc,) or (k,)."""
+        return view.shard_divergence(payloads, resid_p, ctx, cand_idx)
+
+    def shard_gains(self, view: SubmodularFunction, state: Tensor, ctx,
+                    cand_idx: Tensor | None = None) -> Tensor:
+        """f(v|S) of the view's candidates (or ``cand_idx``).  (n_loc,)."""
+        return view.shard_gains(state, ctx, cand_idx)
+
+    # The whole loops: the dense single-process ones; ``sharded`` owns its
+    # own.  Keyword arguments are the entry points' (``ss_sparsify``,
+    # ``ss_sparsify_batched``, ``greedy``, ``stochastic_greedy``).
+
+    def sparsify(self, fn: SubmodularFunction, generator=None, **kw):
+        from repro_torch.core.sparsify import _sparsify_dense
+
+        return _sparsify_dense(fn, generator, backend=self, **kw)
+
+    def sparsify_batched(self, fn: SubmodularFunction, generators=None, **kw):
+        from repro_torch.core.sparsify import _sparsify_batched
+
+        return _sparsify_batched(fn, generators, backend=self, **kw)
+
+    def greedy(self, fn: SubmodularFunction, k: int, **kw):
+        from repro_torch.core.greedy import _greedy_dense
+
+        return _greedy_dense(fn, k, backend=self, **kw)
+
+    def stochastic_greedy(self, fn: SubmodularFunction, k: int, generator=None,
+                          **kw):
+        from repro_torch.core.greedy import _stochastic_greedy_dense
+
+        return _stochastic_greedy_dense(fn, k, generator, backend=self, **kw)
+
 
 @dataclasses.dataclass(frozen=True)
 class ReferenceBackend(Backend):
@@ -205,16 +256,136 @@ class CudaBackend(Backend):
         self._check(fn)
         return sieve_gains_kernel(S, el, start)
 
+    def shard_divergence(self, view, payloads, resid_p, ctx, cand_idx=None):
+        self._check(view)
+        return view.cuda_shard_divergence(payloads, resid_p, ctx, cand_idx)
 
-_BACKENDS = {"reference": ReferenceBackend, "cuda": CudaBackend}
+    def shard_gains(self, view, state, ctx, cand_idx=None):
+        self._check(view)
+        return view.cuda_shard_gains(state, ctx, cand_idx)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedBackend(Backend):
+    """The sharded loops over a DeviceMesh (SPMD: every rank makes the same
+    call with the same whole objective, and gets the same result).
+
+    ``mesh=None`` is one ``data_axis`` over the default group's world,
+    made at call time; without an initialised process group the backend
+    raises (no function here opens one).  ``pod_axis`` runs SS per pod
+    (each pod's rows a ground set of its own).  ``shard_backend`` runs each
+    rank's view: None picks it by the view's device (the kernels on the
+    card), as the dense loops do; the per-call primitives (``gains``,
+    ``divergence``, ...) go through it too.
+
+    ``greedy`` keeps the reference's rule: with a pod axis, without the
+    objective's selection hooks, or with n not divisible by the data
+    axis, it runs the dense loop (``ShardedBackend.dense_greedy_runs``
+    counts those runs).  ``sparsify_batched`` and stochastic greedy with a
+    pod axis raise.
+    """
+
+    name = "sharded"
+    mesh: object = None
+    data_axis: str = "data"
+    pod_axis: str | None = None
+    bins: int = 512
+    shard_backend: "str | Backend | None" = None
+
+    dense_greedy_runs = 0
+
+    def __post_init__(self):
+        if self.mesh is None and not dist.is_initialized():
+            raise RuntimeError(
+                "ShardedBackend(mesh=None) spans the default process group, and "
+                "none is initialised: call torch.distributed.init_process_group "
+                "first, or pass a DeviceMesh")
+
+    def _mesh(self):
+        if self.mesh is not None:
+            return self.mesh
+        from repro_torch.launch.mesh import make_mesh
+
+        return make_mesh((dist.get_world_size(),), (self.data_axis,),
+                         "cuda" if dist.get_backend() == "nccl" else "cpu")
+
+    def _local(self, fn: SubmodularFunction) -> Backend:
+        return resolve_backend(self.shard_backend, fn.device)
+
+    def gains(self, fn, state):
+        return self._local(fn).gains(fn, state)
+
+    def gains_compact(self, fn, state, cand_idx):
+        return self._local(fn).gains_compact(fn, state, cand_idx)
+
+    def prepare_compact(self, fn, cand_idx):
+        return self._local(fn).prepare_compact(fn, cand_idx)
+
+    def divergence(self, fn, probes, residual=None, state=None):
+        return self._local(fn).divergence(fn, probes, residual, state)
+
+    def divergence_compact(self, fn, probes, cand_idx, residual=None, state=None):
+        return self._local(fn).divergence_compact(fn, probes, cand_idx, residual, state)
+
+    def sieve_table(self, fn, S, el, start=None):
+        return self._local(fn).sieve_table(fn, S, el, start)
+
+    def sparsify(self, fn, generator=None, **kw):
+        from repro_torch.core import distributed
+
+        fn = distributed._as_objective(fn)
+        mesh = self._mesh()
+        axes = (self.pod_axis, self.data_axis) if self.pod_axis else (self.data_axis,)
+        return distributed.ss_sparsify_sharded(
+            fn.shard(mesh, axes), mesh, generator,
+            data_axis=self.data_axis, pod_axis=self.pod_axis, bins=self.bins,
+            backend=self.shard_backend, **kw)
+
+    def sparsify_batched(self, fn, generators=None, **kw):
+        raise NotImplementedError(
+            "the sharded backend owns the whole mesh per query and does not "
+            "micro-batch; use backend='reference' or 'cuda' for the batched "
+            "serving path")
+
+    def greedy(self, fn, k, **kw):
+        from repro_torch.core import distributed
+
+        fn = distributed._as_objective(fn)
+        mesh = None if self.pod_axis else self._mesh()
+        if (mesh is None or not fn.supports_shard_greedy
+                or fn.n % mesh.size(mesh.mesh_dim_names.index(self.data_axis))):
+            # the reference's rule (a pure rule of the objective and its
+            # shape): the dense loop, through the per-rank backend
+            ShardedBackend.dense_greedy_runs += 1
+            return super().greedy(fn, k, **kw)
+        return distributed.greedy_sharded(
+            fn.shard(mesh, (self.data_axis,)), k, mesh, data_axis=self.data_axis,
+            backend=self.shard_backend, **kw)
+
+    def stochastic_greedy(self, fn, k, generator=None, **kw):
+        from repro_torch.core import distributed
+
+        if self.pod_axis:
+            raise NotImplementedError(
+                "sharded stochastic greedy is single-level (the selection stage "
+                "is global); use a data-axis-only ShardedBackend")
+        fn = distributed._as_objective(fn)
+        mesh = self._mesh()
+        return distributed.stochastic_greedy_sharded(
+            fn.shard(mesh, (self.data_axis,)), k, mesh, generator,
+            data_axis=self.data_axis, backend=self.shard_backend, **kw)
+
+
+_BACKENDS = {"reference": ReferenceBackend, "cuda": CudaBackend,
+             "sharded": ShardedBackend}
 
 
 def resolve_backend(
     spec: "str | Backend | None" = None, device: torch.device | None = None
 ) -> Backend:
-    """A ``backend=`` argument: a Backend (as is), a name ("reference" or
-    "cuda"), or None, which picks by ``device``: cuda for a CUDA device,
-    reference for the CPU."""
+    """A ``backend=`` argument: a Backend (as is), a name ("reference",
+    "cuda" or "sharded"), or None, which picks by ``device``: cuda for a
+    CUDA device, reference for the CPU (never sharded)."""
     if isinstance(spec, Backend):
         return spec
     if spec is None:

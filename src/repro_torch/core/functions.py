@@ -32,6 +32,19 @@ lays a greedy run's candidate buffer out for ``cuda_gains`` once, before the
 first step; by default it keeps the buffer as it is.  Sieve streaming reads
 its gain table's elements through ``sieve_elements`` (and the chunk size
 that bounds, ``sieve_chunk``).
+
+The shard hooks (``shard`` and the ``shard_*`` methods) describe a per-rank
+*view* of an objective for the sharded loops of
+:mod:`repro_torch.core.distributed`: ``fn.shard(mesh, axes)`` keeps this
+rank's block of candidates (FeatureCoverage: rows of W; FacilityLocation:
+columns of sim, every served row; StreamingFacilityLocation: rows of X,
+with every served row in ``Xs``), and the hooks evaluate residuals,
+probe-conditioned divergences and greedy gains for the view's candidates
+only.  Pod-global quantities come from ``shard_init``'s context, never from
+the view's own tensors.  Two of them reach the kernels: ``shard_divergence``
+and ``shard_gains`` are the plain versions, ``cuda_shard_divergence`` and
+``cuda_shard_gains`` launch the objective's divergence and gains kernels
+on the view, with the probes' payloads as the kernel's probe rows.
 """
 
 from __future__ import annotations
@@ -50,20 +63,27 @@ from repro_torch.kernels.fl_divergence import (
     takes_panel,
 )
 from repro_torch.kernels.fl_stream import (
+    fl_stream_best_loss_sum,
     fl_stream_col_max,
+    fl_stream_count_best,
     fl_stream_divergence_kernel,
     fl_stream_gains_kernel,
     fl_stream_residuals,
+    fl_stream_top2,
 )
 from repro_torch.kernels.ref import (
     _ELEMS,
     _ROW_CHUNK,
     _phi,
+    fl_divergence_ref,
     fl_pair_ref,
     fl_residuals,
+    fl_stream_divergence_ref,
     fl_stream_pair_ref,
     matmul_ieee,
     sim_rows,
+    ss_divergence_ref,
+    top2,
 )
 from repro_torch.kernels.sieve_gains import SieveElements
 from repro_torch.kernels.ss_weights import ss_divergence_kernel
@@ -192,6 +212,124 @@ class SubmodularFunction(abc.ABC):
         no limit of the objective's own)."""
         return None
 
+    # -- shard hooks ---------------------------------------------------------
+    # A view, ``fn.shard(mesh, axes)``, holds one rank's block of the
+    # candidates; the hooks below run on it.  ``comm`` is the loop's
+    # collectives over the mesh axes (``repro_torch.core.distributed``);
+    # ``ctx`` is what ``shard_init`` returned.
+
+    #: each pod may run as a ground set of its own (the view's tensors are
+    #: row-local)
+    supports_pod_sharding = False
+    #: the divergence hooks take ``cand_idx`` (the sharded SS compaction)
+    supports_shard_compact = False
+    #: the view runs the sharded selection loop (``shard_gains``,
+    #: ``shard_take``, ``shard_add`` over a replicated state)
+    supports_shard_greedy = False
+
+    def shard(self, mesh, axes: tuple[str, ...]) -> "SubmodularFunction":
+        """This rank's view: its contiguous block of the n candidates, in
+        the mesh's (outer, ..., inner) order of ``axes``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement the sharded protocol")
+
+    def local_n(self) -> int:
+        """The number of candidates the view holds."""
+        raise NotImplementedError
+
+    def shard_init(self, comm):
+        """The pod-global context, once a run: collectives over ``comm``."""
+        raise NotImplementedError
+
+    def shard_residuals(self, ctx) -> Tensor:
+        """f(u | V \\ u) of the view's candidates.  (n_loc,)."""
+        raise NotImplementedError
+
+    def shard_payloads(self, idx: Tensor, state: Tensor | None = None) -> Tensor:
+        """The payload rows of the view's candidates ``idx`` (k,): what any
+        rank needs to evaluate f(v | S + u) against them.  (k, D) float32."""
+        raise NotImplementedError
+
+    def shard_payload_gains(self, payloads: Tensor, ctx) -> Tensor:
+        """f(v | S + u) for the probes' ``payloads`` (m, D) and the view's
+        candidates v.  (m, n_loc)."""
+        raise NotImplementedError
+
+    def shard_divergence(self, payloads: Tensor, resid_p: Tensor, ctx,
+                         cand_idx: Tensor | None = None) -> Tensor:
+        """min over the probes of f(v | S + u) - resid_p[u] for the view's
+        candidates (or for ``cand_idx``).  (n_loc,) or (k,).  The plain
+        version; :meth:`cuda_shard_divergence` is the kernel."""
+        view = self if cand_idx is None else self.shard_take(cand_idx)
+        return (view.shard_payload_gains(payloads, ctx)
+                - resid_p[:, None]).amin(dim=0)
+
+    def cuda_shard_divergence(self, payloads: Tensor, resid_p: Tensor, ctx,
+                              cand_idx: Tensor | None = None) -> Tensor:
+        """:meth:`shard_divergence` in one launch of the objective's kernel."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no CUDA divergence kernel")
+
+    def shard_take(self, cand_idx: Tensor) -> "SubmodularFunction":
+        """The view restricted to its candidates ``cand_idx`` (k,)."""
+        raise NotImplementedError
+
+    def shard_gains(self, state: Tensor, ctx,
+                    cand_idx: Tensor | None = None) -> Tensor:
+        """f(v|S) of the view's candidates (or of ``cand_idx``) from a
+        replicated state, the arithmetic of the dense :meth:`gains`.  The
+        plain version; :meth:`cuda_shard_gains` is the kernel."""
+        raise NotImplementedError
+
+    def cuda_shard_gains(self, state: Tensor, ctx,
+                         cand_idx: Tensor | None = None) -> Tensor:
+        """:meth:`shard_gains` in one launch of the objective's kernel."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no CUDA gains kernel")
+
+    def shard_add(self, state: Tensor, v: Tensor, ctx) -> Tensor:
+        """The replicated state for S + v, ``v`` a 0-d index of the view's
+        candidates; the dense :meth:`add` of that element."""
+        raise NotImplementedError
+
+    def shard_value(self, state: Tensor, ctx) -> Tensor:
+        """f(S) from a replicated state, pod-global constants from ``ctx``."""
+        return self.value(state)
+
+
+def _block(n: int, mesh, axes: tuple[str, ...]) -> tuple[int, int]:
+    """(first, count) of this rank's contiguous block of n candidates over
+    the mesh ``axes`` (outer first)."""
+    shards, idx = 1, 0
+    for a in axes:
+        size = mesh.size(mesh.mesh_dim_names.index(a))
+        shards, idx = shards * size, idx * size + mesh.get_local_rank(a)
+    if n % shards:
+        raise ValueError(f"n = {n} does not divide into {shards} shards (pad rows)")
+    n_loc = n // shards
+    return idx * n_loc, n_loc
+
+
+def _gather_top2(comm, loc: Tensor) -> tuple[Tensor, Tensor]:
+    """The global (best, second) of each served row from every shard's
+    local top-2 rows ``loc`` (ni, 2): an all_gather, then the top-2 of the
+    gathered values (NEG padding, as the reference's), exact."""
+    allt = comm.all_gather(loc.float().contiguous())              # (S, ni, 2)
+    allt = allt.permute(1, 0, 2).reshape(loc.shape[0], -1)
+    pad = torch.full((loc.shape[0], 2), NEG, dtype=torch.float32, device=loc.device)
+    t = torch.topk(torch.cat([allt, pad], dim=1), 2, dim=1).values
+    return t[:, 0], t[:, 1]
+
+
+def _fl_ctx(comm, best: Tensor, second: Tensor, cnt_loc: Tensor):
+    """(best, loss) of facility location's residuals: a row whose best is
+    reached by more than one candidate over all shards (an int32
+    all_reduce) loses nothing."""
+    cnt = comm.all_reduce(cnt_loc.to(torch.int32).contiguous(), "sum")
+    loss = torch.where(cnt > 1, 0.0, best.clamp_min(0.0) - second.clamp_min(0.0))
+    return best, loss
+
+
 
 @dataclasses.dataclass(frozen=True)
 class FeatureCoverage(SubmodularFunction):
@@ -207,6 +345,10 @@ class FeatureCoverage(SubmodularFunction):
     feat_w: Tensor | None = None
     phi: str = "sqrt"
     alpha: float = 0.2
+
+    supports_pod_sharding = True
+    supports_shard_compact = True
+    supports_shard_greedy = True
 
     @property
     def n(self) -> int:
@@ -236,15 +378,14 @@ class FeatureCoverage(SubmodularFunction):
 
     def gains(self, state: Tensor) -> Tensor:
         """f(v|S) for all v: sum_f [phi(c + W_v) - phi(c)].  Shape (n,)."""
-        return self._gains_rows(state, self.W)
+        return self._gains_rows(state, self.W, self._cap())
 
     def gains_compact(self, state: Tensor, cand_idx: Tensor) -> Tensor:
         """The gains of the gathered candidate rows only: the same
         arithmetic per element as :meth:`gains`."""
-        return self._gains_rows(state, self.W[cand_idx])
+        return self._gains_rows(state, self.W[cand_idx], self._cap())
 
-    def _gains_rows(self, state: Tensor, rows: Tensor) -> Tensor:
-        cap = self._cap()
+    def _gains_rows(self, state: Tensor, rows: Tensor, cap: Tensor | None) -> Tensor:
         phi_c = _phi(self.phi, state[None, :], cap)
         return _by_rows(
             rows, lambda W: self._wsum(_phi(self.phi, state[None, :] + W, cap) - phi_c)
@@ -331,6 +472,76 @@ class FeatureCoverage(SubmodularFunction):
         return SieveElements(_sieve_f32(self.W), _with_zero(vals), False, self.phi,
                              _f32(self.feat_w), _f32(self._cap()))
 
+    # -- shard hooks (rows of W) ---------------------------------------------
+    # ctx = (C, cap, phi(C)): C the pod's feature totals, summed in rank
+    # order so that every rank and both backends hold the same bits; every
+    # gain, divergence, phi_cu and value of the view takes cap from it (the
+    # view's own W would under-saturate satcov).
+
+    def shard(self, mesh, axes):
+        lo, n_loc = _block(self.n, mesh, tuple(axes))
+        return dataclasses.replace(self, W=self.W[lo:lo + n_loc])
+
+    def local_n(self) -> int:
+        return self.W.shape[0]
+
+    def shard_init(self, comm):
+        parts = comm.all_gather(self.W.sum(dim=0, dtype=torch.float32))  # (S, F)
+        C = parts[0].clone()
+        for p in parts[1:]:
+            C += p
+        cap = self.alpha * C if self.phi == "satcov" else None
+        return C, cap, self._wsum(_phi(self.phi, C, cap))
+
+    def shard_residuals(self, ctx) -> Tensor:
+        C, cap, phi_C = ctx
+        return _by_rows(
+            self.W, lambda W: phi_C - self._wsum(_phi(self.phi, C[None, :] - W, cap)))
+
+    def shard_payloads(self, idx: Tensor, state: Tensor | None = None) -> Tensor:
+        """A probe's coverage row c(S + u)."""
+        rows = self.W[idx]
+        return (rows if state is None else state[None, :] + rows).float()
+
+    def _phi_cu(self, payloads: Tensor, ctx) -> Tensor:
+        return self._wsum(_phi(self.phi, payloads, ctx[1]))
+
+    def shard_payload_gains(self, payloads: Tensor, ctx) -> Tensor:
+        cap, phi_cu = ctx[1], self._phi_cu(payloads, ctx)
+        step = max(1, _ELEMS // max(1, payloads.numel()))
+        return torch.cat([
+            self._wsum(_phi(self.phi, payloads[:, None, :] + rows[None].float(), cap))
+            for rows in self.W.split(step)], dim=1) - phi_cu[:, None]
+
+    def shard_divergence(self, payloads, resid_p, ctx, cand_idx=None):
+        return ss_divergence_ref(self.W, payloads, self._phi_cu(payloads, ctx),
+                                 resid_p, ctx[1], self.phi, self.feat_w, cand_idx)
+
+    def cuda_shard_divergence(self, payloads, resid_p, ctx, cand_idx=None):
+        return ss_divergence_kernel(
+            self.W, payloads.contiguous(), self._phi_cu(payloads, ctx).contiguous(),
+            resid_p.float().contiguous(), _f32(ctx[1]), _f32(self.feat_w), cand_idx,
+            phi=self.phi)
+
+    def shard_take(self, cand_idx: Tensor) -> "FeatureCoverage":
+        return dataclasses.replace(self, W=self.W[cand_idx])
+
+    def shard_gains(self, state, ctx, cand_idx=None):
+        rows = self.W if cand_idx is None else self.W[cand_idx]
+        return self._gains_rows(state, rows, ctx[1])
+
+    def cuda_shard_gains(self, state, ctx, cand_idx=None):
+        c = state.float().contiguous()
+        return feature_gains_kernel(
+            self.W, c, self._wsum(_phi(self.phi, c, ctx[1])), _f32(ctx[1]),
+            _f32(self.feat_w), cand_idx, phi=self.phi)
+
+    def shard_add(self, state: Tensor, v: Tensor, ctx) -> Tensor:
+        return self.add(state, v)
+
+    def shard_value(self, state: Tensor, ctx) -> Tensor:
+        return self._wsum(_phi(self.phi, state, ctx[1]))
+
 
 @dataclasses.dataclass(frozen=True)
 class FacilityLocation(SubmodularFunction):
@@ -347,6 +558,9 @@ class FacilityLocation(SubmodularFunction):
     """
 
     sim: Tensor  # (n, n)
+
+    supports_shard_compact = True
+    supports_shard_greedy = True
 
     #: from_features refuses to build (n, n) above this many rows unless
     #: told to: 16k rows is already a 1 GiB float32 similarity.
@@ -478,6 +692,69 @@ class FacilityLocation(SubmodularFunction):
         """Columns of sim, the term max(s, e)."""
         return SieveElements(_sieve_f32(self.sim), _with_zero(vals), True)
 
+    # -- shard hooks (columns of sim, every served row) ----------------------
+    # A probe's payload is its coverage row max(state, sim[:, u]) over all n
+    # served rows, so any rank evaluates f(v | S + u) for its own columns.
+    # ctx = (best, loss) of the residuals.  No pod hierarchy: the served
+    # rows span the whole ground set.
+
+    def shard(self, mesh, axes):
+        if len(axes) > 1:
+            raise NotImplementedError(
+                "FacilityLocation shards candidates only (no pod hierarchy): "
+                "its served rows span the full ground set")
+        lo, n_loc = _block(self.sim.shape[1], mesh, tuple(axes))
+        if n_loc == self.sim.shape[1]:
+            return self                     # one rank: sim itself, no copy
+        return dataclasses.replace(self, sim=self.sim[:, lo:lo + n_loc].contiguous())
+
+    def local_n(self) -> int:
+        return self.sim.shape[1]
+
+    def shard_init(self, comm):
+        loc = torch.cat([torch.stack(top2(blk.float()), dim=1)
+                         for blk in self._row_blocks()])               # (n, 2)
+        best, second = _gather_top2(comm, loc)
+        rows = self._row_blocks()
+        cnt = torch.cat([(blk >= best[lo:lo + blk.shape[0], None]).sum(
+            dim=1, dtype=torch.int32) for lo, blk in _offsets(rows)])
+        return _fl_ctx(comm, best, second, cnt)
+
+    def shard_residuals(self, ctx) -> Tensor:
+        best, loss = ctx
+        out = torch.zeros((self.sim.shape[1],), dtype=torch.float32,
+                          device=self.sim.device)
+        for lo, blk in _offsets(self._row_blocks()):
+            hi = lo + blk.shape[0]
+            out += torch.where(blk >= best[lo:hi, None], loss[lo:hi, None], 0.0).sum(0)
+        return out
+
+    def shard_payloads(self, idx: Tensor, state: Tensor | None = None) -> Tensor:
+        return self._probe_mu(idx, state).float()
+
+    def shard_payload_gains(self, payloads: Tensor, ctx) -> Tensor:
+        return fl_pair_ref(self.sim, payloads)
+
+    def shard_divergence(self, payloads, resid_p, ctx, cand_idx=None):
+        return fl_divergence_ref(self.sim, payloads, resid_p, cand_idx)
+
+    def cuda_shard_divergence(self, payloads, resid_p, ctx, cand_idx=None):
+        return fl_divergence_kernel(self.sim, payloads.contiguous(),
+                                    resid_p.float().contiguous(), cand_idx)
+
+    def shard_take(self, cand_idx: Tensor) -> "FacilityLocation":
+        """The candidate columns as one contiguous (n, k) tensor."""
+        return dataclasses.replace(self, sim=self.sim.index_select(1, cand_idx))
+
+    def shard_gains(self, state, ctx, cand_idx=None):
+        return fl_pair_ref(self.sim, state[None, :], cand_idx)[0]
+
+    def cuda_shard_gains(self, state, ctx, cand_idx=None):
+        return fl_gains_kernel(self.sim, state, cand_idx)
+
+    def shard_add(self, state: Tensor, v: Tensor, ctx) -> Tensor:
+        return self.add(state, v)
+
 
 @dataclasses.dataclass(frozen=True)
 class StreamingFacilityLocation(SubmodularFunction):
@@ -498,6 +775,9 @@ class StreamingFacilityLocation(SubmodularFunction):
 
     X: Tensor                  # (n, d) candidate embedding rows, float32
     Xs: Tensor | None = None   # (ni, d) served rows; None = X
+
+    supports_shard_compact = True
+    supports_shard_greedy = True
 
     @classmethod
     def from_features(
@@ -610,10 +890,70 @@ class StreamingFacilityLocation(SubmodularFunction):
         """A chunk's columns stay under SIEVE_COLUMN_ELEMS float32 entries."""
         return max(1, SIEVE_COLUMN_ELEMS // self._served().shape[0])
 
+    # -- shard hooks (rows of X, every served row in Xs) ---------------------
+    # The payloads are the (k, ni) probe coverage rows of dense facility
+    # location, formed from the rows on the fly; ctx = (best, loss).
+
+    def shard(self, mesh, axes):
+        if len(axes) > 1:
+            raise NotImplementedError(
+                "StreamingFacilityLocation shards candidates only (no pod "
+                "hierarchy): its served rows span the full ground set")
+        lo, n_loc = _block(self.n, mesh, tuple(axes))
+        return dataclasses.replace(self, X=self.X[lo:lo + n_loc], Xs=self._served())
+
+    def local_n(self) -> int:
+        return self.X.shape[0]
+
+    def shard_init(self, comm):
+        best, second = _gather_top2(comm, fl_stream_top2(self._served(), self.X))
+        cnt = fl_stream_count_best(self._served(), self.X, best)
+        return _fl_ctx(comm, best, second, cnt)
+
+    def shard_residuals(self, ctx) -> Tensor:
+        best, loss = ctx
+        return fl_stream_best_loss_sum(self._served(), self.X, best, loss)
+
+    def shard_payloads(self, idx: Tensor, state: Tensor | None = None) -> Tensor:
+        return self._probe_mu(idx, state)
+
+    def shard_payload_gains(self, payloads: Tensor, ctx) -> Tensor:
+        return fl_stream_pair_ref(self._served(), payloads, Xc=self.X)
+
+    def shard_divergence(self, payloads, resid_p, ctx, cand_idx=None):
+        return fl_stream_divergence_ref(self._served(), payloads, resid_p,
+                                        cand_idx, self.X)
+
+    def cuda_shard_divergence(self, payloads, resid_p, ctx, cand_idx=None):
+        return fl_stream_divergence_kernel(
+            self._served(), payloads.contiguous(), resid_p.float().contiguous(),
+            cand_idx, self.X)
+
+    def shard_take(self, cand_idx: Tensor) -> "StreamingFacilityLocation":
+        return dataclasses.replace(self, X=self.X[cand_idx], Xs=self._served())
+
+    def shard_gains(self, state, ctx, cand_idx=None):
+        return self.gains(state) if cand_idx is None else self.gains_compact(
+            state, cand_idx)
+
+    def cuda_shard_gains(self, state, ctx, cand_idx=None):
+        return fl_stream_gains_kernel(self._served(), state, cand_idx, self.X)
+
+    def shard_add(self, state: Tensor, v: Tensor, ctx) -> Tensor:
+        return self.add(state, v)
+
 
 def _normalize(X: Tensor) -> Tensor:
     """Rows of X scaled to unit norm (rows of norm below 1e-9 by 1e-9)."""
     return X / torch.clamp_min(torch.linalg.vector_norm(X, dim=1, keepdim=True), 1e-9)
+
+
+def _offsets(blocks):
+    """(first row, block) over consecutive row blocks."""
+    lo = 0
+    for blk in blocks:
+        yield lo, blk
+        lo += blk.shape[0]
 
 
 def _by_rows(W: Tensor, row_fn) -> Tensor:

@@ -125,6 +125,19 @@ def gumbel(n: int, generator: torch.Generator | None, device) -> Tensor:
     return -torch.log(e.clamp_min_(torch.finfo(torch.float32).tiny))
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def fold_in(seed: int, data: int) -> int:
+    """A new 63-bit seed from ``seed`` and ``data`` (splitmix64 of their
+    mix): the counterpart of ``jax.random.fold_in`` for seeds.  Streams
+    seeded from ``fold_in(s, 1)`` and ``s`` do not replay each other."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(data) + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
 def check_noise(noise: Tensor, shape: tuple[int, ...], device) -> Tensor:
     """Injected draws as float32 on ``device``, after checking their shape
     and that every draw is finite (a non-finite draw could silently break a
@@ -202,7 +215,7 @@ def greedy(
     be = resolve_backend(backend, fn.device)
     return _observed(
         "greedy.select", fn.device,
-        lambda: _greedy_dense(fn, k, alive, state, compact, be),
+        lambda: be.greedy(fn, k, alive=alive, state=state, compact=compact),
         lambda sp, res, wall: _record_greedy(sp, res, k, be.name, wall,
                                              selector="greedy", batched=False))
 
@@ -306,6 +319,25 @@ def stochastic_greedy(
     each step draws from ``generator`` on ``fn``'s device.
     """
     be = resolve_backend(backend, fn.device)
+    return be.stochastic_greedy(fn, k, generator, s=s, alive=alive, state=state,
+                                compact=compact, eps=eps, noise=noise)
+
+
+def _stochastic_greedy_dense(
+    fn: SubmodularFunction,
+    k: int,
+    generator: torch.Generator | None,
+    s: int | None,
+    alive: Tensor | None,
+    state: Tensor | None,
+    compact: bool | None,
+    eps: float,
+    noise: Tensor | None,
+    backend: Backend,
+) -> GreedyResult:
+    """The single-process stochastic greedy loop (see
+    :func:`stochastic_greedy`)."""
+    be = backend
     n, dev = fn.n, fn.device
     size, live = _compact_plan(n, alive, compact)
     if s is None:

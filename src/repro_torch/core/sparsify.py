@@ -235,18 +235,21 @@ def ss_sparsify(
       state: optional summary state for conditional SS on G(V, E|S).
       importance: §3.4 improvement 2: sample probes with probability
         proportional to f(u) + f(u|V\\u) instead of uniformly.
-      backend: "reference", "cuda", a Backend, or None (by ``fn``'s device).
+      backend: "reference", "cuda", "sharded", a Backend, or None (by
+        ``fn``'s device); the backend runs the whole loop
+        (:meth:`Backend.sparsify`).
       compact: evaluate each round's divergence over a compacted buffer of
         the live candidates, sized by :func:`bucket_schedule` (the default);
         False runs every round at full width.  Both give the same ``vprime``.
       noise: optional (max_rounds, n) float32 Gumbel draws; row j is round
-        j's draw, in place of ``generator``.
+        j's draw, in place of ``generator``.  Under ``sharded`` each rank
+        passes its own (max_rounds of its pod, n_loc) draws.
     """
     be = resolve_backend(backend, fn.device)
     return _observed(
         "ss.sparsify", fn.device,
-        lambda: _sparsify_dense(fn, generator, r, c, alive, state, importance,
-                                be, compact, noise),
+        lambda: be.sparsify(fn, generator, r=r, c=c, alive=alive, state=state,
+                            importance=importance, compact=compact, noise=noise),
         lambda sp, ss, wall: _record_ss(sp, ss, fn.n, r, c, be.name, wall, alive,
                                         batched=False))
 
@@ -403,8 +406,9 @@ def ss_sparsify_batched(
     be = resolve_backend(backend, fn.device)
     return _observed(
         "ss.sparsify_batched", fn.device,
-        lambda: _sparsify_batched(fn, generators, r, c, alive, state, importance,
-                                  be, compact, noise),
+        lambda: be.sparsify_batched(fn, generators, r=r, c=c, alive=alive,
+                                    state=state, importance=importance,
+                                    compact=compact, noise=noise),
         lambda sp, ss, wall: _record_ss(sp, ss, fn.row(0).n, r, c, be.name, wall,
                                         alive, batched=True))
 

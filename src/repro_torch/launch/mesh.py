@@ -1,10 +1,13 @@
 """The card's hardware constants: one NVIDIA H100 SXM (80 GB HBM3).
 
 The counterpart of ``repro/launch/mesh.py``'s ``HW``, which holds a TPU
-v5e chip's constants for the roofline.  The port runs on one card, so this
-module has no mesh: the production meshes (16 x 16 chips and 2 x 16 x 16)
-come with the sharding slice (``torch.distributed``), which is still to
-port.  On one card the collective term of the roofline is 0.
+v5e chip's constants for the roofline, and of its ``make_test_mesh``:
+:func:`make_mesh` names the axes of a ``torch.distributed`` DeviceMesh over
+the ranks of an initialised process group, which the sharded SS and greedy
+loops (``repro_torch.core.distributed``) run over.  The production meshes
+of the LM layouts (16 x 16 chips and 2 x 16 x 16) come with the LM sharding
+slice, which is still to port.  On one card the collective term of the
+roofline is 0.
 
 ``HW`` holds NVIDIA's published dense peaks of the H100 SXM at its 700 W
 limit (a card set to a lower limit runs slower under load):
@@ -31,3 +34,20 @@ HW = {
 # The peak that bounds products of each operand dtype (``launch/cost.py``
 # splits FLOPs by dtype).
 PEAK_BY_DTYPE = {"bfloat16": "peak_flops_bf16", "float32": "peak_flops_f32"}
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
+              device_type: str = "cuda"):
+    """A DeviceMesh of ``shape`` with the axis names ``axes`` over the ranks
+    of the default process group (row-major: the last axis is the
+    innermost).  The caller initialises the group
+    (``torch.distributed.init_process_group``); this raises without one.
+    ``device_type`` is what the groups serve: "cuda" for NCCL, "cpu" for
+    gloo (also where gloo ranks' tensors live on a card)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh needs an initialised process group: call "
+                           "torch.distributed.init_process_group first")
+    return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))

@@ -59,7 +59,8 @@ generator's state cloned) and every attempt builds fresh per-row
 generators from it, padding rows included: a retry replays the first
 attempt's draws bit for bit, and a padding row never advances row 0's
 stream.  Streams that the reference derives by ``fold_in`` come from
-:func:`fold_in`, a splitmix64 mix of a seed and a number.
+:func:`fold_in` (``repro_torch.core.greedy``), a splitmix64 mix of a seed
+and a number.
 
 Device: the service runs on ``device`` (the card by default; a host
 without one raises).  ``exec_s`` is measured to a synchronised device, and
@@ -89,6 +90,7 @@ from repro_torch.core.backend import resolve_backend
 from repro_torch.core.functions import FacilityLocation, FeatureCoverage
 from repro_torch.core.greedy import (
     GreedyResult,
+    fold_in,
     greedy_batched,
     stochastic_greedy_batched,
 )
@@ -104,19 +106,6 @@ from repro_torch.kernels import KernelError
 from repro_torch.serve.faults import FaultInjected, FaultPlan
 
 Tensor = torch.Tensor
-
-_MASK64 = (1 << 64) - 1
-
-
-def fold_in(seed: int, data: int) -> int:
-    """A new 63-bit seed from ``seed`` and ``data`` (splitmix64 of their
-    mix): the counterpart of ``jax.random.fold_in`` for seeds.  Streams
-    seeded from ``fold_in(s, 1)`` and ``s`` do not replay each other."""
-    z = (int(seed) * 0x9E3779B97F4A7C15 + int(data) + 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return (z ^ (z >> 31)) >> 1
-
 
 def generator(seed: "int | torch.Generator", device) -> torch.Generator:
     """A generator on ``device``: ``seed`` itself when it is one, else a new

@@ -47,8 +47,10 @@ def _port_files():
             "serve/faults.py", "serve/summarize_service.py", "serve/wal.py",
             "serve/sessions.py", "api.py", "launch/mesh.py", "launch/steps.py",
             "launch/cost.py", "launch/roofline.py", "launch/dryrun.py",
-            "configs/paper_ss.py", "data/video_eval.py"} <= rel
-    return files + [ROOT / "chip_smoke.py", ROOT / "chip_peak_probe.py"] + [
+            "configs/paper_ss.py", "data/video_eval.py", "core/distributed.py"} <= rel
+    # the sharded tests' ranks run the port alone, as the card's script does
+    return files + [ROOT / "chip_smoke.py", ROOT / "chip_peak_probe.py",
+                    ROOT / "tests" / "torch_sharded_ranks.py"] + [
         ROOT / "examples" / f"{name}_torch.py"
         for name in ("quickstart", "video_summarize", "serve_kv_pruning",
                      "train_lm_ss")]
