@@ -114,7 +114,18 @@ gradient leaf on the kernel route against the plain attention route, and
 every batch, the loss falling, one step profiled); checkpoint, SIGTERM
 and resume on
 the card; and the data pipeline at a 256 x 2048 global batch with both SS
-objectives, its picks held to the plain route's.  Then the three examples
+objectives, its picks held to the plain route's.  Then LM training sharded
+over a DeviceMesh (``lm_sharded_phase``): ``launch/train.py --mesh 1x1`` on
+a one-rank NCCL group at llama3.2-3b's full size with the training run's
+seed and arguments (its three losses against that run's; step time, peak,
+flash launches, the collectives DTensor issues), then four ranks of this
+script on the card over gloo (``--lm-sharded-rank R STORE OUT``, DTensor's
+all-gathers staged through the host): llama3.2-3b cut to 2 layers through
+``launch/train.py --mesh 2x2`` (3 steps), olmoe-1b-7b cut alike
+(Adafactor, µ = 2) and the compressed pod step on (2, 1, 2) on the kernel
+and the plain attention routes (2 steps each, each parameter's change over
+the run held too), each held to the plain step, and the flash kernels at
+a rank's shard shape.  Then the three examples
 run through their own ``main`` (``examples_phase``), each kernel's launches
 counted from 0 for each: ``video_summarize_torch.py`` at Table 2's longest
 video (9721 frames, k = 1458; SS and greedy on the kernels against the
@@ -149,10 +160,16 @@ enqueue takes at least half of it, so that the events time the card alone.
 The last lines of its output are JSON: the block types' figures
 (``lm_families``), training's (``training``), the examples'
 (``examples``), the steps' bounds
-(``roofline``), the sharded phase's (``sharded``), the kernels' records
+(``roofline``), the sharded phase's (``sharded``), the LM sharding's
+(``lm_sharded``), the kernels' records
 (nine), then ``{"ok": true,
 "device": {...}}``.  Any failure raises before them, and the
 script exits non-zero without a CUDA device or outside a checkout.
+
+    python3 chip_smoke.py --lm-sharded
+
+runs the LM sharding phase alone after a five-step run of training's (c),
+with no kernel records and no result line.
 
     python3 chip_smoke.py --first-chunk cold|warmed
 
@@ -166,6 +183,8 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -2247,7 +2266,10 @@ def fl_stream_path(errs: dict) -> list[dict]:
           f"{counts['summarize']['fl_stream_gains']} launches in summarize; "
           "library none", flush=True)
     profile_summarize("path B", fn, ("fl_stream_gains",))
-    SHARDED["path B"] = sharded_one_rank("path B", fn, full, wall_sum, kernels, 0.93)
+    # not profiled: its profile took 31.76 s of the script's time around a
+    # 5.96 s wall, and the LM sharding phase needed the time
+    SHARDED["path B"] = sharded_one_rank("path B", fn, full, wall_sum, kernels, 0.93,
+                                         profile=False)
     stochastic = stochastic_phase("path B", fn, ss, full, wall_full,
                                   fl_stream_gains_kernel)
     SIEVE["path B"] = sieve_path("path B", fn, full, wall_full)
@@ -2302,7 +2324,8 @@ def fl_stream_path(errs: dict) -> list[dict]:
 SHARDED: dict = {}     # part (a) of each SS path, then part (b) (sharded_phase)
 SHARDED_RANKS = 4
 # part (b)'s sizes: each of four ranks on the one card holds a quarter
-SH_N, SH_N_A, SH_N_B = 1 << 18, 1 << 14, 1 << 16
+# (path B at 2^14: its plain route took 13-15 s at four ranks at 2^16)
+SH_N, SH_N_A, SH_N_B = 1 << 18, 1 << 14, 1 << 14
 
 
 @contextlib.contextmanager
@@ -2377,7 +2400,7 @@ def _sharded_taken(view, vprime, comm, c: float = C):
 
 
 def sharded_one_rank(label: str, fn, full, dense_wall: float, kernels: dict,
-                     bar: float) -> dict:
+                     bar: float, profile: bool = True) -> dict:
     """Part (a) of the sharded phase on a path's own objective at full
     size: ``summarize_sharded`` at one rank over NCCL in this process (the
     view is the objective's own tensor: no copy), beside the path's dense
@@ -2441,7 +2464,7 @@ def sharded_one_rank(label: str, fn, full, dense_wall: float, kernels: dict,
                     comm, CudaBackend().shard_gains(taken, st, ctx), counts)})
         t = time.perf_counter()
         prof = profile_run(f"{label} summarize_sharded (1 rank, NCCL)", run,
-                           ("nccl",))
+                           ("nccl",)) if profile else {}
         prof["profile_s"] = time.perf_counter() - t
     trace = [int(x) for x in ss.alive_trace if x >= 0]
     phase_s = time.perf_counter() - t0
@@ -4316,6 +4339,523 @@ def train_phase(errs: dict) -> tuple[dict, dict]:
     return record, out
 
 
+# -- LM training sharded over a DeviceMesh ------------------------------------
+
+LM_SH_RANKS, LM_SH_STEPS, LM_SH_LAYERS = 4, 3, 2
+# olmoe and the compressed step take 2 steps (warmup 1: step 1's update at
+# the full rate), held by their losses, gradient norms and each parameter's
+# change over the run (||p - p_init||, ``_hold_change``) in place of a third
+# loss: the phase's time is the host's collectives
+LM_SH_SHORT = 2
+# part (b)'s runs at full width, depth cut to LM_SH_LAYERS: (arch, B, S,
+# optimizer, microbatches)
+LM_SH_RUNS = {"llama3.2-3b": ("llama3.2-3b", 4, 1024, "adamw", 1),
+              "olmoe-1b-7b": ("olmoe-1b-7b", 4, 512, "adafactor", 2)}
+LM_SH_COMPRESS = {"ratio": 0.05, "block": 1024}
+# part (b) keeps every activation: two layers need no rematerialisation,
+# and a recomputed forward gathers each weight over data a second time
+LM_SH_REMAT = "none"
+
+
+def _lm_counts() -> dict:
+    from repro_torch.kernels import (feature_gains_kernel, flash_attention_bwd_kernel,
+                                     flash_attention_kernel, ss_divergence_kernel)
+
+    return {"flash_attention": flash_attention_kernel.launches,
+            "flash_attention_tc": flash_attention_kernel.launches_tc,
+            "flash_attention_bwd": flash_attention_bwd_kernel.launches,
+            "flash_attention_bwd_tc": flash_attention_bwd_kernel.launches_tc,
+            "ss_divergence": ss_divergence_kernel.launches,
+            "feature_gains": feature_gains_kernel.launches}
+
+
+def _lm_counts_zero() -> None:
+    from repro_torch.kernels import (feature_gains_kernel, flash_attention_bwd_kernel,
+                                     flash_attention_kernel, ss_divergence_kernel)
+
+    for kern in (flash_attention_kernel, flash_attention_bwd_kernel):
+        kern.launches = kern.launches_tc = 0
+    ss_divergence_kernel.launches = feature_gains_kernel.launches = 0
+
+
+def _diff(a: dict, b: dict) -> dict:
+    return {k: a[k] - b[k] for k in a}
+
+
+def _timed_sharded(step, steps: list, comm_at: int | None):
+    """A sharded step wrapped: each call synchronised and timed, its peak,
+    its kernel launches and staged collectives; call ``comm_at`` under
+    DTensor's ``CommDebugMode`` (the collectives it issues, by op: not
+    timed)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.core import distributed as dd
+
+    def timed(state, batch):
+        rec = {}
+        c0, s0, b0, t0 = (_lm_counts(), dict(dd.STAGED), dd.STAGED_BYTES[0],
+                          dd.STAGED_SECONDS[0])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        if len(steps) == comm_at:
+            with CommDebugMode() as comm:
+                out = step(state, batch)
+            rec["collectives"] = {str(k).split(".")[-1]: v
+                                  for k, v in comm.get_comm_counts().items()}
+        else:
+            out = step(state, batch)
+        torch.cuda.synchronize()
+        rec["step_ms"] = (time.perf_counter() - t) * 1e3
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        rec["launches"] = _diff(_lm_counts(), c0)
+        rec["staged"] = sum(_diff(dict(dd.STAGED), s0).values())
+        rec["staged_gib"] = (dd.STAGED_BYTES[0] - b0) / 2**30
+        rec["staged_ms"] = (dd.STAGED_SECONDS[0] - t0) * 1e3
+        rec.update({k: float(v) for k, v in out[1].items()})
+        steps.append(rec)
+        return out
+
+    return timed
+
+
+@contextlib.contextmanager
+def _sharded_launcher(steps: list, batches: list | None = None, comm_at: int = 1,
+                      layers: int = 0):
+    """``launch/train.py`` with its sharded step timed (``_timed_sharded``),
+    with ``batches`` each batch its pipeline gives kept, and with ``layers``
+    the config's depth cut to that many layers (full width)."""
+    import repro_torch.launch.train as train_mod
+
+    make, Pipe, get = train_mod.shard_train_step, train_mod.Pipeline, train_mod.configs.get
+
+    def make_timed(*a, **kw):
+        step, sh, bsh = make(*a, **kw)
+        return _timed_sharded(step, steps, comm_at), sh, bsh
+
+    class KeptPipeline(Pipe):
+        def __call__(self):
+            batch = super().__call__()
+            if batches is not None:
+                batches.append({k: v.clone() for k, v in batch.items()})
+            return batch
+
+    train_mod.shard_train_step, train_mod.Pipeline = make_timed, KeptPipeline
+    if layers:
+        train_mod.configs.get = lambda arch: dataclasses.replace(get(arch),
+                                                                 num_layers=layers)
+    try:
+        yield
+    finally:
+        train_mod.shard_train_step, train_mod.Pipeline = make, Pipe
+        train_mod.configs.get = get
+
+
+def _sharded_argv(arch: str, B: int, S: int, tmp: str, mesh: str,
+                  pool: int = 16, remat: str = "nothing") -> list:
+    return (["--arch", arch, "--steps", str(LM_SH_STEPS), "--batch", str(B),
+             "--seq", str(S), "--selection", "ss", "--pool-factor", str(pool),
+             "--ckpt-every", "0", "--remat", remat, "--ckpt-dir", tmp,
+             "--device", "cuda", "--mesh", mesh])
+
+
+def lm_sharded_one_rank(plain: dict) -> dict:
+    """(a) ``launch/train.py --mesh 1x1`` on a one-rank NCCL group: the
+    sharded step over DTensors at llama3.2-3b's full size and depth, with
+    (c)'s seed and arguments, so both runs start from the same state and see
+    the same batches; its losses held to (c)'s first three (``plain``: (c)'s
+    record), bit for bit or within TRAIN_LOSS_REL.  The counts from 0 just
+    before, read just after."""
+    import tempfile
+
+    from repro_torch.launch import train as train_mod
+
+    arch, B, S, pool = TRAIN_RUNS[0]
+    steps: list = []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, _one_rank_group(), \
+            _sharded_launcher(steps):
+        torch.distributed.all_reduce(torch.zeros(1, device="cuda"))
+        _lm_counts_zero()
+        rc = train_mod.main(_sharded_argv(arch, B, S, tmp, "1x1", pool=pool))
+        torch.cuda.synchronize()
+        launches = _lm_counts()
+    wall = time.perf_counter() - t0
+    check(rc == 0 and len(steps) == LM_SH_STEPS, f"(a) {arch}: rc {rc}, {len(steps)} steps")
+    want = [r["loss"] for r in plain["steps"][:LM_SH_STEPS]]
+    got = [r["loss"] for r in steps]
+    bits = got == want
+    rels = [abs(g / w - 1) for g, w in zip(got, want)]
+    check(bits or max(rels) <= TRAIN_LOSS_REL,
+          f"(a) {arch}: sharded losses {got} against the plain step's {want}")
+    want_f, want_b = _flash_per_step(_lm_config(arch))
+    for i, r in enumerate(steps):
+        lf = r["launches"]
+        check(lf["flash_attention"] == lf["flash_attention_tc"] == want_f
+              and lf["flash_attention_bwd"] == lf["flash_attention_bwd_tc"] == want_b,
+              f"(a) {arch} step {i}: flash launches {lf}, want {want_f} and {want_b} "
+              "on the tensor-core route")
+        check(r["staged"] == 0, f"(a) {arch} step {i}: NCCL staged {r['staged']}")
+    check(launches["ss_divergence"] >= 1 and launches["feature_gains"] >= 1,
+          f"(a) {arch}: the pipeline launched no SS kernels ({launches})")
+    plain_ms = [r["step_ms"] for r in plain["steps"][:LM_SH_STEPS]]
+    print(f"{arch} sharded step at one rank over NCCL, (1, 1) mesh, through "
+          f"launch/train.py --mesh 1x1 ({B} x {S} tokens, AdamW; {CARD[0]}): losses "
+          f"{got} against the plain step's {want}: "
+          f"{'bit for bit' if bits else f'within {max(rels):.3g} relative'}; step ms "
+          f"{[round(r['step_ms'], 2) for r in steps]} (plain {[round(x, 2) for x in plain_ms]}"
+          f", median after the first {plain['step_ms_median']:.2f}); collectives a step "
+          f"{steps[1].get('collectives')}; flash launches a step "
+          f"{steps[0]['launches']['flash_attention']} forward, "
+          f"{steps[0]['launches']['flash_attention_bwd']} backward; peak "
+          f"{max(r['peak_gib'] for r in steps):.2f} GiB (plain {plain['peak_gib']:.2f});"
+          f" launches in the run {launches}; {wall:.2f} s", flush=True)
+    return {"losses": got, "plain_losses": want, "bit_for_bit": bits,
+            "loss_rel": max(rels), "steps": steps, "plain_step_ms": plain_ms,
+            "plain_step_ms_median": plain["step_ms_median"],
+            "plain_peak_gib": plain["peak_gib"], "launches": launches, "wall_s": wall}
+
+
+def _lm_config(arch: str, layers: int = 0):
+    """``arch``'s published config, its depth cut to ``layers`` if given."""
+    from repro_torch import configs
+
+    cfg = configs.get(arch)
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def _flash_shard_check(cfg, B_loc: int, S: int, H_loc: int, KV_loc: int) -> dict:
+    """The flash kernels, forward and backward, at one rank's shard shape
+    against their plain versions on the same inputs."""
+    from repro_torch.kernels import (attention_bwd_ref, attention_ref,
+                                     flash_attention_bwd_kernel, flash_attention_lse)
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    hd = cfg.head_dim
+    q = torch.randn((B_loc, S, H_loc, hd), generator=g, device="cuda").bfloat16()
+    k = torch.randn((B_loc, S, KV_loc, hd), generator=g, device="cuda").bfloat16()
+    v = torch.randn((B_loc, S, KV_loc, hd), generator=g, device="cuda").bfloat16()
+    do = torch.randn((B_loc, S, H_loc, hd), generator=g, device="cuda").bfloat16()
+    o, lse = flash_attention_lse(q, k, v, causal=True, window=0)
+    fwd = flash_close(o, attention_ref(q, k, v, True, 0), f"{cfg.name} shard forward")
+    grads = flash_attention_bwd_kernel(q, k, v, o, do, lse, causal=True, window=0)
+    refs = attention_bwd_ref(q, k, v, o, do, lse, True, 0)
+    bwd = max(bwd_close(a, b, f"{cfg.name} shard d{n}")
+              for a, b, n in zip(grads, refs, "qkv"))
+    return {"shape": [B_loc, S, H_loc, KV_loc, hd], "fwd_err": fwd, "bwd_err": bwd}
+
+
+def _param_norm(params: dict) -> float:
+    """The parameters' global norm (a DTensor state's over every shard)."""
+    from repro_torch.train.trainer import _global_norm
+
+    n = _global_norm(params)
+    return float(n.full_tensor() if hasattr(n, "full_tensor") else n)
+
+
+def _unsharded(cfg, tc, batches: list, seed: int) -> dict:
+    """The plain step of ``cfg`` from ``make_train_state(seed)`` over
+    ``batches``: each step's metrics and each parameter's change."""
+    from repro_torch.train import make_train_state, make_train_step
+
+    state = make_train_state(torch.Generator("cuda").manual_seed(seed), cfg, tc,
+                             device="cuda")
+    init = _leaves(state["params"])
+    step = make_train_step(cfg, tc)
+    out = []
+    for b in batches:
+        state, m = step(state, b)
+        out.append({k: float(v) for k, v in m.items()})
+    change = _change(state["params"], init)
+    del state, init
+    torch.cuda.empty_cache()
+    return {"steps": out, "change": change}
+
+
+def _hold(label: str, got: list, want: list) -> float:
+    """Three sharded steps against the plain ones: the loss within
+    TRAIN_LOSS_REL, the gradient norm within TRAIN_GRAD_REL."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        rl = abs(g["loss"] / w["loss"] - 1)
+        rg = abs(g["grad_norm"] / w["grad_norm"] - 1)
+        check(rl <= TRAIN_LOSS_REL and rg <= TRAIN_GRAD_REL,
+              f"{label} step {i}: loss {g['loss']} vs {w['loss']}, grad norm "
+              f"{g['grad_norm']} vs {w['grad_norm']}")
+        worst = max(worst, rl)
+    return worst
+
+
+def _untraced(log: str) -> str:
+    """A rank's log without its traceback's source lines."""
+    return "\n".join(line for line in log.splitlines()
+                     if not line.lstrip("[rank0123]: ").startswith(("File ", "^"))
+                     and not line.strip(" ^~[rank0123]:").startswith(("return ", "self.")))
+
+
+def _card_free(rec: dict, what: str) -> None:
+    """Free this process's cached blocks and note the card's free memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    rec.setdefault("card_free_gib", {})[what] = free / 2**30
+    rec.setdefault("reserved_gib", {})[what] = torch.cuda.memory_reserved() / 2**30
+    print(f"{what}: the card has {free / 2**30:.2f} GiB free; this rank holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved)", flush=True)
+
+
+def _leaves(params: dict) -> list:
+    """A copy of each parameter leaf (the step updates them in place)."""
+    from repro_torch.models.layers import tree_leaves
+
+    return [p.clone() for p in tree_leaves(params)]
+
+
+def _change(params: dict, init: list) -> list:
+    """Each parameter leaf's change over the run, ||p - p_init|| (a
+    DTensor leaf's over every shard), in ``tree_leaves`` order."""
+    from repro_torch.models.layers import tree_leaves
+
+    return [_param_norm({"p": p - p0}) for p, p0 in zip(tree_leaves(params), init)]
+
+
+def _hold_change(label: str, got: list, want: list) -> tuple[float, float]:
+    """The parameters' change over the run (``_change``) against the plain
+    run's: as one norm over every leaf within TRAIN_LOSS_REL, and each
+    leaf's within TRAIN_GRAD_REL (a leaf's change is its gradient
+    normalised: a small leaf's, a bfloat16 sum of many cancelling terms
+    like a norm's scale, differs by some 1e-3 between the two runs' orders
+    of summation).  A run that leaves the parameters in place fails.
+    Returns (the total's, the worst leaf's) relative difference."""
+    total = math.hypot(*want)
+    check(total > 0, f"{label}: the plain run left the parameters in place")
+    rel_total = abs(math.hypot(*got) - total) / total
+    check(rel_total <= TRAIN_LOSS_REL, f"{label}: the parameters moved "
+          f"{math.hypot(*got)}, the plain run's {total}")
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(abs(g - w) <= TRAIN_GRAD_REL * w,
+              f"{label}: leaf {i} moved {g}, the plain run's {w}")
+        worst = max(worst, abs(g - w) / w if w else 0.0)
+    return rel_total, worst
+
+
+def lm_sharded_rank(rank: int, store: str, out: str) -> None:
+    """One of part (b)'s four ranks on the one card over gloo, DTensor's
+    all-gathers staged through the host: llama3.2-3b cut to
+    LM_SH_LAYERS layers through ``launch/train.py --mesh 2x2``;
+    olmoe-1b-7b cut alike, Adafactor, µ = 2, through ``shard_train_step``;
+    the compressed pod step on the cut llama at (2, 1, 2), kernel route and
+    plain route; the flash kernels at this rank's shard shape against their
+    plain versions.  Rank 0 then runs each cut model's plain step from the
+    same state over the same batches.  Writes its figures to ``out``."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as dd
+    from repro_torch.kernels import load_library
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.sharding import distribute
+    from repro_torch.train import (CompressConfig, TrainConfig, compressed_state_shardings,
+                                   init_error_state, make_compressed_train_step,
+                                   make_train_state, shard_train_step)
+
+    torch.cuda.set_device(0)
+    load_library()
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=LM_SH_RANKS)
+    check(dd.stage_functional_collectives(), "gloo: staging is off")
+    rec: dict = {}
+    t0 = time.perf_counter()
+    # 1. llama through the launcher
+    arch, B, S, _, _ = LM_SH_RUNS["llama3.2-3b"]
+    steps, batches = [], []
+    with (tempfile.TemporaryDirectory() as tmp,
+          _sharded_launcher(steps, batches, layers=LM_SH_LAYERS)):
+        _lm_counts_zero()
+        rc = train_mod.main(_sharded_argv(arch, B, S, tmp, "2x2", remat=LM_SH_REMAT))
+        launches = _lm_counts()
+    check(rc == 0 and len(steps) == LM_SH_STEPS, f"(b) {arch}: rc {rc}, {len(steps)} steps")
+    rec[arch] = {"steps": steps, "launches": launches, "batch": [B, S]}
+    _card_free(rec, f"after {arch}")
+    # 2. olmoe through shard_train_step, a seeded batch a step
+    arch, B, S, opt, mu = LM_SH_RUNS["olmoe-1b-7b"]
+    cfg = _lm_config(arch, LM_SH_LAYERS)
+    otc = TrainConfig(optimizer=opt, num_microbatches=mu, warmup_steps=1,
+                      total_steps=LM_SH_SHORT, remat=LM_SH_REMAT)
+    mesh = make_mesh((2, 2), ("data", "model"), "cuda")
+    g = torch.Generator("cuda").manual_seed(7)
+    ob = [{"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda"),
+           "labels": torch.randint(0, cfg.vocab_size, (B, S), generator=g, device="cuda")}
+          for _ in range(LM_SH_SHORT)]
+    state = make_train_state(torch.Generator("cuda").manual_seed(0), cfg, otc,
+                             device="cuda")
+    step, sh, _ = shard_train_step(mesh, cfg, otc, state)
+    state = distribute(state, sh)
+    init = _leaves(state["params"])
+    torch.cuda.empty_cache()
+    osteps: list = []
+    step = _timed_sharded(step, osteps, 1)
+    c0 = _lm_counts()
+    for b in ob:
+        state, _ = step(state, b)
+    rec[arch] = {"steps": osteps, "launches": _diff(_lm_counts(), c0), "batch": [B, S],
+                 "change": _change(state["params"], init)}
+    del state, step, init
+    _card_free(rec, f"after {arch}")
+    # 3. the compressed pod step, kernel route then plain route
+    cfg = _lm_config("llama3.2-3b", LM_SH_LAYERS)
+    tc = TrainConfig(warmup_steps=1, total_steps=LM_SH_SHORT, remat=LM_SH_REMAT)
+    pmesh = make_mesh((2, 1, 2), ("pod", "data", "model"), "cuda")
+    comp = {}
+    for route in ("cuda", "plain"):
+        state = make_train_state(torch.Generator("cuda").manual_seed(0), cfg, tc,
+                                 device="cuda")
+        state["error"] = init_error_state(state["params"])
+        state = distribute(state, compressed_state_shardings(pmesh, cfg, tc, state))
+        init = _leaves(state["params"])
+        torch.cuda.empty_cache()
+        cstep = make_compressed_train_step(pmesh, cfg, tc, CompressConfig(**LM_SH_COMPRESS))
+        csteps: list = []
+        cstep = _timed_sharded(cstep, csteps, None)
+        with (plain_attention() if route == "plain" else contextlib.nullcontext()):
+            for b in batches[:LM_SH_SHORT]:
+                state, _ = cstep(state, b)
+        comp[route] = {"steps": csteps, "change": _change(state["params"], init)}
+        del state, cstep, init
+        _card_free(rec, f"after the compressed step, {route} route")
+    rec["compressed"] = comp
+    # 4. the flash kernels at this rank's shard shape
+    lcfg = _lm_config("llama3.2-3b")
+    ocfg = _lm_config("olmoe-1b-7b")
+    rec["flash_shard"] = {
+        "llama3.2-3b": _flash_shard_check(lcfg, 2, 1024, lcfg.num_heads // 2,
+                                          lcfg.num_kv_heads // 2),
+        "olmoe-1b-7b": _flash_shard_check(ocfg, 2, 512, ocfg.num_heads // 2,
+                                          ocfg.num_kv_heads // 2)}
+    rec["staged"] = dict(dd.STAGED)
+    rec["rank_s"] = time.perf_counter() - t0
+    dist.destroy_process_group()
+    if rank == 0:
+        # the plain step of each cut model, from the same state, same batches
+        lt = TrainConfig(warmup_steps=2, total_steps=LM_SH_STEPS, remat=LM_SH_REMAT)
+        rec["plain"] = {
+            "llama3.2-3b": _unsharded(_lm_config("llama3.2-3b", LM_SH_LAYERS), lt,
+                                      batches, 0),
+            "olmoe-1b-7b": _unsharded(_lm_config("olmoe-1b-7b", LM_SH_LAYERS), otc, ob, 0)}
+    with open(out, "w") as fh:
+        json.dump(rec, fh)
+
+
+def lm_sharded_phase(training: dict) -> dict:
+    """LM training sharded over a DeviceMesh: (a) one rank over NCCL at
+    llama3.2-3b's full size (``lm_sharded_one_rank``, against ``training``'s
+    (c)); (b) four ranks on the one card over gloo, each a process of this
+    script (``--lm-sharded-rank``), held to the plain step and the plain
+    route.  A failing rank fails the phase."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = {"card": CARD[0],
+           "one_rank": lm_sharded_one_rank(training["train"][TRAIN_RUNS[0][0]])}
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info()
+    print(f"before the four ranks: this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved), the card has "
+          f"{free / 2**30:.2f} GiB free", flush=True)
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.json") for r in range(LM_SH_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--lm-sharded-rank", str(r),
+             os.path.join(tmp, "store"), outs[r]], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "OMP_NUM_THREADS": "2",
+                 "PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+            for r in range(LM_SH_RANKS)]
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        check(not failed, "lm sharded ranks failed: " + "\n".join(
+            f"rank {r}:\n{_untraced(logs[r])[-3000:]}" for r in failed))
+        recs = [json.load(open(o)) for o in outs]
+    four = recs[0]
+    for arch in LM_SH_RUNS:
+        for r, other in enumerate(recs[1:], 1):
+            check([s["loss"] for s in other[arch]["steps"]]
+                  == [s["loss"] for s in four[arch]["steps"]],
+                  f"(b) {arch}: rank {r} reports other losses")
+        cfg = _lm_config(arch, LM_SH_LAYERS)
+        mu = LM_SH_RUNS[arch][4]           # each microbatch its own forward and backward
+        want_b = mu * _flash_per_step(cfg)[1]
+        want_f = want_b                    # remat "none": one forward a backward
+        for r, rr in enumerate(recs):
+            for i, st in enumerate(rr[arch]["steps"]):
+                lf = st["launches"]
+                check(lf["flash_attention"] == lf["flash_attention_tc"] == want_f
+                      and lf["flash_attention_bwd"] == lf["flash_attention_bwd_tc"]
+                      == want_b,
+                      f"(b) {arch} rank {r} step {i}: flash launches {lf}, want "
+                      f"{want_f} and {want_b} on the tensor-core route")
+        plain = four["plain"][arch]
+        four[arch]["loss_rel"] = _hold(f"(b) {arch}", four[arch]["steps"], plain["steps"])
+        moved = four[arch].get("change")
+        if moved is not None:
+            four[arch]["change_rel"] = _hold_change(f"(b) {arch}", moved, plain["change"])
+        st = four[arch]["steps"]
+        print(f"{arch} cut to {LM_SH_LAYERS} layers, 4 ranks on one card over gloo, "
+              f"(2, 2) mesh ({four[arch]['batch'][0]} x {four[arch]['batch'][1]} tokens"
+              f"; {CARD[0]}): losses {[s['loss'] for s in st]} (plain "
+              f"{[s['loss'] for s in plain['steps']]}; worst {four[arch]['loss_rel']:.3g}"
+              f" relative)" + (f"; the parameters' change {math.hypot(*moved)} (plain "
+                               f"{math.hypot(*plain['change'])}: {four[arch]['change_rel'][0]:.3g} "
+                               f"relative, the worst leaf {four[arch]['change_rel'][1]:.3g})"
+                               if moved is not None else "")
+              + f"; step ms {[round(s['step_ms'], 1) for s in st]}; collectives a "
+              f"step {st[1].get('collectives')}; staged a step {[s['staged'] for s in st]}"
+              f" ({[round(s['staged_gib'], 3) for s in st]} GiB to the host, "
+              f"{[round(s['staged_ms']) for s in st]} ms in them, rank 0);"
+              f" per-rank peak {[round(max(s['peak_gib'] for s in rr[arch]['steps']), 2) for rr in recs]}"
+              f" GiB; flash launches a step {st[0]['launches']['flash_attention']} forward, "
+              f"{st[0]['launches']['flash_attention_bwd']} backward a rank", flush=True)
+    comp = four["compressed"]
+    dens = [s["compress_density"] for s in comp["cuda"]["steps"]]
+    check(all(0 < d <= 0.075 for d in dens), f"(b) compressed: density {dens}")
+    comp["loss_rel"] = _hold("(b) compressed, kernel vs plain route",
+                             comp["cuda"]["steps"], comp["plain"]["steps"])
+    comp["change_rel"] = _hold_change("(b) compressed, kernel vs plain route",
+                                      comp["cuda"]["change"], comp["plain"]["change"])
+    for r, rr in enumerate(recs):
+        for arch, fs in rr["flash_shard"].items():
+            check(math.isfinite(fs["fwd_err"]) and math.isfinite(fs["bwd_err"]),
+                  f"(b) rank {r} {arch}: flash at the shard shape")
+    print(f"compressed pod step, (pod, data, model) = (2, 1, 2), ratio "
+          f"{LM_SH_COMPRESS['ratio']}, block {LM_SH_COMPRESS['block']}: losses "
+          f"{[s['loss'] for s in comp['cuda']['steps']]} (plain route "
+          f"{[s['loss'] for s in comp['plain']['steps']]}), the parameters' change "
+          f"{math.hypot(*comp['cuda']['change'])} (plain route "
+          f"{math.hypot(*comp['plain']['change'])}: {comp['change_rel'][0]:.3g} relative, "
+          f"the worst leaf {comp['change_rel'][1]:.3g}), "
+          f"density {dens}, step ms {[round(s['step_ms'], 1) for s in comp['cuda']['steps']]}"
+          f" (staged {[round(s['staged_ms']) for s in comp['cuda']['steps']]} ms); "
+          f"flash at the shard "
+          f"shapes {json.dumps(four['flash_shard'])}; staged by op {four['staged']};"
+          f" rank wall {[round(rr['rank_s'], 1) for rr in recs]} s; the card's free "
+          f"GiB (rank 0's reserved) {json.dumps(four['card_free_gib'])} "
+          f"({json.dumps(four['reserved_gib'])})", flush=True)
+    out["four_ranks"] = four
+    out["four_ranks_s"] = time.perf_counter() - t1
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"lm sharded phase: {out['phase_s']:.2f} s ((a) "
+          f"{out['one_rank']['wall_s']:.2f} s, (b) {out['four_ranks_s']:.2f} s)", flush=True)
+    return out
+
+
 # -- batched execution: the service's lanes and SS pruning of the KV cache ----
 
 LANE_B, LANE_N = 8, 1 << 16        # coverage lane: 8 queries of 2^16 sentences
@@ -6155,6 +6695,11 @@ def main() -> int:
         i = sys.argv.index("--sharded-rank")
         sharded_rank(int(sys.argv[i + 1]), sys.argv[i + 2], sys.argv[i + 3])
         return 0
+    if "--lm-sharded-rank" in sys.argv:
+        # one rank of lm_sharded_phase's part (b), started by the script itself
+        i = sys.argv.index("--lm-sharded-rank")
+        lm_sharded_rank(int(sys.argv[i + 1]), sys.argv[i + 2], sys.argv[i + 3])
+        return 0
     from repro_torch.kernels import build, load_library
 
     # 1. the card
@@ -6172,6 +6717,23 @@ def main() -> int:
         build()
         load_library()
         print(json.dumps(first_chunk_probe(mode == "warmed")))
+        return 0
+    if "--lm-sharded" in sys.argv:
+        # the LM sharding phase alone, after a plain run of (c) cut to 5
+        # steps: no kernel records and no result line
+        global TRAIN_STEPS
+        build()
+        load_library()
+        TRAIN_STEPS = 5
+        import tempfile
+
+        from repro_torch import configs
+        arch, B, S, pool = TRAIN_RUNS[0]
+        with tempfile.TemporaryDirectory() as tmp:
+            plain = _train_main(configs.get(arch), tmp, B, S, pool)
+        torch.cuda.empty_cache()
+        print(json.dumps({"lm_sharded": lm_sharded_phase({"train": {arch: plain}})},
+                         default=float))
         return 0
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}",
@@ -6249,6 +6811,10 @@ def main() -> int:
     bwd_record, training = train_phase(errs)
     mark("train_phase")
     records.append(bwd_record)
+    # 15b. LM training sharded over a DeviceMesh: one rank over NCCL at
+    # full size against (c), four ranks sharing the card over gloo
+    lm_sharded = lm_sharded_phase(training)
+    mark("lm_sharded_phase")
     # 16. the examples through their own main: the video at 9721 frames, KV
     # pruning on qwen2-7b (smoke, full size at budgets 512 and 256),
     # SS-selected training
@@ -6257,6 +6823,10 @@ def main() -> int:
     for r_ in records:
         r_["examples"] = {ex: v["launches"].get(r_["name"], 0)
                           for ex, v in examples.items() if isinstance(v, dict)}
+        r_["lm_sharded"] = {
+            "llama3.2-3b, 1 rank": lm_sharded["one_rank"]["launches"].get(r_["name"], 0),
+            **{f"{arch}, 4 ranks (rank 0)": lm_sharded["four_ranks"][arch]["launches"]
+               .get(r_["name"], 0) for arch in LM_SH_RUNS}}
         r_["sharded"] = {
             **{lab: v["launches"].get(r_["name"], 0)
                for lab, v in sharded.items() if lab in ("FeatureCoverage", "path A",
@@ -6284,6 +6854,7 @@ def main() -> int:
     print(json.dumps({"roofline": roof}))
     print(json.dumps({"sharded": {k: v for k, v in sharded.items()}},
                      default=float))
+    print(json.dumps({"lm_sharded": lm_sharded}, default=float))
     print(f"chip_smoke: {time.perf_counter() - T0[0]:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

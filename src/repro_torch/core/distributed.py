@@ -65,6 +65,7 @@ both ops used here; gloo is given host tensors for both.
 from __future__ import annotations
 
 import math
+import time
 
 import torch
 import torch.distributed as dist
@@ -566,3 +567,61 @@ def summarize_sharded(
                           exact=True, backend=backend, noise=None,
                           ctx=None if pod_axis else ctx)
     return res, ss
+
+
+# ---------------------------------------------------------------------------
+# DTensor's collectives over gloo on a card
+# ---------------------------------------------------------------------------
+
+#: the functional collective (``torch.ops._c10d_functional``) that gloo
+#: refuses on a CUDA tensor: run natively it ends the process
+#: (``chip_dtensor_probe.py``), where it takes DTensor's all_reduce,
+#: reduce_scatter_tensor, all_to_all_single and broadcast
+STAGED_OP = "all_gather_into_tensor"
+#: the staged calls, by op; the bytes of their inputs and the seconds they
+#: took (host clock, copies included)
+STAGED = {STAGED_OP: 0}
+STAGED_BYTES = [0]
+STAGED_SECONDS = [0.0]
+_STAGING = []
+
+
+def stage_functional_collectives() -> bool:
+    """Route DTensor's all-gather of a CUDA tensor over gloo through the
+    host.  The one rule, as :func:`staged`: a process whose default group
+    is gloo stages :data:`STAGED_OP` on a CUDA tensor, the one functional
+    collective that gloo refuses there; every other collective goes to
+    gloo as it is, and a process on NCCL installs nothing.  The staged
+    all-gather runs as the sum all-reduce of a page-locked zero buffer
+    holding this rank's block: the same elements (a -0.0 gathered becomes
+    +0.0).  Returns whether staging is on."""
+    if _STAGING:
+        return True
+    if dist.get_backend() != "gloo":
+        return False
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    lib.impl(STAGED_OP, _host_all_gather, "CUDA")
+    _STAGING.append(lib)
+    return True
+
+
+def _host_all_gather(x: Tensor, size: int, group_name: str) -> Tensor:
+    if x.dtype == torch.bool:      # gloo sums bytes, not bools
+        return _host_all_gather(x.view(torch.uint8), size, group_name).view(torch.bool)
+    group = dist.distributed_c10d._resolve_process_group(group_name)
+    if dist.get_backend(group) != "gloo":
+        raise RuntimeError(f"{STAGED_OP}: staging serves gloo groups, not "
+                           f"{dist.get_backend(group)}")
+    t0 = time.perf_counter()
+    n = x.shape[0]
+    buf = torch.empty((size * n,) + tuple(x.shape[1:]), dtype=x.dtype, pin_memory=True)
+    r = dist.get_group_rank(group, dist.get_rank())
+    buf[:r * n].zero_()
+    buf[(r + 1) * n:].zero_()
+    buf[r * n:(r + 1) * n].copy_(x)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    out = buf.to(x.device)
+    STAGED[STAGED_OP] += 1
+    STAGED_BYTES[0] += x.numel() * x.element_size()
+    STAGED_SECONDS[0] += time.perf_counter() - t0
+    return out

@@ -1,13 +1,16 @@
 """The card's hardware constants: one NVIDIA H100 SXM (80 GB HBM3).
 
 The counterpart of ``repro/launch/mesh.py``'s ``HW``, which holds a TPU
-v5e chip's constants for the roofline, and of its ``make_test_mesh``:
-:func:`make_mesh` names the axes of a ``torch.distributed`` DeviceMesh over
-the ranks of an initialised process group, which the sharded SS and greedy
-loops (``repro_torch.core.distributed``) run over.  The production meshes
-of the LM layouts (16 x 16 chips and 2 x 16 x 16) come with the LM sharding
-slice, which is still to port.  On one card the collective term of the
-roofline is 0.
+v5e chip's constants for the roofline, and of its ``make_test_mesh`` and
+``single_device_mesh``: :func:`make_mesh` names the axes of a
+``torch.distributed`` DeviceMesh over the ranks of an initialised process
+group, which the sharded SS and greedy loops
+(``repro_torch.core.distributed``) and the sharded train step
+(``repro_torch.train.shard_train_step``) run over.  The production meshes
+of the LM layouts (16 x 16 and 2 x 16 x 16) are pinned as shapes
+(``models.sharding.MeshShape``) for their spec trees; a process group of
+their size, and with it the collective term of the roofline, is still to
+come (``make_production_mesh``).  On one card that term is 0.
 
 ``HW`` holds NVIDIA's published dense peaks of the H100 SXM at its 700 W
 limit (a card set to a lower limit runs slower under load):
@@ -51,3 +54,12 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...],
         raise RuntimeError("make_mesh needs an initialised process group: call "
                            "torch.distributed.init_process_group first")
     return init_device_mesh(device_type, tuple(shape), mesh_dim_names=tuple(axes))
+
+
+#: the reference's name for a small explicit mesh ((1, 1), (2, 2), (2, 1, 2))
+make_test_mesh = make_mesh
+
+
+def single_device_mesh(device_type: str = "cuda"):
+    """The (1, 1) ("data", "model") mesh of a one-rank group."""
+    return make_mesh((1, 1), ("data", "model"), device_type)

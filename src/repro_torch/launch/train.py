@@ -12,7 +12,17 @@ full size, e.g. llama3.2-3b at 4 x 2048 tokens:
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-3b \\
         --steps 8 --batch 4 --seq 2048 --ckpt-every 0
 
-One device only: ``--mesh`` takes ``1x1``.
+``--mesh DxM`` runs the sharded step (``shard_train_step``) over a
+(data, model) mesh of D·M ranks: in the process group already open, else
+in one opened from the torchrun environment (``env://``: NCCL when every
+rank has a card of its own, gloo when ranks share one), each rank running
+the pipeline from the same seed and taking its shards of the same global
+batch.  Four ranks on one card, say:
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch llama3.2-3b --smoke --mesh 2x2 --steps 4
+
+``1x1`` with no group and no torchrun environment is the one-device step.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import os
 import tempfile
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.data import DataConfig, Pipeline
@@ -36,7 +47,45 @@ from repro_torch.train import (
     make_train_step,
     resume_or_init,
     run,
+    shard_train_step,
 )
+from repro_torch.models.sharding import distribute
+
+_TORCHRUN = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+
+
+def group_backend(device: torch.device) -> str:
+    """The backend of a group opened here, a pure rule: NCCL when every
+    rank of this host has a card of its own, gloo otherwise (ranks that
+    share a card, or ranks on the host)."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ.get("WORLD_SIZE", "1")))
+    if device.type == "cuda" and local <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def _open_group(ranks: int, device: torch.device) -> tuple[bool, torch.device]:
+    """Use the open process group, or open one from the torchrun
+    environment.  Returns (whether this opened it, this rank's device);
+    raises where ``ranks`` > 1 finds neither."""
+    if dist.is_initialized():
+        return False, device
+    if not all(k in os.environ for k in _TORCHRUN):
+        # the launcher starts no ranks of its own
+        raise NotImplementedError(
+            f"--mesh of {ranks} ranks needs a process group: open one "
+            "(torch.distributed.init_process_group) or start the ranks with "
+            f"torchrun, which sets {', '.join(_TORCHRUN)}; without either the "
+            "launcher trains on one device, --mesh 1x1")
+    backend = group_backend(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))
+                              % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    print(f"process group: {backend} over {os.environ['WORLD_SIZE']} ranks "
+          f"(env://), {device}")
+    dist.init_process_group(backend, init_method="env://")
+    return True, device
 
 
 def main(argv=None) -> int:
@@ -57,18 +106,23 @@ def main(argv=None) -> int:
                     default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--mesh", default="1x1",
-                    help="data x model; the port runs on one device: 1x1")
+                    help="data x model ranks (1x1 without a group: one device)")
     ap.add_argument("--straggler-deadline", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--remat", default="nothing", choices=list(REMAT_POLICIES))
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.mesh != "1x1":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port trains on one device (1x1); "
-            "sharded training is still to port (ROADMAP §1 item 7)")
+    dshape = tuple(int(x) for x in args.mesh.split("x"))
+    ranks = dshape[0] * dshape[1]
     dev = resolve_device(args.device)
+    sharded = ranks > 1 or dist.is_initialized() or all(k in os.environ for k in _TORCHRUN)
+    opened = False
+    if sharded:
+        opened, dev = _open_group(ranks, dev)
+        if dist.get_world_size() != ranks:
+            raise ValueError(f"--mesh {args.mesh} needs {ranks} ranks; the group "
+                             f"has {dist.get_world_size()}")
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     tc = TrainConfig(
         optimizer=args.optimizer
@@ -91,14 +145,24 @@ def main(argv=None) -> int:
     )
     pipe = Pipeline(dc, seed=args.seed, device=dev)
 
-    step_fn = make_train_step(cfg, tc)
+    state_shape = abstract_train_state(cfg, tc)
+    init = lambda: make_train_state(torch.Generator(dev).manual_seed(args.seed), cfg,
+                                    tc, device=dev)
     ckpt = Checkpointer(os.path.join(args.ckpt_dir, cfg.name))
-    state, start, resumed = resume_or_init(
-        ckpt, abstract_train_state(cfg, tc),
-        lambda: make_train_state(torch.Generator(dev).manual_seed(args.seed), cfg,
-                                 tc, device=dev),
-        device=dev,
-    )
+    if sharded:
+        from repro_torch.core.distributed import stage_functional_collectives
+        from repro_torch.launch.mesh import make_mesh
+
+        if stage_functional_collectives() and dev.type == "cuda":
+            print("gloo on the card: DTensor's all-gathers staged through the host")
+        mesh = make_mesh(dshape, ("data", "model"), dev.type)
+        step_fn, state_sh, _ = shard_train_step(mesh, cfg, tc, state_shape)
+        state, start, resumed = resume_or_init(
+            ckpt, state_shape, lambda: distribute(init(), state_sh),
+            device=dev, shardings=state_sh)
+    else:
+        step_fn = make_train_step(cfg, tc)
+        state, start, resumed = resume_or_init(ckpt, state_shape, init, device=dev)
     if resumed:
         print(f"resumed from step {start}")
 
@@ -118,6 +182,8 @@ def main(argv=None) -> int:
         + (f", {report.straggler_skips} straggler skips"
            if report.straggler_skips else "")
     )
+    if opened:
+        dist.destroy_process_group()
     return 0
 
 

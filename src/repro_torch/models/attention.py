@@ -1,6 +1,9 @@
 """GQA attention: full-causal and sliding-window, prefill through the fused
 flash kernel, decode against a static KV cache.  The counterpart of
-``repro/models/attention.py``, on one device (no sharding constraints).
+``repro/models/attention.py``.  Under a mesh (``models/sharding.py``) the
+query heads are pinned over ``model`` (unevenly where the count does not
+divide), k and v over the batch axes only, and each rank runs the flash
+kernel on its own query heads (:func:`_local_heads`).
 
 Supports: RoPE, qk-norm (qwen3), QKV bias (qwen2), GQA with any
 heads/kv-heads ratio, logit soft-capping (CPU only in prefill: the flash
@@ -12,6 +15,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.ref import NEG, _softcap, attention_ref
@@ -22,10 +26,117 @@ from repro_torch.models.layers import (
     dtype_of,
     rmsnorm_headwise,
 )
+from repro_torch.models.sharding import (
+    DATA,
+    MODEL,
+    POD,
+    axis_sizes,
+    constrain,
+    current_mesh,
+    local_range,
+    local_region,
+    placements,
+    redistribute,
+)
 
 Tensor = torch.Tensor
 
 NEG_INF = NEG  # finite: avoids NaN from all-masked softmax rows
+
+
+def _constrain_heads(x: Tensor) -> Tensor:
+    """(B, S, H, hd): heads over model, better than sharding head_dim
+    (which puts the QK and PV contractions on the model axis).  Uneven
+    head counts are legal (6 heads on 4 ranks split 2, 2, 2, 0, as GSPMD
+    pads and as ``torch.chunk`` splits); DTensor's collectives fail on such
+    a split in the backward, so an uneven count is pinned over the batch
+    only and split inside the attention's region (:func:`_local_heads`)."""
+    mesh = current_mesh()
+    sizes = axis_sizes(mesh) if mesh is not None else {}
+    if not isinstance(x, DTensor) or MODEL not in sizes:
+        return x
+    batch = tuple(a for a in (POD, DATA) if a in sizes)
+    if not batch or x.shape[0] % math.prod(sizes[a] for a in batch):
+        entry = None
+    else:
+        entry = batch if len(batch) > 1 else batch[0]
+    # deliberately not fit_spec'd: an uneven head split is the point
+    heads = MODEL if x.shape[2] % sizes[MODEL] == 0 else None
+    return redistribute(x, placements(x.device_mesh, (entry, None, heads, None)))
+
+
+def _local_heads(q: DTensor, k: DTensor, v: DTensor, fn) -> DTensor:
+    """``fn(q, k, v)`` on each rank's own query heads (a local region:
+    the flash kernels see local tensors).  The heads are split over model
+    in ceiling-first blocks: q arrives split so (an even count), or whole
+    (an uneven count: each rank takes its block, and its output, zero
+    outside the block, is Partial over model).  k and v are replicated over
+    model; query head h reads KV head h // G, so a rank slices its KV heads
+    where its block is whole groups, and gathers one KV head per query head
+    where it is not (rank 1 of 6 heads over 4 ranks, with G = 3, holds
+    heads 2 and 3, which read KV heads 0 and 1).  A rank with no heads
+    launches nothing (a zero-size grid is an invalid launch)."""
+    mesh = q.device_mesh
+    for d, p in enumerate(k.placements):
+        if p != v.placements[d] or not (isinstance(p, Replicate) or p == q.placements[d]):
+            raise ValueError(f"_local_heads: k, v {k.placements} must be q's "
+                             f"{q.placements} over the batch and replicated elsewhere")
+    H, G = q.shape[2], q.shape[2] // k.shape[2]
+    split = [d for d, p in enumerate(q.placements) if isinstance(p, Shard) and p.dim == 2]
+    if split or MODEL not in mesh.mesh_dim_names:
+        h0, h1 = local_range(q, 2)
+        whole, heads = False, split
+    else:                             # an uneven count, split here
+        m = mesh.mesh_dim_names.index(MODEL)
+        chunk = -(-H // mesh.size(m))
+        h0 = min(chunk * mesh.get_local_rank(m), H)
+        h1 = min(h0 + chunk, H)
+        whole, heads = True, [m]
+
+    def body(ql, kl, vl):
+        if whole:
+            ql = ql[:, :, h0:h1]
+        if h1 == h0:                  # no heads: nothing to launch (the
+            # empty output still reads q, k and v, so that every rank's
+            # backward runs the same collectives)
+            out = torch.cat([ql, kl[:, :, :0], vl[:, :, :0]], dim=2)
+        else:
+            if h0 % G == 0 and h1 % G == 0:
+                kl, vl = kl[:, :, h0 // G:h1 // G], vl[:, :, h0 // G:h1 // G]
+            else:
+                idx = torch.arange(h0, h1, device=kl.device) // G
+                kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
+            out = fn(ql, kl, vl)
+        if whole:
+            B, S, _, hd = out.shape
+            out = torch.cat([out.new_zeros((B, S, h0, hd)), out,
+                             out.new_zeros((B, S, H - h1, hd))], dim=2)
+        return out
+
+    # each rank's heads read their own KV heads (and, split here, their
+    # own query heads): those gradients are each rank's share, Partial
+    # over the head axis's mesh dimensions
+    part = tuple(Partial() if d in heads else p for d, p in enumerate(k.placements))
+    out_pl = tuple(Partial() if d in heads else p for d, p in enumerate(q.placements)) \
+        if whole else q.placements
+    return local_region(body, (q, k, v), (out_pl, tuple(q.shape)),
+                        grads=(part if whole else None, part, part))
+
+
+def _whole_heads(x, heads: int):
+    """``x`` (B, S, heads x head_dim) with its last dimension gathered
+    over the mesh dimensions that split it where their shards are not whole
+    heads (a 48-wide projection over 4 ranks, 6 heads of 8): DTensor
+    reshapes only a split that the heads divide.  Unchanged otherwise, and
+    on a plain tensor."""
+    if not isinstance(x, DTensor):
+        return x
+    split = [d for d, p in enumerate(x.placements)
+             if isinstance(p, Shard) and p.dim == x.ndim - 1]
+    if not split or heads % math.prod(x.device_mesh.size(d) for d in split) == 0:
+        return x
+    return redistribute(x, tuple(Replicate() if d in split else p
+                                 for d, p in enumerate(x.placements)))
 
 
 def attention_init(gen: torch.Generator, cfg, lead: tuple[int, ...] = ()) -> Params:
@@ -61,15 +172,20 @@ def _project_qkv(p: Params, cfg, x: Tensor, positions: Tensor):
         q = q + p["b_q"].to(cdt)
         k = k + p["b_k"].to(cdt)
         v = v + p["b_v"].to(cdt)
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = _whole_heads(q, cfg.num_heads).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = _whole_heads(k, cfg.num_kv_heads).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = _whole_heads(v, cfg.num_kv_heads).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm_headwise(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm_headwise(p["k_norm"], k, cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    # q: heads over model (uneven where they do not divide).  k, v:
+    # replicated over model (a KV head is small, and each rank's query
+    # heads read their own KV heads locally)
+    return (_constrain_heads(q),
+            constrain(k, (POD, DATA), None, None, None),
+            constrain(v, (POD, DATA), None, None, None))
 
 
 # ---------------------------------------------------------------------------
@@ -96,8 +212,12 @@ def blockwise_attention(
     differentiated by autograd.  The reference's tiles
     (``block_q``, ``block_k``) are the kernel's own business here.  One
     difference from the reference in bfloat16: it rounds the probabilities
-    to bfloat16 before P·V, the flash function does not.
+    to bfloat16 before P·V, the flash function does not.  On DTensors each
+    rank runs this on its own query heads (:func:`_local_heads`).
     """
+    if isinstance(q, DTensor):
+        return _local_heads(q, k, v, lambda a, b, c: blockwise_attention(
+            a, b, c, causal=causal, window=window, softcap=softcap))
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal, window, softcap)
     if softcap > 0.0:

@@ -35,6 +35,7 @@ import math
 
 import torch
 import torch.utils.checkpoint as tc
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -42,6 +43,14 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import (
+    DATA,
+    POD,
+    constrain,
+    local_range,
+    local_region,
+    redistribute,
+)
 from repro_torch.models.layers import (
     Params,
     dtype_of,
@@ -219,6 +228,7 @@ def _groups_apply(cfg: ModelConfig, groups: list[Params], lo: int, hi: int,
     runs it as it is."""
     for g in range(lo, hi):
         def body(x, aux, gp=groups[g]):
+            x = constrain(x, (POD, DATA), None, None)
             for i, btype in enumerate(cfg.block_pattern):
                 x, aux = _block_apply(cfg, btype, gp[f"p{i}"], x, positions, aux)
             return x, aux
@@ -314,17 +324,44 @@ def lm_loss(
 
     The reference's order: the max over V (held constant), exp, sum, log;
     the label's logit by ``gather``, which gives the reference's one-hot sum
-    exactly (its other terms add 0; the one-hot form there keeps GSPMD's
-    vocab sharding, which one card does not have)."""
+    exactly (its other terms add 0).  On DTensor logits with the vocab over
+    model the max, exp, sum and log reduce over the shards, and the label's
+    logit comes from the rank whose block holds it (:func:`_label_logit`):
+    the (B, S, V) logits are never gathered."""
     valid = labels >= 0
     labels_safe = labels.clamp_min(0).long()
     lf = logits.float()
     m = lf.amax(dim=-1, keepdim=True).detach()
     # exp in place on the fresh difference: one (B, S, V) float32 buffer less
     lse = torch.log(torch.exp_(lf - m).sum(dim=-1)) + m[..., 0]
-    label_logit = lf.gather(-1, labels_safe[..., None])[..., 0]
+    if isinstance(lf, DTensor):
+        label_logit = _label_logit(lf, labels_safe)
+    else:
+        label_logit = lf.gather(-1, labels_safe[..., None])[..., 0]
     nll = lse - label_logit
     return (nll * valid).sum() / valid.sum().clamp_min(1)
+
+
+def _label_logit(lf: DTensor, labels: DTensor) -> DTensor:
+    """The label's logit of vocab-sharded logits: each rank gathers the
+    labels inside its vocab block (zeros elsewhere), a local region whose
+    output is Partial over the vocab's mesh dimensions (a sum of one
+    nonzero term, as the reference's one-hot contraction)."""
+    from torch.distributed.tensor import Partial, Shard
+
+    vd = lf.ndim - 1
+    lo, hi = local_range(lf, vd)
+    out_pl = tuple(Partial() if isinstance(p, Shard) and p.dim == vd else p
+                   for p in lf.placements)
+    lab_pl = tuple(Replicate() if isinstance(p, Partial) else p for p in out_pl)
+    labels = redistribute(labels, lab_pl)
+
+    def body(l, y):
+        inside = (y >= lo) & (y < hi)
+        got = l.gather(-1, torch.where(inside, y - lo, 0)[..., None])[..., 0]
+        return torch.where(inside, got, 0.0)
+
+    return local_region(body, (lf, labels), (out_pl, tuple(labels.shape)))
 
 
 # ---------------------------------------------------------------------------
@@ -362,7 +399,8 @@ def prefill(
     positions = torch.arange(x.shape[1], device=x.device)
     cache = init_cache(cfg, x.shape[0], max_len, device=x.device)
     for btype, p, c in _layers(cfg, params, cache):
-        x = _block_prefill(cfg, btype, p, x, positions, c)
+        x = _block_prefill(cfg, btype, p, constrain(x, (POD, DATA), None, None),
+                           positions, c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], cfg, x[:, -1:]), cache
 

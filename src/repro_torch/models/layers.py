@@ -15,6 +15,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.sharding import DATA, MODEL, POD, constrain, vocab_lookup
+
 Tensor = torch.Tensor
 Params = dict
 
@@ -141,8 +143,10 @@ def ffn(p: Params, x: Tensor, compute_dtype, act: str = "silu") -> Tensor:
     u = xc @ p["w_up"].to(compute_dtype)
     if "w_gate" in p:
         g = xc @ p["w_gate"].to(compute_dtype)
-        return (a(g) * u) @ p["w_down"].to(compute_dtype)
-    return a(u) @ p["w_down"].to(compute_dtype)
+        out = (a(g) * u) @ p["w_down"].to(compute_dtype)
+    else:
+        out = a(u) @ p["w_down"].to(compute_dtype)
+    return constrain(out, (POD, DATA), None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -170,13 +174,16 @@ def embed_tokens(p: Params, cfg, tokens: Tensor) -> Tensor:
     tok = p["tok"]                                 # (K, V, D)
     if cfg.num_codebooks == 1:
         t = tokens if tokens.dim() == 2 else tokens[..., 0]
-        return tok[0][t].to(cdt)
-    # sum of codebook embeddings (musicgen-style parallel streams), in the
-    # compute dtype, codebook 0 first
-    out = tok[0][tokens[..., 0]].to(cdt)
-    for k in range(1, cfg.num_codebooks):
-        out = out + tok[k][tokens[..., k]].to(cdt)
-    return out
+        out = vocab_lookup(tok[0], t, cdt)
+    else:
+        # sum of codebook embeddings (musicgen-style parallel streams), in
+        # the compute dtype, codebook 0 first
+        out = vocab_lookup(tok[0], tokens[..., 0], cdt)
+        for k in range(1, cfg.num_codebooks):
+            out = out + vocab_lookup(tok[k], tokens[..., k], cdt)
+    # activations: batch over pod x data, d_model replicated (tensor
+    # parallelism happens inside the mixers and FFNs)
+    return constrain(out, (POD, DATA), None, None)
 
 
 def unembed(p: Params, cfg, x: Tensor) -> Tensor:
@@ -190,7 +197,9 @@ def unembed(p: Params, cfg, x: Tensor) -> Tensor:
     else:
         w = p["unembed"].to(cdt)                        # (K, D, V)
         logits = torch.einsum("bsd,kdv->bskv", xc, w)
-    logits = logits.float()
+    # vocab stays over model, batch over pod x data: unpinned, the (B, S, V)
+    # logits would be gathered whole on every rank
+    logits = constrain(logits, (POD, DATA), None, None, MODEL).float()
     if cfg.num_codebooks == 1:
         return logits[..., 0, :]
     return logits

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import Params, causal_conv, dense_init, dtype_of
+from repro_torch.models.sharding import DATA, MODEL, POD, constrain
 
 Tensor = torch.Tensor
 
@@ -97,8 +98,9 @@ def rglru_forward(p: Params, cfg, x: Tensor, return_cache: bool = False):
     cdt = dtype_of(cfg.compute_dtype)
     xc = x.to(cdt)
     # jax.nn.gelu's default is the tanh approximation (models/layers.py)
-    y = F.gelu(xc @ p["w_y"].to(cdt), approximate="tanh")
-    x_in = xc @ p["w_x"].to(cdt)
+    y = F.gelu(constrain(xc @ p["w_y"].to(cdt), (POD, DATA), None, MODEL),
+               approximate="tanh")
+    x_in = constrain(xc @ p["w_x"].to(cdt), (POD, DATA), None, MODEL)
     # the conv's carry-out is the decode cache's conv state, left-padded
     # with zeros when S < W - 1
     u, tail = causal_conv(x_in, p["conv_w"].to(cdt), p["conv_b"].to(cdt))

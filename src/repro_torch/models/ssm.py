@@ -1,5 +1,6 @@
 """Mamba2 (SSD, state-space duality) mixer block, arXiv:2405.21060: the
-counterpart of ``repro/models/ssm.py``, on one device.
+counterpart of ``repro/models/ssm.py``.  Under a mesh the SSD runs on each
+rank's heads (d_inner and the heads over model).
 
 Prefill runs the chunked SSD: the sequence splits into chunks of Q
 positions; inside a chunk the output is a decay-masked quadratic
@@ -20,9 +21,19 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Shard
 
 from repro_torch.models.layers import (Params, causal_conv, dense_init, dtype_of,
                                       rmsnorm)
+from repro_torch.models.sharding import (
+    DATA,
+    MODEL,
+    POD,
+    constrain,
+    local_range,
+    local_region,
+    redistribute,
+)
 
 Tensor = torch.Tensor
 
@@ -65,7 +76,15 @@ def _split_proj(p: Params, cfg, u: Tensor):
     """u (B, S, D) -> z, x, bc, dt_raw, all in the compute dtype."""
     cdt = dtype_of(cfg.compute_dtype)
     uc = u.to(cdt)
-    z, x = (uc @ p["w_in_zx"].to(cdt)).chunk(2, dim=-1)    # (B, S, di) each
+    w = p["w_in_zx"].to(cdt)
+    if isinstance(w, DTensor) and any(
+            isinstance(q, Shard) and q.dim == 1 and w.device_mesh.size(d) > 1
+            for d, q in enumerate(w.placements)):
+        # split the weight, not the product: a split of the product's
+        # sharded last dimension would gather the (B, S, 2 di) activation
+        z, x = (uc @ redistribute(h, w.placements) for h in w.chunk(2, dim=-1))
+    else:
+        z, x = (uc @ w).chunk(2, dim=-1)                    # (B, S, di) each
     bc = uc @ p["w_in_bc"].to(cdt)                          # (B, S, 2 g n)
     dt_raw = uc @ p["w_in_dt"].to(cdt)                      # (B, S, H)
     return z, x, bc, dt_raw
@@ -89,73 +108,135 @@ def chunk_len(cfg, S: int) -> int:
     return Q
 
 
+def _ssd(cfg, x: Tensor, bc: Tensor, dt_raw: Tensor, conv_w: Tensor, conv_b: Tensor,
+         A_log: Tensor, dt_bias: Tensor, Dp: Tensor, h0: int, h1: int, dtype):
+    """The conv and the chunked SSD of heads [h0, h1): x (B, S, their
+    (h1 - h0) headdim channels), bc (B, S, 2 g n) every group's B and C,
+    dt_raw (B, S, h1 - h0); the parameters whole.  Returns (y (B, S,
+    channels) in ``dtype``, the conv's carry-out, the final state).  Each
+    head's arithmetic is the whole layer's: the conv is depthwise, and a
+    head reads its group h // (H / G)."""
+    B, S, _ = x.shape
+    g, n, h, pd = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    di, hl = cfg.d_inner, h1 - h0
+    Q = chunk_len(cfg, S)
+    nc = S // Q
+    xbc_raw = torch.cat([x, bc], dim=-1)
+    cw, cb = conv_w, conv_b
+    if hl < h:                                              # this rank's channels
+        cw = torch.cat([conv_w[:, h0 * pd:h1 * pd], conv_w[:, di:]], dim=-1)
+        cb = torch.cat([conv_b[h0 * pd:h1 * pd], conv_b[di:]], dim=-1)
+    # the conv's carry-out is the decode cache's conv state, left-padded
+    # with zeros when S < W - 1
+    conv_out, tail = causal_conv(xbc_raw, cw.to(xbc_raw.dtype), cb.to(xbc_raw.dtype))
+    xbc = F.silu(conv_out.float())
+    x = xbc[..., :hl * pd]
+    Bm = xbc[..., hl * pd:hl * pd + g * n]
+    Cm = xbc[..., hl * pd + g * n:]
+
+    # per-head decay: a_t = exp(-dt_t A_h), dt = softplus(raw + bias).
+    # jax.nn.softplus is logaddexp(x, 0); F.softplus returns x itself above
+    # its threshold of 20, where the two differ by less than a float32 ulp.
+    dt = F.softplus(dt_raw.float() + dt_bias[h0:h1])        # (B, S, Hl)
+    log_a = -dt * torch.exp(A_log[h0:h1])                   # (B, S, Hl) <= 0
+
+    xh = x.reshape(B, nc, Q, hl, pd)
+    Bc = Bm.reshape(B, nc, Q, g, n)
+    Cc = Cm.reshape(B, nc, Q, g, n)
+    dtc = dt.reshape(B, nc, Q, hl)
+    lac = log_a.reshape(B, nc, Q, hl)
+
+    rep = h // g                                            # heads per group
+    if h0 % rep == 0 and h1 % rep == 0:                     # whole groups
+        g0, g1 = h0 // rep, h1 // rep
+
+        def heads(t, dim):
+            return t.narrow(dim % t.dim(), g0, g1 - g0).repeat_interleave(rep, dim=dim)
+    else:
+        gmap = torch.arange(h0, h1, device=x.device) // rep
+
+        def heads(t, dim):
+            return t.index_select(dim % t.dim(), gmap)
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    state = torch.zeros((B, hl, pd, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        xh_c, B_c, C_c = xh[:, c], Bc[:, c], Cc[:, c]       # (B,Q,Hl,P) (B,Q,G,N)
+        cum = torch.cumsum(lac[:, c], dim=1)                # (B, Q, Hl)
+        total = cum[:, -1]                                  # (B, Hl)
+        xdt = xh_c * dtc[:, c, :, :, None]                  # (B, Q, Hl, P)
+
+        # intra-chunk: the decay-masked quadratic term
+        seg = cum[:, :, None, :] - cum[:, None, :, :]       # (B, Q, Q, Hl)
+        decay = torch.where(causal[None, :, :, None], torch.exp(seg), 0.0)
+        scores = torch.einsum("bqgn,bsgn->bqsg", C_c, B_c)  # (B, Q, Q, G)
+        scores = heads(scores, -1)                          # -> Hl
+        y_c = torch.einsum("bqsh,bshp->bqhp", scores * decay, xdt)
+
+        # inter-chunk: the carried state's contribution
+        Ch = heads(C_c, 2)                                  # (B, Q, Hl, N)
+        y_c = y_c + torch.einsum("bqhn,bhpn->bqhp", Ch, state) \
+            * torch.exp(cum)[..., None]
+
+        # carry update
+        Bh = heads(B_c, 2)                                  # (B, Q, Hl, N)
+        decay_to_end = torch.exp(total[:, None, :] - cum)   # (B, Q, Hl)
+        st = torch.einsum("bqhn,bqhp->bhpn", Bh * decay_to_end[..., None], xdt)
+        state = state * torch.exp(total)[:, :, None, None] + st
+        ys.append(y_c)
+
+    y = torch.stack(ys, dim=1).reshape(B, S, hl, pd)
+    y = y + xh.reshape(B, S, hl, pd) * Dp[h0:h1, None]
+    return y.reshape(B, S, hl * pd).to(dtype), tail, state
+
+
+def _ssd_sharded(p: Params, cfg, x, bc, dt_raw, dtype):
+    """The SSD on DTensors, a local region over each rank's heads: x and
+    dt_raw split over model on whole heads (else gathered whole), every
+    group's B and C on every rank.  The gradients of B, C and of the
+    replicated parameters are each rank's share (Partial over the heads'
+    and the batch's mesh dimensions)."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = x.device_mesh
+    split = [d for d, q in enumerate(x.placements) if isinstance(q, Shard) and q.dim == 2]
+    whole = math.prod(mesh.size(d) for d in split)
+    if split and (cfg.ssm_heads % whole or tuple(dt_raw.placements) != tuple(x.placements)):
+        x, dt_raw = (redistribute(t, tuple(Replicate() if d in split else q
+                                           for d, q in enumerate(x.placements)))
+                     for t in (x, dt_raw))
+        split = []
+    rows = [d for d, q in enumerate(x.placements) if isinstance(q, Shard) and q.dim == 0]
+    bc = redistribute(bc, tuple(Shard(0) if d in rows else Replicate()
+                                for d in range(mesh.ndim)))
+    params = [redistribute(p[k], (Replicate(),) * mesh.ndim) if isinstance(p[k], DTensor)
+              else p[k] for k in ("conv_w", "conv_b", "A_log", "dt_bias", "D")]
+    h0, h1 = local_range(dt_raw, 2)
+    share = tuple(Partial() if d in split or d in rows else Replicate()
+                  for d in range(mesh.ndim))
+    bc_grad = tuple(Partial() if d in split else q for d, q in enumerate(bc.placements))
+    return local_region(
+        lambda *a: _ssd(cfg, *a, h0, h1, dtype)[0], (x, bc, dt_raw, *params),
+        (x.placements, tuple(x.shape)), grads=(None, bc_grad, None) + (share,) * 5)
+
+
 def mamba2_forward(p: Params, cfg, u: Tensor, return_cache: bool = False):
     """Chunked SSD over the full sequence.  u: (B, S, D) -> (B, S, D).
 
     With ``return_cache`` also returns the decode cache (the final state
     ``ssm`` in float32, the conv tail ``conv`` in the compute dtype), so
-    prefill seeds O(1) decoding."""
-    B, S, _ = u.shape
-    g, n, h, pd = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
-    di = cfg.d_inner
-    Q = chunk_len(cfg, S)
-    nc = S // Q
-
+    prefill seeds O(1) decoding.  On DTensors (training under a mesh) the
+    SSD runs on each rank's heads (:func:`_ssd_sharded`), without a
+    cache."""
     z, x, bc, dt_raw = _split_proj(p, cfg, u)
-    xbc_raw = torch.cat([x, bc], dim=-1)
-    # the conv's carry-out is the decode cache's conv state, left-padded
-    # with zeros when S < W - 1
-    conv_out, tail = causal_conv(xbc_raw, p["conv_w"].to(xbc_raw.dtype),
-                                 p["conv_b"].to(xbc_raw.dtype))
-    xbc = F.silu(conv_out.float())
-    x = xbc[..., :di]
-    Bm = xbc[..., di:di + g * n]
-    Cm = xbc[..., di + g * n:]
-
-    # per-head decay: a_t = exp(-dt_t A_h), dt = softplus(raw + bias).
-    # jax.nn.softplus is logaddexp(x, 0); F.softplus returns x itself above
-    # its threshold of 20, where the two differ by less than a float32 ulp.
-    dt = F.softplus(dt_raw.float() + p["dt_bias"])          # (B, S, H)
-    log_a = -dt * torch.exp(p["A_log"])                     # (B, S, H) <= 0
-
-    xh = x.reshape(B, nc, Q, h, pd)
-    Bc = Bm.reshape(B, nc, Q, g, n)
-    Cc = Cm.reshape(B, nc, Q, g, n)
-    dtc = dt.reshape(B, nc, Q, h)
-    lac = log_a.reshape(B, nc, Q, h)
-
-    rep = h // g                                            # heads per group
-    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=u.device))
-    state = torch.zeros((B, h, pd, n), dtype=torch.float32, device=u.device)
-    ys = []
-    for c in range(nc):
-        xh_c, B_c, C_c = xh[:, c], Bc[:, c], Cc[:, c]       # (B,Q,H,P) (B,Q,G,N)
-        cum = torch.cumsum(lac[:, c], dim=1)                # (B, Q, H)
-        total = cum[:, -1]                                  # (B, H)
-        xdt = xh_c * dtc[:, c, :, :, None]                  # (B, Q, H, P)
-
-        # intra-chunk: the decay-masked quadratic term
-        seg = cum[:, :, None, :] - cum[:, None, :, :]       # (B, Q, Q, H)
-        decay = torch.where(causal[None, :, :, None], torch.exp(seg), 0.0)
-        scores = torch.einsum("bqgn,bsgn->bqsg", C_c, B_c)  # (B, Q, Q, G)
-        scores = scores.repeat_interleave(rep, dim=-1)      # -> H
-        y_c = torch.einsum("bqsh,bshp->bqhp", scores * decay, xdt)
-
-        # inter-chunk: the carried state's contribution
-        Ch = C_c.repeat_interleave(rep, dim=2)              # (B, Q, H, N)
-        y_c = y_c + torch.einsum("bqhn,bhpn->bqhp", Ch, state) \
-            * torch.exp(cum)[..., None]
-
-        # carry update
-        Bh = B_c.repeat_interleave(rep, dim=2)              # (B, Q, H, N)
-        decay_to_end = torch.exp(total[:, None, :] - cum)   # (B, Q, H)
-        st = torch.einsum("bqhn,bqhp->bhpn", Bh * decay_to_end[..., None], xdt)
-        state = state * torch.exp(total)[:, :, None, None] + st
-        ys.append(y_c)
-
-    y = torch.stack(ys, dim=1).reshape(B, S, h, pd)
-    y = y + xh.reshape(B, S, h, pd) * p["D"][:, None]
-    y = y.reshape(B, S, di).to(u.dtype)
+    x = constrain(x, (POD, DATA), None, MODEL)              # d_inner over model
+    dt_raw = constrain(dt_raw, (POD, DATA), None, MODEL)    # heads over model
+    if isinstance(x, DTensor):
+        if return_cache:
+            raise NotImplementedError("mamba2_forward: no decode cache on a mesh")
+        return _gated_out(p, cfg, _ssd_sharded(p, cfg, x, bc, dt_raw, u.dtype), z)
+    y, tail, state = _ssd(cfg, x, bc, dt_raw, p["conv_w"], p["conv_b"], p["A_log"],
+                          p["dt_bias"], p["D"], 0, cfg.ssm_heads, u.dtype)
     out = _gated_out(p, cfg, y, z)
     if not return_cache:
         return out

@@ -78,6 +78,10 @@ class AdamW:
             _write(p, p.float() - lr * delta)
         return params, state
 
+    def state_spec_tree(self, param_specs: dict, params_shape: dict) -> dict:
+        """The moments shard as their parameters."""
+        return {"mu": param_specs, "nu": param_specs}
+
 
 # ---------------------------------------------------------------------------
 # Adafactor
@@ -133,6 +137,23 @@ class Adafactor:
                 u.add_(self.weight_decay * pf)
             _write(p, pf - lr * u)
         return params, state
+
+    def state_spec_tree(self, param_specs: dict, params_shape: dict) -> dict:
+        """Specs of the factored state: ``vr`` drops the parameter's last
+        axis, ``vc`` its second to last (the row and column means reduce
+        over a sharded axis across its ranks); decided per leaf from the
+        shapes, as ``init`` decides."""
+
+        def leaf(spec, p):
+            if self._factored(p):
+                return {"vr": tuple(spec[:-1]), "vc": (*spec[:-2], spec[-1])}
+            return {"v": spec}
+
+        def walk(specs, shapes):
+            return {k: walk(specs[k], v) if isinstance(v, dict) else leaf(specs[k], v)
+                    for k, v in shapes.items()}
+
+        return {"v": walk(param_specs, params_shape)}
 
 
 def make_optimizer(name: str, **kw):

@@ -77,11 +77,12 @@ class StragglerGuard:
 
 
 def resume_or_init(ckpt: Checkpointer, state_shape, init_fn: Callable,
-                   device="cuda"):
-    """Restore the latest committed checkpoint onto ``device`` or build a
-    fresh state; returns (state, step, resumed)."""
+                   device="cuda", shardings=None):
+    """Restore the latest committed checkpoint onto ``device`` (and, with
+    ``shardings``, onto their meshes) or build a fresh state; returns
+    (state, step, resumed)."""
     if ckpt.latest_step() is not None:
-        state, step = ckpt.restore(state_shape, device=device)
+        state, step = ckpt.restore(state_shape, device=device, shardings=shardings)
         return state, step, True
     return init_fn(), 0, False
 

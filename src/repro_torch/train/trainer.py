@@ -1,6 +1,9 @@
 """The training step: loss and gradients with microbatch accumulation, the
 global-norm clip, the learning-rate schedule and the optimizer update; the
-counterpart of ``repro/train/trainer.py`` on one device.
+counterpart of ``repro/train/trainer.py``.  :func:`make_train_step` runs on
+one device, or on a mesh through :func:`shard_train_step`: the same step
+over DTensors, each rank holding its shards of the state by the rules of
+``models/sharding.py``.
 
 The step reads nothing back to the host: its metrics are 0-d tensors
 (``loss``, ``aux``, ``grad_norm``, ``lr``) until a caller logs them.  The
@@ -18,10 +21,19 @@ import math
 from typing import Callable
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
 from repro_torch.models import ModelConfig, forward, init_params, lm_loss
 from repro_torch.models.layers import dtype_of, tree_leaves
+from repro_torch.models.sharding import (
+    data_spec,
+    distribute,
+    named,
+    param_spec_tree,
+    redistribute,
+    use_mesh,
+)
 from repro_torch.train.optimizer import _map, make_optimizer
 
 Tensor = torch.Tensor
@@ -83,6 +95,17 @@ def abstract_train_state(cfg: ModelConfig, tc: TrainConfig) -> dict:
     return _map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), fake)
 
 
+def state_spec_tree(cfg: ModelConfig, tc: TrainConfig, state_shape: dict,
+                    mesh) -> dict:
+    """The train state's spec tree: the parameters' rules, the optimizer
+    state's (AdamW's moments as their parameters, Adafactor's factors with
+    one axis dropped), the step replicated."""
+    pspecs = param_spec_tree(cfg, state_shape["params"], mesh)
+    return {"params": pspecs,
+            "opt": _optimizer(tc).state_spec_tree(pspecs, state_shape["params"]),
+            "step": ()}
+
+
 def _loss_fn(cfg: ModelConfig, tc: TrainConfig, params, batch) -> tuple[Tensor, dict]:
     logits, aux = forward(
         cfg, params, batch["tokens"], batch.get("patches"), remat=tc.remat
@@ -113,7 +136,24 @@ def _grads(cfg, tc, params: dict, leaves: list, batch: dict):
     finally:
         for p in leaves:
             p.requires_grad_(False)
-    return list(grads), {k: v.detach() for k, v in metrics.items()}
+    # a DTensor gradient comes back as autograd left it (Partial over the
+    # batch axes where its parameter is replicated): reduce it onto its
+    # parameter's placements
+    grads = [redistribute(g, p.placements) if isinstance(g, DTensor) else g
+             for g, p in zip(grads, leaves)]
+    return grads, {k: v.detach() for k, v in metrics.items()}
+
+
+def _rows(x: Tensor, lo: int, hi: int) -> Tensor:
+    """Rows [lo, hi) of the global batch: microbatch i is the global rows
+    [i b, (i + 1) b), as the reference slices its sharded batch, not each
+    rank's local rows cut µ ways.  A DTensor batch (small: token ids) is
+    gathered and the rows redistributed over the batch axes."""
+    if not isinstance(x, DTensor):
+        return x[lo:hi]
+    mesh = x.device_mesh
+    rows = x.full_tensor()[lo:hi]
+    return distribute(rows, named(mesh, data_spec(mesh, tuple(rows.shape))))
 
 
 def _unflatten(tree: dict, flat: list) -> dict:
@@ -142,11 +182,10 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
         if mu == 1:
             grads, metrics = _grads(cfg, tc, params, leaves, batch)
         else:
-            grads = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-                     for p in leaves]
+            grads = [torch.zeros_like(p, dtype=acc_dt) for p in leaves]
             msum = None
             for i in range(mu):
-                mb = {k: v[i * (v.shape[0] // mu):(i + 1) * (v.shape[0] // mu)]
+                mb = {k: _rows(v, i * (v.shape[0] // mu), (i + 1) * (v.shape[0] // mu))
                       for k, v in batch.items()}
                 g, m = _grads(cfg, tc, params, leaves, mb)
                 for a, gg in zip(grads, g):
@@ -155,22 +194,58 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
                 msum = m if msum is None else {k: msum[k] + m[k] for k in msum}
             metrics = {k: v / mu for k, v in msum.items()}
 
-        with torch.no_grad():
-            gnorm = _global_norm(_unflatten(params, grads))
-            scale = torch.clamp_max(tc.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
-            for i, g in enumerate(grads):
-                if g.dtype == torch.float32:
-                    g.mul_(scale)
-                else:
-                    grads[i] = (g.float() * scale).to(acc_dt)
-            lr = lr_schedule(tc, state["step"])
-            new_params, new_opt = opt.update(
-                _unflatten(params, grads), state["opt"], params, lr, state["step"]
-            )
-        metrics = dict(metrics, grad_norm=gnorm, lr=lr)
-        return (
-            {"params": new_params, "opt": new_opt, "step": state["step"] + 1},
-            metrics,
-        )
+        new, extra = _clip_and_update(opt, tc, state, grads, acc_dt)
+        return new, dict(metrics, **extra)
 
     return train_step
+
+
+@torch.no_grad()
+def _clip_and_update(opt, tc: TrainConfig, state: dict, grads: list, acc_dt):
+    """The global-norm clip of the flat ``grads`` (scaled in place where
+    float32), the learning rate and the optimizer's in-place update:
+    returns ({"params", "opt", "step"}, {"grad_norm", "lr"})."""
+    params = state["params"]
+    gnorm = _global_norm(_unflatten(params, grads))
+    scale = torch.clamp_max(tc.grad_clip / torch.clamp_min(gnorm, 1e-9), 1.0)
+    for i, g in enumerate(grads):
+        if g.dtype == torch.float32:
+            g.mul_(scale)
+        else:
+            grads[i] = (g.float() * scale).to(acc_dt)
+    lr = lr_schedule(tc, state["step"])
+    new_params, new_opt = opt.update(
+        _unflatten(params, grads), state["opt"], params, lr, state["step"]
+    )
+    return ({"params": new_params, "opt": new_opt, "step": state["step"] + 1},
+            {"grad_norm": gnorm, "lr": lr})
+
+
+def shard_train_step(mesh, cfg: ModelConfig, tc: TrainConfig, state_shape: dict):
+    """The train step over the ``DeviceMesh`` ``mesh`` (axes ``data`` and
+    ``model``, and ``pod``), the counterpart of the reference's jitted step
+    with explicit shardings.
+
+    Returns (step, state shardings, batch sharding): ``state_shape`` is
+    the state's tree (tensors or meta tensors); ``distribute(state,
+    state_shardings)`` puts a state on the mesh (each rank its shards), and
+    ``batch_sharding(leaf)`` is a batch leaf's ``NamedSharding`` (batch
+    over pod x data).  ``step(state, batch)`` takes the distributed state
+    and a batch of global tensors (the same on every rank) or DTensors, and
+    updates the state in place (the reference donates it); its metrics are
+    replicated 0-d tensors, local to each rank."""
+    state_sh = named(mesh, state_spec_tree(cfg, tc, state_shape, mesh))
+    inner = make_train_step(cfg, tc)
+
+    def batch_sharding(leaf):
+        return named(mesh, data_spec(mesh, tuple(leaf.shape)))
+
+    def step(state: dict, batch: dict):
+        batch = {k: v if isinstance(v, DTensor) else distribute(v, batch_sharding(v))
+                 for k, v in batch.items()}
+        with use_mesh(mesh):
+            new, metrics = inner(state, batch)
+        return new, {k: v.full_tensor() if isinstance(v, DTensor) else v
+                     for k, v in metrics.items()}
+
+    return step, state_sh, batch_sharding

@@ -50,7 +50,9 @@ def _port_files():
             "configs/paper_ss.py", "data/video_eval.py", "core/distributed.py"} <= rel
     # the sharded tests' ranks run the port alone, as the card's script does
     return files + [ROOT / "chip_smoke.py", ROOT / "chip_peak_probe.py",
-                    ROOT / "tests" / "torch_sharded_ranks.py"] + [
+                    ROOT / "chip_dtensor_probe.py",
+                    ROOT / "tests" / "torch_sharded_ranks.py",
+                    ROOT / "tests" / "torch_lm_sharded_ranks.py"] + [
         ROOT / "examples" / f"{name}_torch.py"
         for name in ("quickstart", "video_summarize", "serve_kv_pruning",
                      "train_lm_ss")]
