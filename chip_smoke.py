@@ -123,9 +123,16 @@ script on the card over gloo (``--lm-sharded-rank R STORE OUT``, DTensor's
 all-gathers staged through the host): llama3.2-3b cut to 2 layers through
 ``launch/train.py --mesh 2x2`` (3 steps), olmoe-1b-7b cut alike
 (Adafactor, µ = 2) and the compressed pod step on (2, 1, 2) on the kernel
-and the plain attention routes (2 steps each, each parameter's change over
-the run held too), each held to the plain step, and the flash kernels at
-a rank's shard shape.  Then the three examples
+and the plain attention routes (one step each at the full rate, each
+parameter's change and the error state held across the routes), each held
+to the plain step, qwen3-4b cut to 2 layers served sharded (a 4 x 1024 prefill
+and 4 decode steps, held to one unsharded process), and the flash kernels
+at a rank's shard shapes; each rank records the collectives of that
+prefill, its first decode step and the second llama step with the dry
+run's ``CostMode``, and rank 0's must equal the counter's count of the same
+steps on a fake group of four.  Sharded serving at one rank runs inside
+the LM path: qwen3-4b at full size on a (1, 1) NCCL mesh from the path's
+parameters and prompts, bit for bit with its plain run.  Then the three examples
 run through their own ``main`` (``examples_phase``), each kernel's launches
 counted from 0 for each: ``video_summarize_torch.py`` at Table 2's longest
 video (9721 frames, k = 1458; SS and greedy on the kernels against the
@@ -146,7 +153,11 @@ the eager program's bytes, the live-bytes peak) by a process of its own
 that starts after the build, with the card hidden, while the card runs
 the rest; the line of each step prints the bound and what binds it, mfu,
 the share (bound / measured, at most 1.05) and the counted peak against
-the measured (within 25 %).
+the measured (within 25 %).  The same counter counts part (b)'s three
+sharded steps first, and last two of the dry run's production cells
+(llama3.2-3b train_4k on 16 x 16, qwen3-4b decode_32k on 2 x 16 x 16, a
+fake group of 256 or 512 ranks), whose three terms the roofline phase
+prints.
 The
 FeatureCoverage kernels sum only the terms W's nonzeros make nonzero, so
 they are also swept over sparse W and their bounds count what these inputs
@@ -161,7 +172,8 @@ The last lines of its output are JSON: the block types' figures
 (``lm_families``), training's (``training``), the examples'
 (``examples``), the steps' bounds
 (``roofline``), the sharded phase's (``sharded``), the LM sharding's
-(``lm_sharded``), the kernels' records
+(``lm_sharded``), sharded serving's (``lm_sharded_serve``), the dry run's
+production cells (``dryrun``), the kernels' records
 (nine), then ``{"ok": true,
 "device": {...}}``.  Any failure raises before them, and the
 script exits non-zero without a CUDA device or outside a checkout.
@@ -176,7 +188,8 @@ with no kernel records and no result line.
 runs only the service's first coverage chunk in a fresh process
 (``first_chunk_probe``) and prints its numbers, the last line as JSON;
 ``--count-roofline PATH`` only counts the LM steps on fake tensors into
-PATH (``count_cells``: host work, no card).
+PATH, part (b)'s sharded steps into PATH.ranks.json and the production
+cells into PATH.pod.json (``count_cells``: host work, no card).
 """
 
 from __future__ import annotations
@@ -3096,6 +3109,8 @@ def lm_path(errs: dict) -> dict:
     run = _serve(cfg, params, B, S, NEW)
     check(run["n_attn"] == cfg.num_layers and run["route"] == "tc",
           "qwen3-4b: every layer's attention on the tensor-core route")
+    # the same prompts and parameters served sharded at one rank over NCCL
+    SHARDED_SERVE["one_rank"] = lm_serve_one_rank(cfg, params, run)
     eng, sc, gen, prompts = run["eng"], run["sc"], run["gen"], run["prompts"]
     toks, step_logits, cache = run["toks"], run["step_logits"], run["cache"]
     launches, launches_tc = run["launches"], run["launches_tc"]
@@ -4342,11 +4357,13 @@ def train_phase(errs: dict) -> tuple[dict, dict]:
 # -- LM training sharded over a DeviceMesh ------------------------------------
 
 LM_SH_RANKS, LM_SH_STEPS, LM_SH_LAYERS = 4, 3, 2
-# olmoe and the compressed step take 2 steps (warmup 1: step 1's update at
-# the full rate), held by their losses, gradient norms and each parameter's
-# change over the run (||p - p_init||, ``_hold_change``) in place of a third
-# loss: the phase's time is the host's collectives
-LM_SH_SHORT = 2
+# olmoe and the compressed step take LM_SH_SHORT steps from step
+# LM_SH_FROM, past their warmup of 1, so the one step updates at the full
+# rate: each held by its loss, gradient norm and each parameter's change
+# (||p - p_init||, ``_hold_change``) against a plain run, the compressed
+# step on its kernel and its plain attention route, its error feedback
+# state too: the phase's time is the host's collectives
+LM_SH_SHORT, LM_SH_FROM = 1, 1
 # part (b)'s runs at full width, depth cut to LM_SH_LAYERS: (arch, B, S,
 # optimizer, microbatches)
 LM_SH_RUNS = {"llama3.2-3b": ("llama3.2-3b", 4, 1024, "adamw", 1),
@@ -4355,6 +4372,201 @@ LM_SH_COMPRESS = {"ratio": 0.05, "block": 1024}
 # part (b) keeps every activation: two layers need no rematerialisation,
 # and a recomputed forward gathers each weight over data a second time
 LM_SH_REMAT = "none"
+
+
+# sharded serving (the dry run's prefill and decode cells on the card): (a)
+# qwen3-4b at full size at one rank over NCCL, the LM path's run; (b) in
+# part (b)'s four ranks, qwen3-4b at full width cut to LM_SH_LAYERS, a
+# prefill of LM_SSH_B x LM_SSH_S and LM_SSH_DECODE decode steps on (2, 2)
+LM_SSH_B, LM_SSH_S, LM_SSH_DECODE = 4, 1024, 4
+SHARDED_SERVE: dict = {}     # (a)'s figures, then (b)'s and (c)'s
+COUNTER: list = []           # the counter's output file and process (``start_counter``)
+DRYRUN: dict = {}            # (d): the production cells the counter counted
+
+
+def _collective_table(records) -> dict:
+    """{op: [count, operand bytes]} of ``launch.cost.Collective`` records."""
+    from repro_torch.launch.cost import collective_bytes
+
+    st = collective_bytes(records)
+    return {op: [n, st.bytes_by_op[op]] for op, n in sorted(st.count_by_op.items())}
+
+
+def lm_serve_one_rank(cfg, params, run: dict) -> dict:
+    """(a) of sharded serving: the LM path's parameters and prompts at one
+    rank over NCCL on a (1, 1) mesh, placed by ``param_spec_tree`` and
+    ``data_spec``, the cache made by prefill as ``cache_spec_tree`` splits
+    it.  The prefill's logits and the decoded tokens against ``run``'s
+    (``_serve``'s plain run) bit for bit; flash launches a prefill (all
+    tensor-core); TTFT and decode ms beside the plain run's, warm as it is
+    (a first prefill and decode step, under the dry run's mode, record the
+    collectives: none on a size-1 mesh); the peak.  Flash counts from 0
+    just before the timed run, read just after."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels import flash_attention_kernel
+    from repro_torch.launch.cost import CostMode
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.sharding import (data_spec, distribute, named,
+                                             param_spec_tree, use_mesh)
+    from repro_torch.serve.engine import _sample
+
+    B, S, NEW = LM_B, LM_S, LM_NEW
+    sc, prompts = run["sc"], run["prompts"]
+    t0 = time.perf_counter()
+    with _one_rank_group():
+        mesh = single_device_mesh("cuda")
+        dp = distribute(params, named(mesh, param_spec_tree(cfg, params, mesh)))
+
+        def place(t):
+            return distribute(t, named(mesh, data_spec(mesh, tuple(t.shape))))
+
+        def whole(t):
+            return t.full_tensor() if isinstance(t, DTensor) else t
+
+        mode = CostMode()
+        with mode, torch.no_grad(), use_mesh(mesh):
+            _, cache = prefill(cfg, dp, place(prompts), max_len=sc.max_len)
+            decode_step(cfg, dp, place(run["toks"][0]), cache, S, S)
+        del cache
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention_kernel.launches = flash_attention_kernel.launches_tc = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad(), use_mesh(mesh):
+            logits, cache = prefill(cfg, dp, place(prompts), max_len=sc.max_len)
+            first = whole(logits)
+            tok = _sample(first, None, sc)
+        torch.cuda.synchronize()
+        ttft_ms = (time.perf_counter() - t) * 1e3
+        launches = (flash_attention_kernel.launches, flash_attention_kernel.launches_tc)
+        toks = [tok]
+        t = time.perf_counter()
+        with torch.no_grad(), use_mesh(mesh):
+            for n in range(S, S + NEW - 1):
+                logits, cache = decode_step(cfg, dp, place(tok), cache, n, n)
+                tok = _sample(whole(logits), None, sc)
+                toks.append(tok)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t) * 1e3 / (NEW - 1)
+        decode_launches = flash_attention_kernel.launches - launches[0]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        bits_logits = torch.equal(first, run["step_logits"][0])
+        bits_tokens = torch.equal(torch.cat(toks, 1), torch.cat(run["toks"], 1))
+        del cache, logits, dp
+        torch.cuda.empty_cache()
+    colls = _collective_table(mode.collectives)
+    n_attn = run["n_attn"]
+    check(launches == (n_attn, n_attn) and decode_launches == 0,
+          f"(a) sharded serve: flash launches {launches} a prefill, {decode_launches} "
+          f"in decode; want {n_attn} on the tensor-core route, none in decode")
+    check(bits_logits, "(a) sharded serve at (1, 1): the prefill's logits differ from "
+          "the plain run's")
+    check(bits_tokens, "(a) sharded serve at (1, 1): the decoded tokens differ from the "
+          "plain run's")
+    check(not colls, f"(a) sharded serve at (1, 1): collectives {colls}")
+    out = {"arch": cfg.name, "batch": [B, S], "new": NEW, "ttft_ms": ttft_ms,
+           "plain_ttft_ms": run["ttft_ms"], "decode_ms_per_step": decode_ms,
+           "plain_decode_ms_per_step": run["decode_ms_per_step"], "peak_gib": peak,
+           "plain_peak_gib": run["peak_gib"], "launches": launches[0],
+           "launches_tc": launches[1], "collectives": colls,
+           "bit_for_bit": bits_logits and bits_tokens,
+           "wall_s": time.perf_counter() - t0}
+    print(f"(a) {cfg.name} served sharded at one rank over NCCL, (1, 1) mesh ({B} x "
+          f"{S} prompts, {NEW} new tokens; {CARD[0]}): prefill logits and tokens bit "
+          f"for bit with the plain run; TTFT {ttft_ms:.4f} ms (plain "
+          f"{run['ttft_ms']:.4f}), decode {decode_ms:.4f} ms a step (plain "
+          f"{run['decode_ms_per_step']:.4f}), both warm; peak {peak:.2f} GiB (plain "
+          f"{run['peak_gib']:.2f}, the plain parameters still held); flash launches "
+          f"a prefill {launches[0]} "
+          f"({launches[1]} tensor-core), decode {decode_launches}; collectives "
+          f"{colls or 'none'}; {out['wall_s']:.2f} s", flush=True)
+    return out
+
+
+def _serve_rank(mesh) -> dict:
+    """(b) and (c) on one of the four ranks: qwen3-4b at full width cut to
+    LM_SH_LAYERS layers, parameters from a seeded generator (the same on
+    every rank) placed by ``param_spec_tree``, a LM_SSH_B x LM_SSH_S prefill
+    and LM_SSH_DECODE greedy decode steps on (2, 2); the flash launches of
+    the prefill; the collectives of the prefill and of the first decode
+    step, recorded by the dry run's mode.  Rank 0's logits (whole) and
+    tokens stay in the record for the unsharded run."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.cost import CostMode
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models.sharding import (data_spec, distribute, named,
+                                             param_spec_tree, use_mesh)
+
+    cfg = _lm_config(LM_ARCH, LM_SH_LAYERS)
+    B, S, D = LM_SSH_B, LM_SSH_S, LM_SSH_DECODE
+    params = init_params(torch.Generator("cuda").manual_seed(0), cfg, device="cuda")
+    # int32 token ids, as the dry run's cells take them (their gather moves
+    # the ids' bytes)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), device="cuda", dtype=torch.int32,
+                            generator=torch.Generator("cuda").manual_seed(11))
+    dp = distribute(params, named(mesh, param_spec_tree(cfg, params, mesh)))
+    del params
+
+    def place(t):
+        return distribute(t, named(mesh, data_spec(mesh, tuple(t.shape))))
+
+    def whole(t):
+        return t.full_tensor() if isinstance(t, DTensor) else t
+
+    _lm_counts_zero()
+    modes = [CostMode(), CostMode()]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with torch.no_grad(), use_mesh(mesh), modes[0]:
+        logits, cache = prefill(cfg, dp, place(prompts), max_len=S + D)
+    first = whole(logits)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t) * 1e3
+    launches = _lm_counts()
+    logits_all, toks = [first], [torch.argmax(first, dim=-1).to(torch.int32)]
+    t = time.perf_counter()
+    for i in range(D):
+        with (torch.no_grad(), use_mesh(mesh),
+              modes[1] if i == 0 else contextlib.nullcontext()):
+            logits, cache = decode_step(cfg, dp, place(toks[-1]), cache, S + i, S + i)
+        logits_all.append(whole(logits))
+        toks.append(torch.argmax(logits_all[-1], dim=-1).to(torch.int32))
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t) * 1e3 / D
+    del cache, dp
+    torch.cuda.empty_cache()
+    return {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+            "launches": launches, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "collectives": {"prefill": _collective_table(modes[0].collectives),
+                            "decode": _collective_table(modes[1].collectives)},
+            "_logits": logits_all, "_prompts": prompts, "_tokens": toks}
+
+
+def _serve_unsharded(srv: dict) -> list:
+    """Rank 0's one-process unsharded run of ``_serve_rank``'s model from
+    the same parameters, prompts and tokens: each step's logits relative
+    error against the sharded run's, within the LM path's check
+    (``_logits_close``, 3e-2 of max|logits|)."""
+    from repro_torch.models import decode_step, init_params, prefill
+
+    cfg = _lm_config(LM_ARCH, LM_SH_LAYERS)
+    S, D = LM_SSH_S, LM_SSH_DECODE
+    params = init_params(torch.Generator("cuda").manual_seed(0), cfg, device="cuda")
+    got, toks = srv["_logits"], srv["_tokens"]
+    with torch.no_grad():
+        logits, cache = prefill(cfg, params, srv["_prompts"], max_len=S + D)
+        errs = [_logits_close(got[0], logits, "(b) sharded prefill vs unsharded")]
+        for i in range(D):
+            logits, cache = decode_step(cfg, params, toks[i], cache, S + i, S + i)
+            errs.append(_logits_close(got[i + 1], logits,
+                                      f"(b) sharded decode step {i} vs unsharded"))
+    del params, cache
+    torch.cuda.empty_cache()
+    return errs
 
 
 def _lm_counts() -> dict:
@@ -4386,10 +4598,12 @@ def _timed_sharded(step, steps: list, comm_at: int | None):
     """A sharded step wrapped: each call synchronised and timed, its peak,
     its kernel launches and staged collectives; call ``comm_at`` under
     DTensor's ``CommDebugMode`` (the collectives it issues, by op: not
-    timed)."""
+    timed) and the dry run's ``CostMode`` (each collective's operand bytes,
+    recorded before gloo's all-gathers are staged)."""
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.core import distributed as dd
+    from repro_torch.launch.cost import CostMode
 
     def timed(state, batch):
         rec = {}
@@ -4399,10 +4613,12 @@ def _timed_sharded(step, steps: list, comm_at: int | None):
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         if len(steps) == comm_at:
-            with CommDebugMode() as comm:
+            cost = CostMode()
+            with CommDebugMode() as comm, cost:
                 out = step(state, batch)
             rec["collectives"] = {str(k).split(".")[-1]: v
                                   for k, v in comm.get_comm_counts().items()}
+            rec["collective_bytes"] = _collective_table(cost.collectives)
         else:
             out = step(state, batch)
         torch.cuda.synchronize()
@@ -4553,13 +4769,15 @@ def _param_norm(params: dict) -> float:
     return float(n.full_tensor() if hasattr(n, "full_tensor") else n)
 
 
-def _unsharded(cfg, tc, batches: list, seed: int) -> dict:
-    """The plain step of ``cfg`` from ``make_train_state(seed)`` over
-    ``batches``: each step's metrics and each parameter's change."""
+def _unsharded(cfg, tc, batches: list, seed: int, start: int = 0) -> dict:
+    """The plain step of ``cfg`` from ``make_train_state(seed)`` at step
+    ``start`` over ``batches``: each step's metrics and each parameter's
+    change."""
     from repro_torch.train import make_train_state, make_train_step
 
     state = make_train_state(torch.Generator("cuda").manual_seed(seed), cfg, tc,
                              device="cuda")
+    state["step"].fill_(start)
     init = _leaves(state["params"])
     step = make_train_step(cfg, tc)
     out = []
@@ -4620,6 +4838,14 @@ def _change(params: dict, init: list) -> list:
     return [_param_norm({"p": p - p0}) for p, p0 in zip(tree_leaves(params), init)]
 
 
+def _norms(tree: dict) -> list:
+    """Each leaf's norm (a DTensor leaf's over every shard), in
+    ``tree_leaves`` order."""
+    from repro_torch.models.layers import tree_leaves
+
+    return [_param_norm({"p": t}) for t in tree_leaves(tree)]
+
+
 def _hold_change(label: str, got: list, want: list) -> tuple[float, float]:
     """The parameters' change over the run (``_change``) against the plain
     run's: as one norm over every leaf within TRAIN_LOSS_REL, and each
@@ -4646,10 +4872,11 @@ def lm_sharded_rank(rank: int, store: str, out: str) -> None:
     all-gathers staged through the host: llama3.2-3b cut to
     LM_SH_LAYERS layers through ``launch/train.py --mesh 2x2``;
     olmoe-1b-7b cut alike, Adafactor, µ = 2, through ``shard_train_step``;
-    the compressed pod step on the cut llama at (2, 1, 2), kernel route and
-    plain route; the flash kernels at this rank's shard shape against their
-    plain versions.  Rank 0 then runs each cut model's plain step from the
-    same state over the same batches.  Writes its figures to ``out``."""
+    the compressed pod step on the cut llama at (2, 1, 2); qwen3-4b cut
+    alike served (``_serve_rank``); the flash kernels at this rank's shard
+    shapes against their plain versions.  Rank 0 then runs each cut model's
+    plain step from the same state over the same batches, and the served
+    model in one unsharded process.  Writes its figures to ``out``."""
     import tempfile
 
     import torch.distributed as dist
@@ -4693,12 +4920,13 @@ def lm_sharded_rank(rank: int, store: str, out: str) -> None:
           for _ in range(LM_SH_SHORT)]
     state = make_train_state(torch.Generator("cuda").manual_seed(0), cfg, otc,
                              device="cuda")
+    state["step"].fill_(LM_SH_FROM)
     step, sh, _ = shard_train_step(mesh, cfg, otc, state)
     state = distribute(state, sh)
     init = _leaves(state["params"])
     torch.cuda.empty_cache()
     osteps: list = []
-    step = _timed_sharded(step, osteps, 1)
+    step = _timed_sharded(step, osteps, None)
     c0 = _lm_counts()
     for b in ob:
         state, _ = step(state, b)
@@ -4706,14 +4934,17 @@ def lm_sharded_rank(rank: int, store: str, out: str) -> None:
                  "change": _change(state["params"], init)}
     del state, step, init
     _card_free(rec, f"after {arch}")
-    # 3. the compressed pod step, kernel route then plain route
+    # 3. the compressed pod step, kernel route then plain route, from the
+    # plain llama run's state and first batch
     cfg = _lm_config("llama3.2-3b", LM_SH_LAYERS)
-    tc = TrainConfig(warmup_steps=1, total_steps=LM_SH_SHORT, remat=LM_SH_REMAT)
+    tc = TrainConfig(warmup_steps=1, total_steps=LM_SH_SHORT + LM_SH_FROM,
+                     remat=LM_SH_REMAT)
     pmesh = make_mesh((2, 1, 2), ("pod", "data", "model"), "cuda")
     comp = {}
     for route in ("cuda", "plain"):
         state = make_train_state(torch.Generator("cuda").manual_seed(0), cfg, tc,
                                  device="cuda")
+        state["step"].fill_(LM_SH_FROM)
         state["error"] = init_error_state(state["params"])
         state = distribute(state, compressed_state_shardings(pmesh, cfg, tc, state))
         init = _leaves(state["params"])
@@ -4724,30 +4955,104 @@ def lm_sharded_rank(rank: int, store: str, out: str) -> None:
         with (plain_attention() if route == "plain" else contextlib.nullcontext()):
             for b in batches[:LM_SH_SHORT]:
                 state, _ = cstep(state, b)
-        comp[route] = {"steps": csteps, "change": _change(state["params"], init)}
+        comp[route] = {"steps": csteps, "change": _change(state["params"], init),
+                       "error": _norms(state["error"])}
         del state, cstep, init
         _card_free(rec, f"after the compressed step, {route} route")
     rec["compressed"] = comp
+    # 3b. sharded serving: qwen3-4b cut to LM_SH_LAYERS, prefill and decode
+    t1 = time.perf_counter()
+    srv = _serve_rank(mesh)
+    rec["serve"] = {k: v for k, v in srv.items() if not k.startswith("_")}
+    rec["serve"]["wall_s"] = time.perf_counter() - t1
+    _card_free(rec, "after sharded serving")
     # 4. the flash kernels at this rank's shard shape
     lcfg = _lm_config("llama3.2-3b")
     ocfg = _lm_config("olmoe-1b-7b")
+    qcfg = _lm_config(LM_ARCH)
     rec["flash_shard"] = {
         "llama3.2-3b": _flash_shard_check(lcfg, 2, 1024, lcfg.num_heads // 2,
                                           lcfg.num_kv_heads // 2),
         "olmoe-1b-7b": _flash_shard_check(ocfg, 2, 512, ocfg.num_heads // 2,
-                                          ocfg.num_kv_heads // 2)}
+                                          ocfg.num_kv_heads // 2),
+        LM_ARCH: _flash_shard_check(qcfg, LM_SSH_B // 2, LM_SSH_S, qcfg.num_heads // 2,
+                                    qcfg.num_kv_heads // 2)}
     rec["staged"] = dict(dd.STAGED)
     rec["rank_s"] = time.perf_counter() - t0
     dist.destroy_process_group()
+    if rank == 0:
+        rec["serve"]["logit_rel"] = _serve_unsharded(srv)
+    del srv
     if rank == 0:
         # the plain step of each cut model, from the same state, same batches
         lt = TrainConfig(warmup_steps=2, total_steps=LM_SH_STEPS, remat=LM_SH_REMAT)
         rec["plain"] = {
             "llama3.2-3b": _unsharded(_lm_config("llama3.2-3b", LM_SH_LAYERS), lt,
                                       batches, 0),
-            "olmoe-1b-7b": _unsharded(_lm_config("olmoe-1b-7b", LM_SH_LAYERS), otc, ob, 0)}
+            "olmoe-1b-7b": _unsharded(_lm_config("olmoe-1b-7b", LM_SH_LAYERS), otc, ob, 0,
+                                      LM_SH_FROM)}
     with open(out, "w") as fh:
         json.dump(rec, fh)
+
+
+def _counter_part(suffix: str, timeout: float = 600.0):
+    """The counter's file ``suffix`` (``count_cells``), waited for: the
+    counter writes it whole (a rename) once that part is counted."""
+    check(bool(COUNTER), "no counter was started")
+    path = Path(COUNTER[0] + suffix)
+    deadline = time.monotonic() + timeout
+    while not path.exists():
+        proc = COUNTER[1]
+        check(proc.poll() in (None, 0), f"the counter exited {proc.returncode}")
+        check(time.monotonic() < deadline, f"the counter wrote no {path.name}")
+        time.sleep(0.5)
+    return json.loads(path.read_text())
+
+
+def _serve_check(recs: list) -> None:
+    """(b) and (c) of sharded serving from the four ranks' records: the
+    prefill's flash launches on each rank (LM_SH_LAYERS, all tensor-core,
+    on its 16 query and 4 KV heads), the logits held by rank 0 to the
+    unsharded run, and (c) rank 0's collectives (the prefill, the first
+    decode step, the llama step of part (b)) against the counter's fake
+    group of four, op for op, in count and in operand bytes."""
+    four = recs[0]
+    for r, rr in enumerate(recs):
+        lf = rr["serve"]["launches"]
+        check(lf["flash_attention"] == lf["flash_attention_tc"] == LM_SH_LAYERS,
+              f"(b) serve rank {r}: flash launches {lf}, want {LM_SH_LAYERS} on the "
+              "tensor-core route")
+        fs = rr["flash_shard"][LM_ARCH]
+        check(math.isfinite(fs["fwd_err"]), f"(b) rank {r}: flash at the serve shard")
+        for k in ("prefill", "decode"):
+            check(rr["serve"]["collectives"][k] == four["serve"]["collectives"][k],
+                  f"(c) rank {r} issued other collectives in the {k}")
+    srv = four["serve"]
+    fake = _counter_part(".ranks.json")
+    real = {"prefill": srv["collectives"]["prefill"],
+            "decode": srv["collectives"]["decode"],
+            "train": four["llama3.2-3b"]["steps"][1]["collective_bytes"]}
+    for k, want in fake["cells"].items():
+        check(real[k] == want["collectives"],
+              f"(c) {k}: the ranks issued {real[k]}, the fake group counts "
+              f"{want['collectives']}")
+    SHARDED_SERVE["four_ranks"] = {
+        "arch": LM_ARCH, "layers": LM_SH_LAYERS, "batch": [LM_SSH_B, LM_SSH_S],
+        "decode_steps": LM_SSH_DECODE, "prefill_ms": srv["prefill_ms"],
+        "decode_ms_per_step": srv["decode_ms_per_step"],
+        "peak_gib": [rr["serve"]["peak_gib"] for rr in recs],
+        "launches": srv["launches"], "logit_rel": srv["logit_rel"],
+        "flash_shard": four["flash_shard"][LM_ARCH], "wall_s": srv["wall_s"]}
+    SHARDED_SERVE["counts"] = {"ranks": real, "fake_group": fake}
+    print(f"(b) {LM_ARCH} cut to {LM_SH_LAYERS} layers served sharded, 4 ranks on one "
+          f"card over gloo, (2, 2) ({LM_SSH_B} x {LM_SSH_S} prompts, {LM_SSH_DECODE} "
+          f"decode steps; {CARD[0]}): prefill {srv['prefill_ms']:.1f} ms (under the "
+          f"dry run's mode), decode {srv['decode_ms_per_step']:.1f} ms a step; logits "
+          f"against one unsharded process within {max(srv['logit_rel']):.3g} of max|logits|"
+          f"; flash launches a prefill {srv['launches']['flash_attention']} a rank, all "
+          f"tensor-core, at the shard {four['flash_shard'][LM_ARCH]}; (c) collectives "
+          f"equal to the fake group's count: {json.dumps(real)} (counted in "
+          f"{fake['count_s']:.1f} s)", flush=True)
 
 
 def lm_sharded_phase(training: dict) -> dict:
@@ -4817,37 +5122,47 @@ def lm_sharded_phase(training: dict) -> dict:
                                f"relative, the worst leaf {four[arch]['change_rel'][1]:.3g})"
                                if moved is not None else "")
               + f"; step ms {[round(s['step_ms'], 1) for s in st]}; collectives a "
-              f"step {st[1].get('collectives')}; staged a step {[s['staged'] for s in st]}"
+              f"step {next((s['collectives'] for s in st if 'collectives' in s), None)}; staged a step {[s['staged'] for s in st]}"
               f" ({[round(s['staged_gib'], 3) for s in st]} GiB to the host, "
               f"{[round(s['staged_ms']) for s in st]} ms in them, rank 0);"
               f" per-rank peak {[round(max(s['peak_gib'] for s in rr[arch]['steps']), 2) for rr in recs]}"
               f" GiB; flash launches a step {st[0]['launches']['flash_attention']} forward, "
               f"{st[0]['launches']['flash_attention_bwd']} backward a rank", flush=True)
     comp = four["compressed"]
-    dens = [s["compress_density"] for s in comp["cuda"]["steps"]]
+    dens = [s["compress_density"] for r in ("cuda", "plain") for s in comp[r]["steps"]]
     check(all(0 < d <= 0.075 for d in dens), f"(b) compressed: density {dens}")
-    comp["loss_rel"] = _hold("(b) compressed, kernel vs plain route",
-                             comp["cuda"]["steps"], comp["plain"]["steps"])
-    comp["change_rel"] = _hold_change("(b) compressed, kernel vs plain route",
-                                      comp["cuda"]["change"], comp["plain"]["change"])
+    # the loss from the plain llama run's state and first batch
+    got0 = comp["cuda"]["steps"][0]["loss"]
+    want0 = four["plain"]["llama3.2-3b"]["steps"][0]["loss"]
+    check(abs(got0 / want0 - 1) <= TRAIN_LOSS_REL,
+          f"(b) compressed: loss {got0} vs the plain step's {want0}")
+    label = "(b) compressed, kernel vs plain route"
+    comp["loss_rel"] = _hold(label, comp["cuda"]["steps"], comp["plain"]["steps"])
+    comp["change_rel"] = _hold_change(label, comp["cuda"]["change"], comp["plain"]["change"])
+    comp["error_rel"] = _hold_change(label + ", the error state", comp["cuda"]["error"],
+                                     comp["plain"]["error"])
+    moved = math.hypot(*comp["cuda"]["change"])
     for r, rr in enumerate(recs):
         for arch, fs in rr["flash_shard"].items():
             check(math.isfinite(fs["fwd_err"]) and math.isfinite(fs["bwd_err"]),
                   f"(b) rank {r} {arch}: flash at the shard shape")
     print(f"compressed pod step, (pod, data, model) = (2, 1, 2), ratio "
-          f"{LM_SH_COMPRESS['ratio']}, block {LM_SH_COMPRESS['block']}: losses "
-          f"{[s['loss'] for s in comp['cuda']['steps']]} (plain route "
-          f"{[s['loss'] for s in comp['plain']['steps']]}), the parameters' change "
-          f"{math.hypot(*comp['cuda']['change'])} (plain route "
-          f"{math.hypot(*comp['plain']['change'])}: {comp['change_rel'][0]:.3g} relative, "
-          f"the worst leaf {comp['change_rel'][1]:.3g}), "
+          f"{LM_SH_COMPRESS['ratio']}, block {LM_SH_COMPRESS['block']}, one step at "
+          f"the full rate: loss {[s['loss'] for s in comp['cuda']['steps']]} (plain route "
+          f"{[s['loss'] for s in comp['plain']['steps']]}, {comp['loss_rel']:.3g}), the "
+          f"parameters' change {moved} (plain route {math.hypot(*comp['plain']['change'])}"
+          f": {comp['change_rel'][0]:.3g} relative, the worst leaf "
+          f"{comp['change_rel'][1]:.3g}), the error state {math.hypot(*comp['cuda']['error'])}"
+          f" ({comp['error_rel'][0]:.3g}, the worst leaf {comp['error_rel'][1]:.3g}), "
           f"density {dens}, step ms {[round(s['step_ms'], 1) for s in comp['cuda']['steps']]}"
-          f" (staged {[round(s['staged_ms']) for s in comp['cuda']['steps']]} ms); "
+          f" (plain route {[round(s['step_ms'], 1) for s in comp['plain']['steps']]}; "
+          f"staged {[round(s['staged_ms']) for s in comp['cuda']['steps']]} ms); "
           f"flash at the shard "
           f"shapes {json.dumps(four['flash_shard'])}; staged by op {four['staged']};"
           f" rank wall {[round(rr['rank_s'], 1) for rr in recs]} s; the card's free "
           f"GiB (rank 0's reserved) {json.dumps(four['card_free_gib'])} "
           f"({json.dumps(four['reserved_gib'])})", flush=True)
+    _serve_check(recs)
     out["four_ranks"] = four
     out["four_ranks_s"] = time.perf_counter() - t1
     out["phase_s"] = time.perf_counter() - t0
@@ -6562,9 +6877,80 @@ def count_cells(path: str) -> None:
     from repro_torch.launch.dryrun import run_cell
     from repro_torch.models import ShapeConfig
 
+    def write(p: str, obj) -> None:
+        Path(p + ".tmp").write_text(json.dumps(obj))
+        os.replace(p + ".tmp", p)
+
+    write(path + ".ranks.json", count_rank_cells())
     recs = [run_cell(arch, ShapeConfig(f"{kind}_{B}x{S}", S, B, kind))
             for arch, kind, B, S in ROOFLINE_CELLS]
-    Path(path).write_text(json.dumps(recs))
+    write(path, recs)
+    write(path + ".pod.json", count_pod_cells())
+
+
+# (d): two of the dry run's production cells, (arch, shape, multi_pod)
+POD_CELLS = (("llama3.2-3b", "train_4k", False), ("qwen3-4b", "decode_32k", True))
+
+
+def count_rank_cells() -> dict:
+    """(c): the steps of part (b)'s ranks (sharded serving's prefill and
+    first decode step, the llama step through ``launch/train.py --mesh
+    2x2``) counted on a fake group of four: the same mesh, device type
+    ("cuda", as the ranks') and configs.  Their collectives by op."""
+    from repro_torch.launch import cost, steps
+    from repro_torch.launch.mesh import fake_group, make_mesh
+    from repro_torch.models import ShapeConfig
+    from repro_torch.train import TrainConfig
+
+    t = time.perf_counter()
+    arch, B, S, opt, mu = LM_SH_RUNS["llama3.2-3b"]
+    # launch/train.py's TrainConfig for part (b)'s llama run
+    tc = TrainConfig(optimizer=opt, warmup_steps=max(2, LM_SH_STEPS // 10),
+                     total_steps=LM_SH_STEPS, num_microbatches=mu, remat=LM_SH_REMAT)
+    cells = {
+        "prefill": (LM_ARCH, ShapeConfig("p", LM_SSH_S, LM_SSH_B, "prefill"), None),
+        "decode": (LM_ARCH, ShapeConfig("d", LM_SSH_S + LM_SSH_DECODE, LM_SSH_B,
+                                        "decode"), None),
+        "train": (arch, ShapeConfig("t", S, B, "train"), tc)}
+    out = {}
+    with fake_group(LM_SH_RANKS):
+        mesh = make_mesh((2, 2), ("data", "model"), "cuda")
+        for name, (a, shp, tc_) in cells.items():
+            cell = steps.build_cell(a, shp, _lm_config(a, LM_SH_LAYERS), mesh, tc=tc_)
+            mode = cost.CostMode(cell.mode)
+            rep = cost.count(cell, mode=mode)
+            out[name] = {"collectives": _collective_table(mode.collectives),
+                         "count_s": rep["count_s"]}
+    return {"cells": out, "count_s": time.perf_counter() - t}
+
+
+def count_pod_cells() -> dict:
+    """(d): ``POD_CELLS`` on their production meshes (256 or 512 ranks of a
+    fake group), as ``python -m repro_torch.launch.dryrun --mesh ...``
+    counts them."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import fake_group, make_production_mesh
+
+    out = []
+    for arch, shape, multi in POD_CELLS:
+        with fake_group(512 if multi else 256):
+            mesh = make_production_mesh(multi_pod=multi)
+            rec = run_cell(arch, shape, mesh=mesh,
+                           mesh_name="multipod_2x16x16" if multi else "single_16x16")
+        rl, c = rec["roofline"], rec["cost"]
+        out.append({"arch": arch, "shape": shape, "mesh": rec["mesh"],
+                    "chips": rec["chips"], "compute_s": rl["compute_s"],
+                    "memory_s": rl["memory_s"], "collective_s": rl["collective_s"],
+                    "dominant": rl["dominant"], "bound_s": rl["step_time_lower_bound_s"],
+                    "internode_fraction": c["internode_fraction"],
+                    "collectives": c["collectives"],
+                    "collective_counts": c["collective_counts"],
+                    "collective_bytes_by_axis": c["collective_bytes_by_axis"],
+                    "flops_per_chip": c["flops_per_chip"],
+                    "bytes_per_chip": c["bytes_per_chip"],
+                    "peak_gib": rec["memory"]["peak_bytes"] / 2**30,
+                    "count_s": rec["count_s"], "meta": rec["meta"]})
+    return {"cells": out}
 
 
 def start_counter() -> tuple:
@@ -6576,6 +6962,7 @@ def start_counter() -> tuple:
         [sys.executable, str(Path(__file__).resolve()), "--count-roofline", path],
         env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     PROCS.append((proc, path))
+    COUNTER[:] = [path, proc]
     return proc, path
 
 
@@ -6649,6 +7036,19 @@ def roofline_phase(counter: tuple, lm: dict, families: dict, training: dict,
                                 rec["meta"]["microbatches"]) != ("adamw", "nothing", 1):
             bad.append(f"{arch} train: the counted step is not the run's {rec['meta']}")
     check(not bad, "roofline: " + "; ".join(bad))
+    pod = json.loads(Path(path + ".pod.json").read_text())
+    for c in pod["cells"]:
+        check(c["collective_s"] > 0 and c["flops_per_chip"] > 0
+              and c["dominant"] in ("compute", "memory", "collective"),
+              f"(d) {c['arch']} {c['shape']} on {c['mesh']}: {c}")
+        print(f"(d) dry run {c['arch']} {c['shape']} on {c['mesh']} ({c['chips']} "
+              f"ranks of a fake group, counted on this host): compute "
+              f"{c['compute_s'] * 1e3:.4f} ms, memory {c['memory_s'] * 1e3:.4f} ms, "
+              f"collective {c['collective_s'] * 1e3:.4f} ms ({c['dominant']}); "
+              f"inter-node share {c['internode_fraction']:.4f}; collective bytes "
+              f"{c['collectives']}; peak {c['peak_gib']:.2f} GiB; counted in "
+              f"{c['count_s']:.2f} s", flush=True)
+    DRYRUN.update(pod)
     print(f"roofline phase: {time.perf_counter() - t:.2f} s ({waited:.2f} s waiting "
           f"for the counter; counting took {sum(r['count_s'] for r in rows):.2f} s "
           "in its own process)", flush=True)
@@ -6728,12 +7128,14 @@ def main() -> int:
         import tempfile
 
         from repro_torch import configs
+        start_counter()              # (c)'s fake-group count
         arch, B, S, pool = TRAIN_RUNS[0]
         with tempfile.TemporaryDirectory() as tmp:
             plain = _train_main(configs.get(arch), tmp, B, S, pool)
         torch.cuda.empty_cache()
         print(json.dumps({"lm_sharded": lm_sharded_phase({"train": {arch: plain}})},
                          default=float))
+        print(json.dumps({"lm_sharded_serve": SHARDED_SERVE}, default=float))
         return 0
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}",
@@ -6855,6 +7257,8 @@ def main() -> int:
     print(json.dumps({"sharded": {k: v for k, v in sharded.items()}},
                      default=float))
     print(json.dumps({"lm_sharded": lm_sharded}, default=float))
+    print(json.dumps({"lm_sharded_serve": SHARDED_SERVE}, default=float))
+    print(json.dumps({"dryrun": DRYRUN}, default=float))
     print(f"chip_smoke: {time.perf_counter() - T0[0]:.1f} s", flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

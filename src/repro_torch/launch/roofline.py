@@ -1,14 +1,14 @@
-"""Roofline terms of a counted step on one H100, and the dry run's table:
+"""Roofline terms of a counted step on H100 cards, and the dry run's table:
 the counterpart of ``repro/launch/hlo_analysis.py``'s ``roofline`` and of
 ``repro/launch/roofline.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.roofline
-    PYTHONPATH=src python -m repro_torch.launch.roofline --markdown
+    PYTHONPATH=src python -m repro_torch.launch.roofline --mesh single --markdown
 
-reads the dry run's cache (``python -m repro_torch.launch.dryrun`` writes
-it) and prints a row a cell.  ``roofline%`` is the model's FLOPs over the
-bf16 peak times the bound (the ``mfu`` the step would reach at its bound),
-``useful%`` the model's FLOPs over the counted ones.
+reads the dry run's cache of a mesh (``python -m repro_torch.launch.dryrun``
+writes it) and prints a row a cell.  ``roofline%`` is the model's FLOPs
+over the bf16 peak times the bound (the ``mfu`` the step would reach at its
+bound), ``useful%`` the model's FLOPs over the counted ones.
 """
 
 from __future__ import annotations
@@ -20,8 +20,11 @@ import os
 
 from repro_torch.launch.mesh import HW, PEAK_BY_DTYPE
 
-RESULTS = os.path.join(os.path.dirname(__file__), "..", "..", "..", "results",
-                       "dryrun_torch", "h100")
+ROOT = os.path.join(os.path.dirname(__file__), "..", "..", "..", "results",
+                    "dryrun_torch")
+#: the cache of each mesh: one card, and the reference's two production meshes
+MESH_DIRS = {"1x1": "h100", "single": "single_16x16", "multipod": "multipod_2x16x16"}
+RESULTS = os.path.join(ROOT, MESH_DIRS["1x1"])
 
 
 def compute_seconds(flops, hw: dict) -> float:
@@ -44,17 +47,23 @@ def roofline(
     coll_bytes_per_chip: float,
     hw: dict,
     *,
-    pod_fraction: float = 0.0,   # fraction of collective bytes on DCN links
+    pod_fraction: float = 0.0,   # fraction of collective bytes between nodes
 ) -> dict:
     """The reference's three terms, keys and bound.  ``flops_per_chip`` is
-    a number or a {dtype: FLOPs} dict (``compute_seconds``).  One card moves
-    no collective bytes: its term is 0 (and ``hw`` needs no link rates)."""
+    a number or a {dtype: FLOPs} dict (``compute_seconds``).  The
+    collective term is the bytes inside a node over ``hw["nvlink_bw"]``
+    plus the bytes between nodes (``pod_fraction`` of them) over
+    ``hw["internode_bw"]``.  The reference guessed its fraction (half the
+    all-reduce bytes, as if the pod axis were pure data parallelism); the
+    dry run computes it from the groups that each collective ran over
+    (``launch/dryrun.py``).  No collective bytes, no term (and ``hw`` then
+    needs no link rates)."""
     compute_s = compute_seconds(flops_per_chip, hw)
     memory_s = bytes_per_chip / hw["hbm_bw"]
     collective_s = 0.0
     if coll_bytes_per_chip:
-        collective_s = (coll_bytes_per_chip * (1.0 - pod_fraction) / hw["ici_bw"]
-                        + coll_bytes_per_chip * pod_fraction / hw["dcn_bw"])
+        collective_s = (coll_bytes_per_chip * (1.0 - pod_fraction) / hw["nvlink_bw"]
+                        + coll_bytes_per_chip * pod_fraction / hw["internode_bw"])
     terms = {"compute_s": compute_s, "memory_s": memory_s,
              "collective_s": collective_s}
     dominant = max(terms, key=terms.get)
@@ -91,22 +100,31 @@ def _fmt_s(x: float) -> str:
     return f"{x:.2f}s"
 
 
+_OP_TAG = {"all-gather": "ag", "all-reduce": "ar", "reduce-scatter": "rs",
+           "all-to-all": "a2a", "collective-permute": "cp"}
+
+
 def table(recs: list[dict], markdown: bool = False) -> str:
     rows = []
-    hdr = ["arch", "shape", "FLOPs", "bytes", "compute", "memory", "collective",
-           "dominant", "roofline%", "useful%", "stateGB", "peakGB", "fits"]
+    hdr = ["arch", "shape", "FLOPs", "bytes", "coll bytes", "coll GB by op",
+           "inter-node", "compute", "memory", "collective", "dominant", "roofline%",
+           "useful%", "stateGB", "peakGB", "fits", "count s"]
     for r in recs:
         if r.get("status") == "skipped":
-            rows.append([r["arch"], r["shape"]] + ["—"] * 5 + ["skip"]
-                        + ["—"] * 5)
+            rows.append([r["arch"], r["shape"]] + ["—"] * 8 + ["skip"]
+                        + ["—"] * 6)
             continue
         if r.get("status") != "ok":
-            rows.append([r["arch"], r["shape"], "ERR"] + [""] * 10)
+            rows.append([r["arch"], r["shape"], "ERR"] + [""] * 14)
             continue
-        rl, mem = r["roofline"], r["memory"]
+        rl, mem, c = r["roofline"], r["memory"], r["cost"]
+        by_op = " ".join(f"{_OP_TAG[op]} {b / 1e9:.3g}"
+                         for op, b in sorted(c.get("collectives", {}).items())) or "—"
         rows.append([
             r["arch"], r["shape"],
-            f"{r['cost']['flops_per_chip']:.3e}", f"{r['cost']['bytes_per_chip']:.3e}",
+            f"{c['flops_per_chip']:.3e}", f"{c['bytes_per_chip']:.3e}",
+            f"{c['collective_bytes_per_chip']:.3e}", by_op,
+            f"{c.get('internode_fraction', 0.0):.2f}",
             _fmt_s(rl["compute_s"]), _fmt_s(rl["memory_s"]),
             _fmt_s(rl["collective_s"]), rl["dominant"],
             f"{100 * mfu(r['model_flops_per_chip'], rl['step_time_lower_bound_s']):.1f}",
@@ -114,6 +132,7 @@ def table(recs: list[dict], markdown: bool = False) -> str:
             f"{mem['analytic_state_bytes'] / 1e9:.2f}",
             f"{mem['peak_bytes'] / 1e9:.2f}",
             "y" if mem["fits_80gb"] else "N",
+            f"{r['count_s']:.1f}",
         ])
     widths = [max(len(str(row[i])) for row in [hdr] + rows) for i in range(len(hdr))]
     lines = []
@@ -131,19 +150,27 @@ def table(recs: list[dict], markdown: bool = False) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--markdown", action="store_true")
-    ap.add_argument("--results", default=RESULTS)
+    ap.add_argument("--mesh", default="1x1", choices=list(MESH_DIRS))
+    ap.add_argument("--results", default=None)
     args = ap.parse_args(argv)
-    recs = load_records(args.results)
+    recs = load_records(args.results or os.path.join(ROOT, MESH_DIRS[args.mesh]))
     if not recs:
-        print("no dry-run results; run `python -m repro_torch.launch.dryrun` first")
+        print(f"no dry-run results; run `python -m repro_torch.launch.dryrun --mesh "
+              f"{args.mesh}` first")
         return 1
-    print("# Roofline — one NVIDIA H100 SXM (published peaks at 700 W: bf16 "
-          f"{HW['peak_flops_bf16']:.3g} FLOP/s, float32 {HW['peak_flops_f32']:.3g} "
-          f"FLOP/s, HBM {HW['hbm_bw']:.3g} B/s, {HW['hbm_per_chip'] / 1e9:.0f} GB)")
+    chips = next((r["chips"] for r in recs if "chips" in r), 1)
+    print(f"# Roofline — {chips} NVIDIA H100 SXM, per card (published figures: bf16 "
+          f"{HW['peak_flops_bf16']:.3g} FLOP/s at 700 W, float32 "
+          f"{HW['peak_flops_f32']:.3g} FLOP/s, HBM {HW['hbm_bw']:.3g} B/s, "
+          f"{HW['hbm_per_chip'] / 1e9:.0f} GB, NVLink {HW['nvlink_bw']:.3g} B/s, "
+          f"between nodes {HW['internode_bw']:.3g} B/s)")
     print(table(recs, markdown=args.markdown))
     print("\nroofline% = MODEL_FLOPs / (bf16 peak × bound); useful% = MODEL_FLOPs / "
-          "counted FLOPs (remat, attention, the lm head); stateGB = the step's "
-          "arguments; peakGB = the most live bytes; fits = peak under 80 GB.")
+          "counted FLOPs (remat, attention, the lm head); coll bytes = the "
+          "collectives' operand bytes (by op: ag all-gather, ar all-reduce, rs "
+          "reduce-scatter, a2a all-to-all); inter-node = their share between nodes; "
+          "stateGB = the step's arguments; peakGB = the most live bytes; fits = peak "
+          "under 80 GB; count s = host seconds to count.")
     return 0
 
 

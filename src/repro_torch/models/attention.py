@@ -35,6 +35,7 @@ from repro_torch.models.sharding import (
     current_mesh,
     local_range,
     local_region,
+    local_write,
     placements,
     redistribute,
 )
@@ -137,6 +138,17 @@ def _whole_heads(x, heads: int):
         return x
     return redistribute(x, tuple(Replicate() if d in split else p
                                  for d, p in enumerate(x.placements)))
+
+
+def _decode_split(q: DTensor, cache_k: DTensor) -> DTensor:
+    """q (B, 1, H, hd) split by heads only where the cache splits its KV
+    heads (``cache_spec_tree``), so that each rank's query heads are whole
+    groups of its own KV heads; gathered elsewhere (one token's q moves,
+    never the cache)."""
+    if not isinstance(cache_k, DTensor):
+        return q
+    return redistribute(q, tuple(Replicate() if qp == Shard(2) and kp != Shard(2) else qp
+                                 for qp, kp in zip(q.placements, cache_k.placements)))
 
 
 def attention_init(gen: torch.Generator, cfg, lead: tuple[int, ...] = ()) -> Params:
@@ -260,15 +272,17 @@ def attention_prefill(
     )
     out = out.reshape(B, S, cfg.q_dim) @ p["w_o"].to(cdt)
 
-    ck, cv = cache["k"], cache["v"]
-    L = ck.shape[1]
+    L = cache["k"].shape[1]
     if window > 0 and S >= L:
-        # position S-L+j lives at slot (S-L+j) % L = (S+j) % L
-        ck.copy_(torch.roll(k[:, -L:], S % L, dims=1))
-        cv.copy_(torch.roll(v[:, -L:], S % L, dims=1))
+        def write(c, t):
+            # position S-L+j lives at slot (S-L+j) % L = (S+j) % L
+            c.copy_(torch.roll(t[:, -L:], S % L, dims=1))
     else:
-        ck[:, :S] = k
-        cv[:, :S] = v
+        def write(c, t):
+            c[:, :S] = t
+    # on DTensors each rank writes its own shard (``local_write``)
+    local_write(cache["k"], k, write)
+    local_write(cache["v"], v, write)
     return out, cache
 
 
@@ -315,15 +329,21 @@ def attention_decode(
 
     slot = cache_len % L if window > 0 else cache_len
     k, v = cache["k"], cache["v"]
-    k[:, slot:slot + 1] = k_new.to(k.dtype)
-    v[:, slot:slot + 1] = v_new.to(v.dtype)
+
+    def write(c, t):
+        c[:, slot:slot + 1] = t
+
+    local_write(k, k_new.to(k.dtype), write)
+    local_write(v, v_new.to(v.dtype), write)
 
     KV, H, hd = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
     G = H // KV
+    if isinstance(q, DTensor):
+        q = _decode_split(q, k)
     # grouped heads: query head h reads KV head h // G, as the reference's
     # head_map gather does, without the expanded copy
     qg = q.float().reshape(B, KV, G, hd)
-    s = torch.einsum("bkgd,bskd->bkgs", qg, k.float()) / math.sqrt(hd)
+    s = _decode_scores(qg, k, hd)
     s = _softcap(s, cfg.attn_logit_softcap)                  # (B, KV, G, L)
 
     idx = torch.arange(L, device=x.device)
@@ -336,6 +356,46 @@ def attention_decode(
     s = torch.where(valid, s, NEG_INF)
 
     w = torch.softmax(s, dim=-1).to(cdt)
-    out = torch.einsum("bkgs,bskd->bkgd", w, v)
-    out = out.reshape(B, 1, cfg.q_dim) @ p["w_o"].to(cdt)
+    out = _decode_values(w, v) @ p["w_o"].to(cdt)
     return out, {"k": k, "v": v}
+
+
+def _decode_scores(qg: Tensor, k: Tensor, hd: int) -> Tensor:
+    """The new token's scores against the cache, (B, KV, G, L): QKᵀ / √hd.
+    On DTensors a local region on each rank's block of the cache (DTensor's
+    einsum rule searches placements for minutes on a 3-D mesh), split over
+    KV heads as the cache is, or summed over the mesh dimensions that split
+    head_dim (the softmax is not linear: the sum is taken here)."""
+    if not isinstance(k, DTensor):
+        return torch.einsum("bkgd,bskd->bkgs", qg, k.float()) / math.sqrt(hd)
+    qg = redistribute(qg, tuple(Shard(1) if kp == Shard(2) else kp for kp in k.placements))
+    pl = tuple(Shard(1) if kp == Shard(2) else Partial() if kp == Shard(3) else kp
+               for kp in k.placements)
+    B, KV, G, _ = qg.shape
+    s = local_region(lambda a, b: torch.einsum("bkgd,bskd->bkgs", a, b.float())
+                     / math.sqrt(hd), (qg, k), (pl, (B, KV, G, k.shape[1])))
+    return redistribute(s, tuple(Replicate() if isinstance(p, Partial) else p
+                                 for p in s.placements))
+
+
+def _decode_values(w: Tensor, v: Tensor) -> Tensor:
+    """The weights' sum of the cached values, (B, 1, H x hd).  On DTensors
+    a local region on each rank's block of the cache (see
+    :func:`_decode_scores`): split over heads where the cache splits KV
+    heads (a rank's KV heads hold a contiguous block of query heads); an
+    output split over head_dim is gathered (one token's)."""
+    B, KV, G, _ = w.shape
+    hd = v.shape[-1]
+    if not isinstance(v, DTensor):
+        return torch.einsum("bkgs,bskd->bkgd", w, v).reshape(B, 1, KV * G * hd)
+    w = redistribute(w, tuple(Shard(1) if vp == Shard(2) else vp if vp == Shard(0)
+                              else Replicate() for vp in v.placements))
+    if Shard(3) not in v.placements:
+        return local_region(
+            lambda a, b: torch.einsum("bkgs,bskd->bkgd", a, b).reshape(a.shape[0], 1, -1),
+            (w, v), (tuple(v.placements), (B, 1, KV * G * hd)))
+    pl = tuple(Shard(1) if vp == Shard(2) else vp for vp in v.placements)
+    out = local_region(lambda a, b: torch.einsum("bkgs,bskd->bkgd", a, b), (w, v),
+                       (pl, (B, KV, G, hd)))
+    out = redistribute(out, tuple(Replicate() if p == Shard(3) else p for p in pl))
+    return out.reshape(B, 1, KV * G * hd)

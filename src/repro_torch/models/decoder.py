@@ -46,10 +46,14 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.sharding import (
     DATA,
     POD,
+    cache_spec_tree,
     constrain,
+    current_mesh,
     local_range,
     local_region,
+    local_write,
     redistribute,
+    zeros_on,
 )
 from repro_torch.models.layers import (
     Params,
@@ -163,24 +167,48 @@ def _window(cfg: ModelConfig, btype: str) -> int:
     return cfg.local_window if btype == "local" else 0
 
 
+def _residual(x: Tensor) -> Tensor:
+    """The residual stream between sublayers pinned as the reference lays
+    out activations: batch over pod x data, d_model whole (tensor
+    parallelism happens inside the mixers and FFNs).  Unpinned, DTensor
+    reduces a sublayer's Partial output onto the sequence over model, and
+    on a 3-D mesh its planner then takes minutes over the flattened rows'
+    strided split.  A no-op without a mesh."""
+    return constrain(x, (POD, DATA), None, None)
+
+
 def _second_half(cfg: ModelConfig, btype: str, p: Params,
                  x: Tensor) -> tuple[Tensor, Tensor | None]:
-    """The sublayer after a block's mixer: experts (``attn_moe``, with their
-    aux loss), the FFN (``attn``, ``local``, ``rglru``), or none
-    (``mamba2``).  Returns (x, aux or None)."""
+    """The sublayer after a block's mixer (whose residual sum is ``x``):
+    experts (``attn_moe``, with their aux loss), the FFN (``attn``,
+    ``local``, ``rglru``), or none (``mamba2``).  Returns (x, aux or
+    None)."""
+    x = _residual(x)
     if btype == "mamba2":
         return x, None
     h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if btype == "attn_moe":
         y, aux = moe_lib.moe_forward(p["moe"], cfg, h2)
-        return x + y, aux
-    return x + ffn(p["ffn"], h2, dtype_of(cfg.compute_dtype), cfg.mlp_act), None
+        return _residual(x + y), aux
+    return _residual(x + ffn(p["ffn"], h2, dtype_of(cfg.compute_dtype), cfg.mlp_act)), None
+
+
+def _copy(c: Tensor, t: Tensor) -> None:
+    c.copy_(t)
 
 
 def _store(cache: Params, new: dict) -> None:
-    """Write a recurrent mixer's new state into this layer's cache views."""
+    """Write a recurrent mixer's new state into this layer's cache views
+    (on DTensors, each rank its shard: ``local_write``)."""
     for name, t in new.items():
-        cache[name].copy_(t)
+        local_write(cache[name], t, _copy)
+
+
+def _pin_logits(logits: Tensor) -> Tensor:
+    """The returned logits split as ``data_spec`` splits a (B, ...) array:
+    batch over pod x data, the vocab whole (the reference's out sharding
+    of its prefill and decode cells); a no-op without a mesh."""
+    return constrain(logits, (POD, DATA), *(None,) * (logits.ndim - 1))
 
 
 def _embed(cfg: ModelConfig, params: Params, tokens: Tensor,
@@ -357,6 +385,8 @@ def _label_logit(lf: DTensor, labels: DTensor) -> DTensor:
     labels = redistribute(labels, lab_pl)
 
     def body(l, y):
+        if (lo, hi) == (0, lf.shape[vd]):       # the whole vocab: the plain gather
+            return l.gather(-1, y[..., None])[..., 0]
         inside = (y >= lo) & (y < hi)
         got = l.gather(-1, torch.where(inside, y - lo, 0)[..., None])[..., 0]
         return torch.where(inside, got, 0.0)
@@ -394,15 +424,20 @@ def prefill(
 ) -> tuple[Tensor, Params]:
     """Full-sequence forward that also populates the decode cache.
 
-    Returns (last-position logits (B, 1, V...), cache)."""
+    Returns (last-position logits (B, 1, V...), cache).  On DTensors
+    under a mesh (``sharding.use_mesh``) the cache is made split as
+    ``cache_spec_tree`` splits it, each rank allocating and writing its own
+    shards, and the logits come back split as ``data_spec`` splits them."""
     x = _embed(cfg, params, tokens, patches)
     positions = torch.arange(x.shape[1], device=x.device)
-    cache = init_cache(cfg, x.shape[0], max_len, device=x.device)
+    mesh = current_mesh() if isinstance(x, DTensor) else None
+    dev = x.to_local().device if isinstance(x, DTensor) else x.device
+    cache = init_cache(cfg, x.shape[0], max_len, device=dev, mesh=mesh)
     for btype, p, c in _layers(cfg, params, cache):
         x = _block_prefill(cfg, btype, p, constrain(x, (POD, DATA), None, None),
                            positions, c)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["embed"], cfg, x[:, -1:]), cache
+    return _pin_logits(unembed(params["embed"], cfg, x[:, -1:])), cache
 
 
 # ---------------------------------------------------------------------------
@@ -422,9 +457,24 @@ def _block_cache_init(cfg: ModelConfig, btype: str, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device="cuda") -> Params:
-    """Decode cache, stacked over groups like the params."""
+               device="cuda", mesh=None) -> Params:
+    """Decode cache, stacked over groups like the params.  With a
+    ``DeviceMesh`` ``mesh``, DTensors split as ``cache_spec_tree`` splits
+    them, each rank holding its shards on ``device``."""
     dev = resolve_device(device)
+    if mesh is not None:
+        from torch.utils._python_dispatch import _disable_current_modes
+
+        with _disable_current_modes():      # shapes only: no operator of the step
+            shapes = abstract_cache(cfg, batch, max_len)
+        specs = cache_spec_tree(cfg, shapes, mesh)
+
+        def build(shape_tree, spec_tree):
+            return {k: build(v, spec_tree[k]) if isinstance(v, dict)
+                    else zeros_on(mesh, spec_tree[k], tuple(v.shape), v.dtype, dev)
+                    for k, v in shape_tree.items()}
+
+        return build(shapes, specs)
     return {
         "blocks": {
             f"p{i}": _block_cache_init(cfg, btype, batch, max_len, dev,
@@ -471,4 +521,4 @@ def decode_step(
     for btype, p, c in _layers(cfg, params, cache):
         x = _block_decode(cfg, btype, p, x, c, cache_len, pos)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["embed"], cfg, x), cache
+    return _pin_logits(unembed(params["embed"], cfg, x)), cache

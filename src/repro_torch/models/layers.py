@@ -14,8 +14,17 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from repro_torch.models.sharding import DATA, MODEL, POD, constrain, vocab_lookup
+from repro_torch.models.sharding import (
+    DATA,
+    MODEL,
+    POD,
+    constrain,
+    local_region,
+    redistribute,
+    vocab_lookup,
+)
 
 Tensor = torch.Tensor
 Params = dict
@@ -186,6 +195,30 @@ def embed_tokens(p: Params, cfg, tokens: Tensor) -> Tensor:
     return constrain(out, (POD, DATA), None, None)
 
 
+def _unembed_sharded(eq: str, x, w, vd: int):
+    """The lm head's product on DTensors, a local region: each rank's rows
+    against its block of the vocab, the table's other dimension gathered
+    (FSDP's unshard, as DTensor's own rule would), the logits split as
+    rows and vocab are.  DTensor's einsum rule searches placements for
+    minutes on a 3-D mesh with codebooks."""
+    rows = [d for d, q in enumerate(x.placements) if q == Shard(0)]
+    vocab = [d for d, q in enumerate(w.placements) if q == Shard(vd) and d not in rows]
+    x = redistribute(x, tuple(Shard(0) if d in rows else Replicate()
+                              for d in range(x.device_mesh.ndim)))
+    w = redistribute(w, tuple(Shard(vd) if d in vocab else Replicate()
+                              for d in range(w.device_mesh.ndim)))
+    out = tuple(Shard(0) if d in rows else Shard(3) if d in vocab else Replicate()
+                for d in range(x.device_mesh.ndim))
+    B, S, _ = x.shape
+    K, V = w.shape[0], w.shape[vd]
+    # each rank's share of the gradients: x's over its vocab block, the
+    # table's over its rows
+    gx = tuple(Partial() if d in vocab else q for d, q in enumerate(x.placements))
+    gw = tuple(Partial() if d in rows else q for d, q in enumerate(w.placements))
+    return local_region(lambda a, b: torch.einsum(eq, a, b), (x, w), (out, (B, S, K, V)),
+                        grads=(gx, gw))
+
+
 def unembed(p: Params, cfg, x: Tensor) -> Tensor:
     """x: (B, S, D) -> logits (B, S, V) or (B, S, K, V), float32.  The
     product is taken in the compute dtype, then upcast."""
@@ -193,10 +226,14 @@ def unembed(p: Params, cfg, x: Tensor) -> Tensor:
     xc = x.to(cdt)
     if cfg.tie_embeddings:
         w = p["tok"].to(cdt)                            # (K, V, D)
-        logits = torch.einsum("bsd,kvd->bskv", xc, w)
+        eq, vd = "bsd,kvd->bskv", 1
     else:
         w = p["unembed"].to(cdt)                        # (K, D, V)
-        logits = torch.einsum("bsd,kdv->bskv", xc, w)
+        eq, vd = "bsd,kdv->bskv", 2
+    if isinstance(w, DTensor):
+        logits = _unembed_sharded(eq, xc, w, vd)
+    else:
+        logits = torch.einsum(eq, xc, w)
     # vocab stays over model, batch over pod x data: unpinned, the (B, S, V)
     # logits would be gathered whole on every rank
     logits = constrain(logits, (POD, DATA), None, None, MODEL).float()

@@ -221,12 +221,15 @@ def _sharded(p: Params, cfg, x: DTensor, C: int) -> tuple[DTensor, DTensor]:
 
     def dispatch(xl, rl):
         buf, key, gates, load, prob = _dispatch(rl, cfg, xl, C)
-        return buf, key, gates, load / n, prob / n
+        if n > 1:                       # one rank's rows: the plain means
+            load, prob = load / n, prob / n
+        return buf, key, gates, load, prob
 
     buf, key, gates, load, prob = local_region(
         dispatch, (x, router),
         [(lead, (B, E, C, D)), (lead, (B, S * K)), (lead, (B, S, K)),
          (share, (E,)), (share, (E,))], grads=(None, share))
+    aux = _aux(cfg, load, prob)
     # expert parallelism: E over model, the batch over pod x data; each
     # rank's experts' banks gathered over the batch axes (FSDP's unshard),
     # the products local to each rank (a region: DTensor's einsum
@@ -247,12 +250,14 @@ def _sharded(p: Params, cfg, x: DTensor, C: int) -> tuple[DTensor, DTensor]:
     part = tuple(Partial() if d in experts else q for d, q in enumerate(lead))
 
     def combine(yl, kl, gl):
+        if (e0, e1) == (0, E):          # every expert on this rank: the plain combine
+            return _combine(yl, kl, gl)
         inside = (kl >= e0 * C) & (kl < e1 * C)
         return _combine(yl, torch.where(inside, kl - e0 * C, (e1 - e0) * C), gl)
 
     out = local_region(combine, (y, key, gates), (part, (B, S, D)),
                        grads=(None, None, part))
-    return out, _aux(cfg, load, prob)
+    return out, aux
 
 
 def _decode_path(p: Params, cfg, x: Tensor, top_idx: Tensor,

@@ -346,16 +346,68 @@ def local_region(fn, args: tuple, outs, grads: tuple | None = None):
     pairs = [outs] if single else outs
     res = (res,) if single else res
 
-    def wrap(t, pl, shape):
-        shape = torch.Size(shape)
-        stride = [1] * len(shape)
-        for d in range(len(shape) - 2, -1, -1):
-            stride[d] = stride[d + 1] * shape[d + 1]
-        return DTensor.from_local(t, mesh, pl, run_check=False, shape=shape,
-                                  stride=tuple(stride))
-
-    out = tuple(wrap(t, pl, shape) for t, (pl, shape) in zip(res, pairs))
+    out = tuple(_from_shard(t, mesh, pl, shape) for t, (pl, shape) in zip(res, pairs))
     return out[0] if single else out
+
+
+def _from_shard(local: Tensor, mesh, pl: tuple, shape) -> DTensor:
+    """``local``, this rank's shard, as a DTensor of global ``shape``
+    (contiguous strides) with placements ``pl``: no check, no collective."""
+    shape = torch.Size(shape)
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return DTensor.from_local(local, mesh, pl, run_check=False, shape=shape,
+                              stride=tuple(stride))
+
+
+def shard_on(make, mesh, pl: tuple, shape) -> DTensor:
+    """A DTensor of global ``shape`` with placements ``pl`` on ``mesh``
+    whose local shard is ``make(local_shape)``, this rank's shape as
+    ``torch.chunk`` splits (``distribute``'s result with no global tensor
+    and no collective)."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    local, _ = compute_local_shape_and_global_offset(tuple(shape), mesh, pl)
+    return _from_shard(make(local), mesh, pl, shape)
+
+
+def zeros_on(mesh, spec: tuple, shape: tuple, dtype: torch.dtype, device) -> DTensor:
+    """A zero DTensor of global ``shape`` with ``spec``'s placements on the
+    ``DeviceMesh`` ``mesh``: each rank allocates its own shard only (the
+    counterpart of a jitted ``zeros`` with an out sharding)."""
+    return shard_on(lambda local: torch.zeros(local, dtype=dtype, device=device), mesh,
+                    placements(mesh, spec), shape)
+
+
+def local_write(dst, src, write) -> None:
+    """``write(dst, src)``, an in-place write of ``src`` into ``dst`` (a
+    slice assignment, a ``copy_``), on each rank's shard where ``dst`` is a
+    DTensor: ``src`` is brought to ``dst``'s split with as little traffic
+    as the two allow (a dimension that ``src`` holds whole is narrowed to
+    ``dst``'s block on the rank, no collective; a Partial sum is reduced; a
+    split that ``dst`` lacks is gathered), then written into the local
+    shard, so no write gathers ``dst``.  Dimensions that ``write`` indexes
+    (the cache's positions) are split by neither.  Plain tensors: ``write``
+    as it is."""
+    if not isinstance(dst, DTensor):
+        write(dst, src)
+        return
+    if isinstance(src, DTensor):
+        src = redistribute(src, tuple(
+            s if s == d or isinstance(s, Replicate) else Replicate()
+            for s, d in zip(src.placements, dst.placements)))
+        local = src.to_local()
+    else:
+        local = src
+    for dim in range(dst.ndim):
+        if not any(isinstance(p, Shard) and p.dim == dim for p in dst.placements):
+            continue
+        lo, hi = local_range(dst, dim)
+        slo, shi = local_range(src, dim) if isinstance(src, DTensor) else (0, src.shape[dim])
+        if (lo, hi) != (slo, shi):
+            local = local.narrow(dim, lo - slo, hi - lo)
+    write(dst.to_local(), local)
 
 
 def vocab_lookup(table: Tensor, ids: Tensor, dtype: torch.dtype) -> Tensor:
@@ -379,6 +431,8 @@ def vocab_lookup(table: Tensor, ids: Tensor, dtype: torch.dtype) -> Tensor:
     lo, hi = local_range(table, 0)
 
     def body(w, t):
+        if (lo, hi) == (0, table.shape[0]):     # the whole vocab: the plain gather
+            return w[t]
         inside = (t >= lo) & (t < hi)
         return torch.where(inside[..., None], w[torch.where(inside, t - lo, 0)], 0.0)
 

@@ -21,7 +21,7 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models.layers import (Params, causal_conv, dense_init, dtype_of,
                                       rmsnorm)
@@ -190,12 +190,14 @@ def _ssd(cfg, x: Tensor, bc: Tensor, dt_raw: Tensor, conv_w: Tensor, conv_b: Ten
     return y.reshape(B, S, hl * pd).to(dtype), tail, state
 
 
-def _ssd_sharded(p: Params, cfg, x, bc, dt_raw, dtype):
+def _ssd_sharded(p: Params, cfg, x, bc, dt_raw, dtype, with_state: bool = False):
     """The SSD on DTensors, a local region over each rank's heads: x and
     dt_raw split over model on whole heads (else gathered whole), every
     group's B and C on every rank.  The gradients of B, C and of the
     replicated parameters are each rank's share (Partial over the heads'
-    and the batch's mesh dimensions)."""
+    and the batch's mesh dimensions).  ``with_state`` also returns the
+    final state (B, H, P, N), split as the heads and rows are, and the
+    conv's tail where no rank splits the heads (else None)."""
     from torch.distributed.tensor import Partial, Replicate
 
     mesh = x.device_mesh
@@ -215,9 +217,36 @@ def _ssd_sharded(p: Params, cfg, x, bc, dt_raw, dtype):
     share = tuple(Partial() if d in split or d in rows else Replicate()
                   for d in range(mesh.ndim))
     bc_grad = tuple(Partial() if d in split else q for d, q in enumerate(bc.placements))
-    return local_region(
-        lambda *a: _ssd(cfg, *a, h0, h1, dtype)[0], (x, bc, dt_raw, *params),
-        (x.placements, tuple(x.shape)), grads=(None, bc_grad, None) + (share,) * 5)
+    grads = (None, bc_grad, None) + (share,) * 5
+    if not with_state:
+        return local_region(
+            lambda *a: _ssd(cfg, *a, h0, h1, dtype)[0], (x, bc, dt_raw, *params),
+            (x.placements, tuple(x.shape)), grads=grads)
+    state_pl = tuple(Shard(0) if d in rows else Shard(1) if d in split else Replicate()
+                     for d in range(mesh.ndim))
+    state_shape = (x.shape[0], cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state)
+    outs = [(x.placements, tuple(x.shape)), (state_pl, state_shape)]
+    # the conv's tail holds every channel where no rank splits the heads
+    whole_heads = all(mesh.size(d) == 1 for d in split)
+    if whole_heads:
+        outs.append((tuple(Shard(0) if d in rows else Replicate() for d in range(mesh.ndim)),
+                     (x.shape[0], cfg.conv_width - 1, x.shape[2] + bc.shape[2])))
+
+    def body(*a):
+        y, tail, state = _ssd(cfg, *a, h0, h1, dtype)
+        return (y, state, tail) if whole_heads else (y, state)
+
+    res = local_region(body, (x, bc, dt_raw, *params), outs, grads=grads)
+    return res if whole_heads else (*res, None)
+
+
+def _conv_tail(x, bc, W: int):
+    """The conv's carry-out of (x, bc) on DTensors, as ``causal_conv``
+    gives it: the last W - 1 inputs, left-padded with zeros when S < W -
+    1; only those positions are gathered whole."""
+    S = x.shape[1]
+    tail = torch.cat([x[:, max(S - (W - 1), 0):], bc[:, max(S - (W - 1), 0):]], dim=-1)
+    return F.pad(tail, (0, 0, W - 1 - S, 0)) if S < W - 1 else tail
 
 
 def mamba2_forward(p: Params, cfg, u: Tensor, return_cache: bool = False):
@@ -225,16 +254,20 @@ def mamba2_forward(p: Params, cfg, u: Tensor, return_cache: bool = False):
 
     With ``return_cache`` also returns the decode cache (the final state
     ``ssm`` in float32, the conv tail ``conv`` in the compute dtype), so
-    prefill seeds O(1) decoding.  On DTensors (training under a mesh) the
-    SSD runs on each rank's heads (:func:`_ssd_sharded`), without a
-    cache."""
+    prefill seeds O(1) decoding.  On DTensors (under a mesh) the SSD runs
+    on each rank's heads (:func:`_ssd_sharded`), and the cache's state
+    comes out split as the heads are."""
     z, x, bc, dt_raw = _split_proj(p, cfg, u)
     x = constrain(x, (POD, DATA), None, MODEL)              # d_inner over model
     dt_raw = constrain(dt_raw, (POD, DATA), None, MODEL)    # heads over model
     if isinstance(x, DTensor):
-        if return_cache:
-            raise NotImplementedError("mamba2_forward: no decode cache on a mesh")
-        return _gated_out(p, cfg, _ssd_sharded(p, cfg, x, bc, dt_raw, u.dtype), z)
+        if not return_cache:
+            return _gated_out(p, cfg, _ssd_sharded(p, cfg, x, bc, dt_raw, u.dtype), z)
+        y, state, tail = _ssd_sharded(p, cfg, x, bc, dt_raw, u.dtype, with_state=True)
+        if tail is None:
+            tail = _conv_tail(x, bc, cfg.conv_width)
+        return _gated_out(p, cfg, y, z), {"conv": tail.to(dtype_of(cfg.compute_dtype)),
+                                          "ssm": state}
     y, tail, state = _ssd(cfg, x, bc, dt_raw, p["conv_w"], p["conv_b"], p["A_log"],
                           p["dt_bias"], p["D"], 0, cfg.ssm_heads, u.dtype)
     out = _gated_out(p, cfg, y, z)
@@ -261,30 +294,86 @@ def mamba2_cache_init(cfg, batch: int, *, device="cuda",
     }
 
 
-def mamba2_decode(p: Params, cfg, u: Tensor, cache: dict) -> tuple[Tensor, dict]:
-    """One token.  u: (B, 1, D).  Exact recurrence, O(1) in context.
-    Returns (output, a new cache); ``cache`` is not written."""
-    B = u.shape[0]
+def _decode_heads(cfg, x, bc, dt_raw, conv, conv_w, conv_b, dt_bias, A_log, Dp, state,
+                  h0: int, h1: int, dtype):
+    """One token's recurrence on heads [h0, h1): x (B, 1, their channels),
+    bc (B, 1, 2 g n), dt_raw (B, 1, h1 - h0), the conv state (B, W - 1,
+    conv_dim) and the parameters whole, ``state`` (B, h1 - h0, P, N).
+    Returns (y (B, 1, channels) in ``dtype``, the new conv state of these
+    channels and B, C, the new state)."""
+    B = x.shape[0]
     g, n, h, pd = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
-    di = cfg.d_inner
-
-    z, x, bc, dt_raw = _split_proj(p, cfg, u)
-    xbc = torch.cat([x, bc], dim=-1)                        # (B, 1, conv_dim)
-    window = torch.cat([cache["conv"], xbc], dim=1)         # (B, W, conv_dim)
-    conv_out = (window * p["conv_w"].to(window.dtype)).sum(1) \
-        + p["conv_b"].to(window.dtype)                      # (B, conv_dim)
+    di, hl = cfg.d_inner, h1 - h0
+    cw, cb = conv_w, conv_b
+    if hl < h:                                              # this rank's channels
+        conv = torch.cat([conv[..., h0 * pd:h1 * pd], conv[..., di:]], dim=-1)
+        cw = torch.cat([conv_w[:, h0 * pd:h1 * pd], conv_w[:, di:]], dim=-1)
+        cb = torch.cat([conv_b[h0 * pd:h1 * pd], conv_b[di:]], dim=-1)
+    xbc = torch.cat([x, bc], dim=-1)                        # (B, 1, conv channels)
+    window = torch.cat([conv, xbc], dim=1)                  # (B, W, conv channels)
+    conv_out = (window * cw.to(window.dtype)).sum(1) + cb.to(window.dtype)
     xbc1 = F.silu(conv_out.float())
-    new_conv = window[:, 1:]
 
     rep = h // g
-    xt = xbc1[:, :di].reshape(B, h, pd)
-    Bt = xbc1[:, di:di + g * n].reshape(B, g, n).repeat_interleave(rep, dim=1)
-    Ct = xbc1[:, di + g * n:].reshape(B, g, n).repeat_interleave(rep, dim=1)
+    xt = xbc1[:, :hl * pd].reshape(B, hl, pd)
+    Bt = xbc1[:, hl * pd:hl * pd + g * n].reshape(B, g, n).repeat_interleave(rep, dim=1)
+    Ct = xbc1[:, hl * pd + g * n:].reshape(B, g, n).repeat_interleave(rep, dim=1)
+    if hl < h:
+        Bt, Ct = Bt[:, h0:h1], Ct[:, h0:h1]
 
-    dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])    # (B, H)
-    a = torch.exp(-dt * torch.exp(p["A_log"]))              # (B, H)
-    hs = cache["ssm"] * a[:, :, None, None] + torch.einsum(
+    dt = F.softplus(dt_raw[:, 0].float() + dt_bias[h0:h1])  # (B, Hl)
+    a = torch.exp(-dt * torch.exp(A_log[h0:h1]))            # (B, Hl)
+    hs = state * a[:, :, None, None] + torch.einsum(
         "bhp,bhn->bhpn", xt * dt[..., None], Bt)
-    y = torch.einsum("bhpn,bhn->bhp", hs, Ct) + xt * p["D"][:, None]
-    y = y.reshape(B, 1, di).to(u.dtype)
+    y = torch.einsum("bhpn,bhn->bhp", hs, Ct) + xt * Dp[h0:h1, None]
+    return y.reshape(B, 1, hl * pd).to(dtype), window[:, 1:], hs
+
+
+def mamba2_decode(p: Params, cfg, u: Tensor, cache: dict) -> tuple[Tensor, dict]:
+    """One token.  u: (B, 1, D).  Exact recurrence, O(1) in context.
+    Returns (output, a new cache); ``cache`` is not written.  On DTensors
+    a local region on each rank's heads, as the cache's state splits them
+    (DTensor's einsum rules search placements for minutes on a 3-D mesh)."""
+    z, x, bc, dt_raw = _split_proj(p, cfg, u)
+    if isinstance(cache["ssm"], DTensor):
+        y, new = _decode_sharded(p, cfg, x, bc, dt_raw, cache, u.dtype)
+        return _gated_out(p, cfg, y, z), new
+    y, new_conv, hs = _decode_heads(cfg, x, bc, dt_raw, cache["conv"], p["conv_w"],
+                                    p["conv_b"], p["dt_bias"], p["A_log"], p["D"],
+                                    cache["ssm"], 0, cfg.ssm_heads, u.dtype)
     return _gated_out(p, cfg, y, z), {"conv": new_conv, "ssm": hs}
+
+
+def _decode_sharded(p: Params, cfg, x, bc, dt_raw, cache: dict, dtype):
+    """:func:`mamba2_decode`'s recurrence on DTensors: x and dt_raw split
+    over the mesh dimensions that split the cache's heads, B, C and the
+    conv state whole there.  The new conv state is the region's where the
+    heads are whole on every rank (each rank's window then holds every
+    channel), else the old one shifted by the token's channels, gathered
+    (one token's)."""
+    ssm = cache["ssm"]
+    mesh = ssm.device_mesh
+    rows = [d for d, q in enumerate(ssm.placements) if q == Shard(0)]
+    heads = [d for d, q in enumerate(ssm.placements) if q == Shard(1) and mesh.size(d) > 1]
+    whole = tuple(Shard(0) if d in rows else Replicate() for d in range(mesh.ndim))
+    split = tuple(Shard(2) if d in heads else q for d, q in enumerate(whole))
+    x, dt_raw = redistribute(x, split), redistribute(dt_raw, split)
+    bc, conv = redistribute(bc, whole), redistribute(cache["conv"], whole)
+    params = [redistribute(p[k], (Replicate(),) * mesh.ndim) if isinstance(p[k], DTensor)
+              else p[k] for k in ("conv_w", "conv_b", "dt_bias", "A_log", "D")]
+    h0, h1 = local_range(ssm, 1)
+    outs = [(split, tuple(x.shape)), (ssm.placements, tuple(ssm.shape))]
+    if not heads:
+        outs.append((whole, tuple(conv.shape)))
+
+    def body(*a):
+        y, window, hs = _decode_heads(cfg, *a, h0, h1, dtype)
+        return (y, hs) if heads else (y, hs, window)
+
+    res = local_region(body, (x, bc, dt_raw, conv, *params, ssm), outs)
+    if heads:
+        (y, hs), window = res, torch.cat(
+            [conv[:, 1:], torch.cat([x, bc], dim=-1).to(conv.dtype)], dim=1)
+    else:
+        y, hs, window = res
+    return y, {"conv": window, "ssm": hs}

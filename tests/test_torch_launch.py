@@ -83,8 +83,10 @@ def test_train_config_for_at_the_reference_budget(batch_shards):
 def test_roofline_matches_the_reference_on_a_grid():
     grid = itertools.product((0.0, 3.7e12, 2.2e15), (0.0, 5.1e9, 8.8e12),
                              (0.0, 1.3e9, 4.4e11), (0.0, 0.25))
+    # the port names its two link rates for the card: the v5e's passed in
+    links = dict(V5E_HW, nvlink_bw=V5E_HW["ici_bw"], internode_bw=V5E_HW["dcn_bw"])
     for flops, nbytes, coll, pod in grid:
-        got = roofline.roofline(flops, nbytes, coll, V5E_HW, pod_fraction=pod)
+        got = roofline.roofline(flops, nbytes, coll, links, pod_fraction=pod)
         want = hlo_analysis.roofline(flops, nbytes, coll, V5E_HW, pod_fraction=pod)
         assert got == want, (flops, nbytes, coll, pod)
     # on the card: FLOPs by dtype over their own peaks, no collective term

@@ -457,6 +457,28 @@ def test_the_reference_checkpoint_restores_on_2x2(runs):
                                       err_msg=k)
 
 
+# -- the dry run's count against the ranks' collectives ------------------------------
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_fake_group_count_equals_what_the_gloo_ranks_issue(runs, kind):
+    """One (2, 2) llama step and its prefill: the collectives each gloo rank
+    issued, recorded by the dry run's mode, equal the dry run's count on a
+    fake group of four, op for op, in count and in operand bytes."""
+    _, ports = runs
+    real = {k.removeprefix(f"coll/{kind}/"): v for k, v in ports[0].items()
+            if k.startswith(f"coll/{kind}/")}
+    fake = {k.removeprefix(f"fakecoll/{kind}/"): v for k, v in ports[0].items()
+            if k.startswith(f"fakecoll/{kind}/")}
+    assert real and sorted(real) == sorted(fake)
+    for k in real:
+        assert int(real[k]) == int(fake[k]), k
+    assert int(real["all-gather/count"]) > 0
+    for other in ports[1:]:
+        for k in real:
+            assert int(other[f"coll/{kind}/{k}"]) == int(real[k]), k
+
+
 # -- (vii) the launcher -------------------------------------------------------------
 
 

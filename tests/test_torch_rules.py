@@ -52,7 +52,8 @@ def _port_files():
     return files + [ROOT / "chip_smoke.py", ROOT / "chip_peak_probe.py",
                     ROOT / "chip_dtensor_probe.py",
                     ROOT / "tests" / "torch_sharded_ranks.py",
-                    ROOT / "tests" / "torch_lm_sharded_ranks.py"] + [
+                    ROOT / "tests" / "torch_lm_sharded_ranks.py",
+                    ROOT / "tests" / "torch_dryrun_sharded_ranks.py"] + [
         ROOT / "examples" / f"{name}_torch.py"
         for name in ("quickstart", "video_summarize", "serve_kv_pruning",
                      "train_lm_ss")]

@@ -10,8 +10,11 @@ parameters, three steps of each case of ``STEP_CASES`` on its mesh, the
 compressed pod step, a checkpoint saved on (2, 2) and restored elsewhere,
 the JAX package's checkpoint restored on (2, 2) (REF_CKPT, written by the
 test's JAX subprocess while the ranks run), and ``launch/train.py --mesh
-2x2``.  Rank 0 then runs the (1, 1) cases in a group of its own.  Writes
-its results to OUT.  It imports nothing of JAX.
+2x2``, and records the collectives that one more (2, 2) step of the
+llama case and its prefill issue (``launch.cost.CostMode``, the dry run's
+mode).  Rank 0 then runs the (1, 1) cases in a group of its own, and
+counts the same step and prefill on a fake group of four (the dry run's
+count).  Writes its results to OUT.  It imports nothing of JAX.
 """
 
 import contextlib
@@ -255,6 +258,77 @@ def _launch(out: dict) -> None:
     out["launch/done"] = np.asarray("done: 2 steps" in buf.getvalue())
 
 
+def _record(out: dict, tag: str, records) -> None:
+    from repro_torch.launch.cost import collective_bytes
+
+    stats = collective_bytes(records)
+    for op, n in stats.count_by_op.items():
+        out[f"{tag}/{op}/count"] = np.asarray(n)
+        out[f"{tag}/{op}/bytes"] = np.asarray(stats.bytes_by_op[op])
+
+
+def _count_config():
+    """The llama case at head_dim 32: the dry run's count takes the card's
+    route, whose flash kernels start at 32 (the collectives do not depend
+    on the route)."""
+    return dataclasses.replace(config("llama"), head_dim=32)
+
+
+def _collectives(mesh, arrays: dict, out: dict) -> None:
+    """The collectives one (2, 2) step of the llama case (at head_dim 32,
+    parameters from a seeded generator) and a prefill of its first batch's
+    tokens issue on this rank, recorded as the dry run records them."""
+    from repro_torch.launch.cost import CostMode
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models.sharding import (
+        data_spec,
+        distribute,
+        named,
+        param_spec_tree,
+        use_mesh,
+    )
+    from repro_torch.train import TrainConfig, shard_train_step
+    from repro_torch.train.trainer import _optimizer
+
+    cfg, tc = _count_config(), TrainConfig(**train_kw("adamw", 1))
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    state = {"params": params, "opt": _optimizer(tc).init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    step, shardings, _ = shard_train_step(mesh, cfg, tc, state)
+    state = distribute(state, shardings)
+    batch = _batches("llama", arrays)[0]
+    mode = CostMode()
+    with mode:
+        step(state, batch)
+    _record(out, "coll/train", mode.collectives)
+    params = distribute(state["params"], named(mesh, param_spec_tree(cfg, state["params"],
+                                                                   mesh)))
+    toks = distribute(batch["tokens"], named(mesh, data_spec(mesh, (B, S))))
+    mode = CostMode()
+    with mode, torch.no_grad(), use_mesh(mesh):
+        prefill(cfg, params, toks, max_len=S)
+    _record(out, "coll/prefill", mode.collectives)
+
+
+def _fake_counts(out: dict) -> None:
+    """The dry run's count of the same step and prefill on a fake group of
+    four, the same mesh and device type ("cpu", as these ranks')."""
+    from repro_torch.launch import cost, steps
+    from repro_torch.launch.mesh import fake_group, make_test_mesh
+    from repro_torch.models import ShapeConfig
+    from repro_torch.train import TrainConfig
+
+    with fake_group(RANKS):
+        mesh = make_test_mesh(*MESHES["2x2"], "cpu")
+        for kind in ("train", "prefill"):
+            cell = steps.build_cell("llama3.2-3b", ShapeConfig(kind, S, B, kind),
+                                    _count_config(), mesh,
+                                    tc=TrainConfig(**train_kw("adamw", 1)))
+            mode = cost.CostMode(cell.mode)
+            cost.count(cell, mode=mode)
+            _record(out, f"fakecoll/{kind}", mode.collectives)
+
+
 def _one_rank(arrays: dict, ckpt_dir: str, saved: dict, out: dict) -> None:
     """(1, 1) at one rank against the unsharded step, and the (2, 2)
     checkpoint restored on (1, 1)."""
@@ -305,9 +379,11 @@ def rank_side(rank: int, store: str, inp_path: str, ref_ckpt: str, out_path: str
     ckpt_dir = str(Path(out_path).parent / "ckpt_port")
     saved = _checkpoints(*kept, meshes, ckpt_dir, ref_ckpt, out)
     _launch(out)
+    _collectives(meshes["2x2"], arrays, out)
     dist.destroy_process_group()
     if rank == 0:
         _one_rank(arrays, ckpt_dir, saved, out)
+        _fake_counts(out)
     np.savez(out_path, **out)
 
 
